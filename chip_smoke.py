@@ -1,0 +1,571 @@
+#!/usr/bin/env python3
+"""Drive the cometbft_tpu_torch port on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py            # every phase (the full check)
+    python3 chip_smoke.py --quick    # build + kernels vs plain, 500 lanes
+
+Phases, each printing one JSON line:
+1. the card (nvidia-smi name and power limit);
+2. the build of every CUDA kernel from csrc/ (nvcc, registers, spills);
+3. each kernel against its plain PyTorch version on the card, exact
+   equality, at 4,100 lanes with edge cases and every message bucket
+   (phase 6 repeats the comparison at the main path's own shapes);
+4. the main path: a 150-validator set, a 32-height window of commits
+   through types.validation.verify_commits_coalesced (one tampered
+   signature, one commit under 2/3, nil votes) and one verify_commit,
+   lane verdicts against the host oracle, and every kernel's launch
+   counter above 0 (counters are zeroed just before and read just
+   after);
+5. bulk: ops.ed25519.verify_batch at 131,072 lanes tiled from 4,096
+   distinct signed items with ~1% corrupted; median device time,
+   verifies/s, per-kernel ms and launches, host packing ms, peak
+   device memory, each kernel against its plain version at this
+   width, and the plain/precomp crossover;
+6. the kernels line: each kernel against its plain version on the
+   main path's own inputs (the window's 4,740 lanes and the commit's
+   150), its launches on the main path, times and bound.
+
+The line before last is the card's name and power limit; the last is
+{"ok": true, "device": {...}}. Any failure exits non-zero with no
+result line. Needs no network; exits non-zero without a GPU or
+without the rest of the repository.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+SEED = 20261016
+N_CHECK = 4100  # not a multiple of 128: the last block is partial
+N_BULK = 131072
+N_DISTINCT = 4096
+N_VALS = 150
+N_HEIGHTS = 32
+CROSSOVER_WIDTHS = (512, 1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072)
+
+# card peaks: HBM bytes/s from the H100 SXM data sheet; 32-bit integer
+# results per clock per SM on sm_90 (IMAD, IADD, LOP, shifts: 64, the
+# CUDA C++ Programming Guide's throughput table), times the SM count and
+# the maximum SM clock this card reports. A 32 x 32 -> 64 product counts
+# as one multiply-add at that rate: the least it could cost.
+HBM_BYTES_S = 3.35e12
+INT_PER_CLK_SM = 64
+# 32-bit products per field operation, the least the function needs:
+# a multiply has 10 x 10, a square 55 (pairs i <= j)
+PRODUCTS = {"mul": 100, "sq": 55}
+# field multiplies and squares per lane, counted from the formulas in csrc/
+FE_OPS = {
+    # table build 151 mul; 64 windows of 27 mul + 16 sq; epilogue 20 mul + 13 sq
+    "ladder": {"mul": 151 + 64 * 27 + 20, "sq": 64 * 16 + 13},
+    # pow2523 11 mul + 251 sq, around it 7 mul + 4 sq; the data-dependent
+    # x * sqrt(-1) and x * y are not counted
+    "decompress": {"mul": 18, "sq": 255},
+}
+SHA_OPS_PER_BLOCK = 2 * 2832  # 64-bit ops per block, two 32-bit each
+SC_OPS = 600  # reduction mod L, negation, digits: 32-bit ops per lane
+
+REPLACES = {
+    "ladder": "cometbft_tpu/ops/pallas_ladder.py:220",
+    "decompress": "cometbft_tpu/ops/curve25519.py:111",
+    "hash_digits": "cometbft_tpu/ops/sha512.py:168",
+}
+SOURCES = {
+    "ladder": "cometbft_tpu_torch/csrc/ladder.cu",
+    "decompress": "cometbft_tpu_torch/csrc/decompress.cu",
+    "hash_digits": "cometbft_tpu_torch/csrc/hash_digits.cu",
+}
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def check(cond, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def smi(query: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def int_ops_s() -> tuple[float, dict]:
+    """The card's 32-bit integer rate, and what it was computed from."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(smi("clocks.max.sm").split()[0])
+    rate = INT_PER_CLK_SM * sms * mhz * 1e6
+    return rate, {"per_clk_sm": INT_PER_CLK_SM, "sms": sms, "max_sm_mhz": mhz,
+                  "int32_ops_s": rate}
+
+
+def cuda_ms(fn, reps: int, warm: int = 1) -> float:
+    """Mean ms per call over ``reps`` calls, timed with CUDA events."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def median_ms(fn, runs: int) -> float:
+    return statistics.median(cuda_ms(fn, 1, warm=0) for _ in range(runs))
+
+
+# --- data ------------------------------------------------------------------
+
+
+def signed_items(rng, n):
+    """n (msg, pk, sig) items, 100-120-byte messages (vote-sized),
+    each signed by its own key from the port's host tier."""
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+
+    out = []
+    for _ in range(n):
+        k = Ed25519PrivKey.from_seed(rng.bytes(32))
+        m = rng.bytes(int(rng.integers(100, 121)))
+        out.append((m, k.pub_key().key_bytes, k.sign(m)))
+    return out
+
+
+def edge_encodings():
+    from cometbft_tpu_torch.crypto import ref_ed25519 as ref
+
+    P = ref.P
+    return [
+        ref.point_compress(ref.IDENTITY),            # identity
+        (P - 1).to_bytes(32, "little"),              # order 2 (y = -1)
+        (P + 1).to_bytes(32, "little"),              # y >= p (non-canonical)
+        (1 << 255).to_bytes(32, "little"),           # x = 0, sign bit set
+        ((1 << 255) | 1).to_bytes(32, "little"),     # y = 1 with sign bit
+        (2**255 - 1).to_bytes(32, "little"),         # top of the range
+        P.to_bytes(32, "little"),                    # y = p
+        (2).to_bytes(32, "little"),                  # non-square
+    ]
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def compare(calls) -> dict:
+    """Run each kernel and its plain version once on the same inputs;
+    fail unless every output is equal. Returns {name: max_abs_err}."""
+    import torch
+
+    errs = {}
+    for name, (f, plain) in calls.items():
+        got, want = as_tuple(f()), as_tuple(plain())
+        same = len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
+        check(same, f"{name} != plain")
+        errs[name] = max_err(got, want)
+    return errs
+
+
+def max_err(got, want) -> int:
+    """Largest absolute difference over pairs of integer tensors."""
+    return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+               for g, w in zip(got, want))
+
+
+def tensor_of(rows, dev):
+    import numpy as np
+    import torch
+
+    arr = np.stack([np.frombuffer(r, np.uint8) for r in rows], 1)
+    return torch.from_numpy(arr.copy()).to(dev)
+
+
+# --- phase 3: kernel vs plain ------------------------------------------------
+
+
+def phase_kernels(dev, rng, n):
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.ops import curve25519 as cv
+    from cometbft_tpu_torch.ops import ed25519 as ed
+    from cometbft_tpu_torch.ops import ladder as ld
+    from cometbft_tpu_torch.ops import sc25519 as sc
+
+    res = {}
+    # K2: edge encodings, valid keys, random bytes
+    valid = [it[1] for it in signed_items(rng, 64)]
+    encs = edge_encodings() + valid
+    encs += [rng.bytes(32) for _ in range(n - len(encs))]
+    b = tensor_of(encs, dev)
+    pt, ok = cv.decompress(b)
+    ppt, pok = cv.decompress_plain(b)
+    check(torch.equal(pt, ppt) and torch.equal(ok, pok), "decompress != plain")
+    res["decompress"] = {"lanes": n, "equal": True, "ok_lanes": int(ok.sum()),
+                         "max_abs_err": max_err((pt, ok), (ppt, pok))}
+
+    # K3: every message bucket, S values around L
+    equal, err = True, 0
+    for cap in ed.MSG_CAPS:
+        lens = rng.integers(0, cap + 1, n).astype(np.int32)
+        lens[:4] = [0, 1, cap - 1, cap]
+        msgs = np.zeros((cap, n), np.uint8)
+        for i, ln in enumerate(lens):
+            msgs[:ln, i] = rng.integers(0, 256, ln, dtype=np.uint8)
+        pr = torch.from_numpy(rng.integers(0, 256, (32, 2 * n), dtype=np.uint8)).to(dev)
+        ssn = rng.integers(0, 256, (32, n), dtype=np.uint8)
+        L = sc.L
+        for i, v in enumerate((L - 1, L, L + 1, 0, 2**256 - 1)):
+            ssn[:, i] = np.frombuffer(v.to_bytes(32, "little"), np.uint8)
+        ss = torch.from_numpy(ssn).to(dev)
+        args = (torch.from_numpy(msgs).to(dev), torch.from_numpy(lens).to(dev),
+                pr[:, :n], pr[:, n:], ss)
+        got = sc.hash_digits(*args)
+        want = sc.hash_digits_plain(*args)
+        equal &= all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max(err, max_err(got, want))
+    check(equal, "hash_digits != plain")
+    res["hash_digits"] = {"lanes": n, "caps": list(ed.MSG_CAPS), "equal": True,
+                          "max_abs_err": err}
+
+    # K1 bare: random digits on valid A
+    A = pt[..., : len(valid)].repeat(1, 1, n // len(valid) + 1)[..., :n].contiguous()
+    ds = torch.from_numpy(rng.integers(0, 16, (64, n), dtype=np.uint8)).to(dev)
+    dh = torch.from_numpy(rng.integers(0, 16, (64, n), dtype=np.uint8)).to(dev)
+    q = ld.straus(ds, dh, A)
+    q_plain = ld.straus_plain(ds, dh, A)
+    check(torch.equal(q, q_plain), "straus != plain")
+
+    # K1 fused: real signatures, some corrupted
+    items = signed_items(rng, 256)
+    items = [items[i % 256] for i in range(n)]
+    for i in range(0, n, 37):
+        m, pk, sig = items[i]
+        items[i] = (m, pk, sig[:40] + bytes([sig[40] ^ 4]) + sig[41:])
+    msgs, lens, prn, ssn, _, _ = ed.pack(items, False)
+    to = lambda a: torch.from_numpy(a.T.copy()).to(dev)  # noqa: E731
+    msgs_t, prt, sst = to(msgs), to(prn), to(ssn)
+    lens_t = torch.from_numpy(lens).to(dev)
+    dsv, dhv, oks = sc.hash_digits(msgs_t, lens_t, prt[:, :n], prt[:, n:], sst)
+    ptv, okv = cv.decompress(prt)
+    args = (dsv, dhv, ptv[..., :n], ptv[..., n:], okv[:n], okv[n:], oks)
+    v = ld.verify(*args)
+    v_plain = ld.verify_plain(*args)
+    check(torch.equal(v, v_plain), "verify != plain")
+    res["ladder"] = {"lanes": n, "straus_equal": True, "verify_equal": True,
+                     "valid_lanes": int(v.sum()),
+                     "max_abs_err": max(max_err([q], [q_plain]), max_err([v], [v_plain]))}
+    return res
+
+
+# --- phase 4: the main path -------------------------------------------------
+
+
+def build_window(rng):
+    """150 validators, 32 heights of commits; height 5 has one tampered
+    signature, height 20 has 60 absent votes (under 2/3), height 9 has
+    nil votes. Returns (chain_id, vals, privs, jobs, expected)."""
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+    from cometbft_tpu_torch.types import block as B
+    from cometbft_tpu_torch.types import canonical as C
+    from cometbft_tpu_torch.types import validation as V
+    from cometbft_tpu_torch.types.validator_set import Validator, ValidatorSet
+
+    chain_id = "smoke-chain"
+    privs = [Ed25519PrivKey.from_seed(rng.bytes(32)) for _ in range(N_VALS)]
+    vals = ValidatorSet([Validator(p.pub_key(), 100) for p in privs])
+    by_addr = {p.pub_key().address(): p for p in privs}
+    privs = [by_addr[v.address] for v in vals.validators]
+    jobs, expected = [], []
+    for h in range(1, N_HEIGHTS + 1):
+        bid = B.BlockID(rng.bytes(32), B.PartSetHeader(1, rng.bytes(32)))
+        sigs = []
+        for i, (v, p) in enumerate(zip(vals.validators, privs)):
+            if h == 20 and i >= 90:
+                sigs.append(B.CommitSig.absent())
+                continue
+            flag = B.BLOCK_ID_FLAG_NIL if (h == 9 and i % 10 == 0) else B.BLOCK_ID_FLAG_COMMIT
+            ts = 1_700_000_000_000_000_000 + h * 1_000_000_000 + (i % 3)
+            target = bid if flag == B.BLOCK_ID_FLAG_COMMIT else B.NIL_BLOCK_ID
+            sb = C.vote_sign_bytes(chain_id, C.PRECOMMIT_TYPE, h, 0, target, ts)
+            sig = p.sign(sb)
+            if h == 5 and i == 7:
+                sig = sig[:10] + bytes([sig[10] ^ 1]) + sig[11:]
+            sigs.append(B.CommitSig(flag, v.address, ts, sig))
+        jobs.append((vals, bid, h, B.Commit(h, 0, bid, sigs)))
+        if h == 5:
+            expected.append((V.ErrInvalidSignature, "invalid signature for validator 7 at height 5"))
+        elif h == 20:
+            expected.append((V.ErrNotEnoughVotingPower, "height 20: tallied 9000 <= 2/3"))
+        else:
+            expected.append(None)
+    return chain_id, vals, privs, jobs, expected
+
+
+def phase_main(dev, rng):
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.ops import ed25519 as ed
+    from cometbft_tpu_torch.types import validation as V
+
+    chain_id, vals, privs, jobs, expected = build_window(rng)
+    # warm the libraries outside the counted run
+    kernels.load("ladder"), kernels.load("decompress"), kernels.load("hash_digits")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    errs = V.verify_commits_coalesced(chain_id, jobs, light=False, device=dev)
+    window_dispatch = dict(ed.LAST_DISPATCH)
+    _, bid1, h1, c1 = jobs[0]
+    V.verify_commit(chain_id, vals, bid1, h1, c1, device=dev)
+    wall = time.perf_counter() - t0
+    commit_dispatch = dict(ed.LAST_DISPATCH)
+    launches = dict(kernels.LAUNCHES)
+    got = [None if e is None else (type(e), str(e)) for e in errs]
+    check(got == expected, f"window errors {got} != {expected}")
+    check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+    # verify_commit must also reject the tampered commit
+    _, bid5, h5, c5 = jobs[4]
+    try:
+        V.verify_commit(chain_id, vals, bid5, h5, c5, device=dev)
+        raise AssertionError("tampered commit verified")
+    except V.ErrInvalidSignature as e:
+        check(str(e) == "invalid signature for validator 7", str(e))
+    # lane verdicts against the host oracle
+    per_commit = []
+    for _, _, _, commit in jobs:
+        per_commit.append([])
+        for i, cs in enumerate(commit.signatures):
+            if not cs.is_absent():
+                pk = vals.get_by_index(i).pub_key
+                per_commit[-1].append(
+                    (V._commit_sign_bytes(chain_id, commit, cs), pk, cs.signature))
+    items = [it for c in per_commit for it in c]
+    got_v = ed.verify_batch([(m, pk.key_bytes, s) for m, pk, s in items], device=dev)
+    want_v = [pk.verify(m, s) for m, pk, s in items]
+    check(list(map(bool, got_v)) == want_v, "lane verdicts != host oracle")
+    check(len(items) == window_dispatch["lanes"], "window lanes")
+    check(len(per_commit[0]) == commit_dispatch["lanes"], "commit lanes")
+    emit("main_path", lanes=window_dispatch["lanes"], mode=window_dispatch,
+         commit_mode=commit_dispatch,
+         errors=[None if g is None else g[1] for g in got], launches=launches,
+         wall_s=wall, oracle_lanes=len(items), oracle_equal=True)
+    as_bytes = lambda its: [(m, pk.key_bytes, s) for m, pk, s in its]  # noqa: E731
+    return launches, as_bytes(items), as_bytes(per_commit[0])
+
+
+# --- timing and bounds --------------------------------------------------------
+
+
+def kernel_inputs(items, dev, precomp=False):
+    import torch
+
+    from cometbft_tpu_torch.ops import ed25519 as ed
+
+    n = len(items)
+    msgs, lens, pr, ss, a_arr, bad = ed.pack(items, precomp)
+    to = lambda a: torch.from_numpy(a.T.copy()).to(dev)  # noqa: E731
+    a_t = None if a_arr is None else to(a_arr.reshape(n, -1)).view(4, 10, n)
+    return {"msgs": to(msgs), "lens": torch.from_numpy(lens).to(dev),
+            "pr": to(pr), "ss": to(ss), "a": a_t, "bad": bad, "n": n}
+
+
+def stage_calls(x):
+    """Per-kernel closures (kernel, plain) on prepared inputs (plain
+    mode); "straus" is K1's bare entry on the same digits and keys."""
+    from cometbft_tpu_torch.ops import curve25519 as cv
+    from cometbft_tpu_torch.ops import ladder as ld
+    from cometbft_tpu_torch.ops import sc25519 as sc
+
+    n = x["n"]
+    hd_args = (x["msgs"], x["lens"], x["pr"][:, :n], x["pr"][:, n:], x["ss"])
+    ds, dh, oks = sc.hash_digits(*hd_args)
+    pt, ok = cv.decompress(x["pr"])
+    v_args = (ds, dh, pt[..., :n], pt[..., n:], ok[:n], ok[n:], oks)
+    return {
+        "hash_digits": (lambda: sc.hash_digits(*hd_args), lambda: sc.hash_digits_plain(*hd_args)),
+        "decompress": (lambda: cv.decompress(x["pr"]), lambda: cv.decompress_plain(x["pr"])),
+        "ladder": (lambda: ld.verify(*v_args), lambda: ld.verify_plain(*v_args)),
+        "straus": (lambda: ld.straus(ds, dh, pt[..., :n]),
+                   lambda: ld.straus_plain(ds, dh, pt[..., :n])),
+    }
+
+
+def fe_products(name) -> int:
+    ops = FE_OPS[name]
+    return sum(ops[k] * PRODUCTS[k] for k in PRODUCTS)
+
+
+def bound(name, x, int_rate):
+    """(bound_ms, bound_by) for one kernel on these inputs."""
+    n = x["n"]
+    if name == "ladder":
+        nbytes = n * (64 + 64 + 160 + 160 + 3 + 1)
+        ops = n * fe_products("ladder")
+    elif name == "decompress":
+        lanes = 2 * n
+        nbytes = lanes * (32 + 160 + 1)
+        ops = lanes * fe_products("decompress")
+    else:
+        cap = x["msgs"].shape[0]
+        lens = x["lens"].cpu().numpy().astype(int).clip(max=cap)
+        blocks = int(((64 + lens + 16) // 128 + 1).sum())
+        nbytes = x["msgs"].numel() + n * (4 + 96 + 129)
+        ops = blocks * SHA_OPS_PER_BLOCK + n * SC_OPS
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / int_rate * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# --- phase 5: bulk --------------------------------------------------------------
+
+
+def phase_bulk(dev, rng):
+    import torch
+
+    from cometbft_tpu_torch.crypto import ref_ed25519 as ref
+    from cometbft_tpu_torch.ops import ed25519 as ed
+
+    distinct = signed_items(rng, N_DISTINCT)
+    bad_idx = set(int(i) for i in rng.choice(N_DISTINCT, N_DISTINCT // 100, replace=False))
+    for i in bad_idx:
+        m, pk, sig = distinct[i]
+        distinct[i] = (m + b"!", pk, sig) if i % 2 else (m, pk, sig[:33] + bytes([sig[33] ^ 8]) + sig[34:])
+    want_d = [i not in bad_idx for i in range(N_DISTINCT)]
+    check(all(ref.verify_zip215(distinct[i][1], distinct[i][0], distinct[i][2]) == want_d[i]
+              for i in list(bad_idx)[:8]), "oracle disagrees on corrupted items")
+    items = [distinct[i % N_DISTINCT] for i in range(N_BULK)]
+    want = [want_d[i % N_DISTINCT] for i in range(N_BULK)]
+
+    t0 = time.perf_counter()
+    got = ed.verify_batch(items, device=dev)
+    e2e_s = time.perf_counter() - t0
+    dispatch = dict(ed.LAST_DISPATCH)
+    check(list(map(bool, got)) == want, "bulk verdicts wrong")
+    check(all(v == 1 for v in dispatch["launches"].values()), f"bulk launches {dispatch}")
+
+    x = kernel_inputs(items, dev)
+    from cometbft_tpu_torch.ops.ed25519 import verify_lanes
+
+    run = lambda: verify_lanes(x["msgs"], x["lens"], x["pr"], x["ss"])  # noqa: E731
+    run()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dev_ms = median_ms(run, 5)
+    peak = torch.cuda.max_memory_allocated(dev)
+    calls = stage_calls(x)
+    t0 = time.perf_counter()
+    errs = compare(calls)
+    compare_s = time.perf_counter() - t0
+    per_kernel = {k: cuda_ms(f, 3) for k, (f, _) in calls.items()}
+    emit("bulk", lanes=N_BULK, distinct=N_DISTINCT, corrupted=len(bad_idx),
+         verdicts_ok=True, device_ms_median=dev_ms, verifies_per_s=N_BULK / dev_ms * 1e3,
+         end_to_end_s=e2e_s, end_to_end_verifies_per_s=N_BULK / e2e_s,
+         pack_ms=dispatch["pack_ms"], mode="precomp" if dispatch["precomp"] else "plain",
+         kernel_ms=per_kernel, launches=dispatch["launches"], peak_mem_bytes=peak,
+         plain_equal=True, max_abs_err=errs, compare_s=compare_s)
+
+    # plain/precomp crossover: device time plus host packing, per width
+    rows = []
+    for w in CROSSOVER_WIDTHS:
+        row = {"lanes": w}
+        for mode in ("plain", "precomp"):
+            pc = mode == "precomp"
+            t0 = time.perf_counter()
+            ed.pack(items[:w], pc)
+            pack_ms = (time.perf_counter() - t0) * 1e3
+            xi = kernel_inputs(items[:w], dev, precomp=pc)
+            f = lambda: verify_lanes(xi["msgs"], xi["lens"], xi["pr"], xi["ss"], xi["a"])  # noqa: E731
+            f()
+            row[mode] = {"device_ms": median_ms(f, 3), "pack_ms": pack_ms}
+        rows.append(row)
+    emit("crossover", rows=rows)
+    return per_kernel, x, errs
+
+
+def main(argv) -> int:
+    quick = "--quick" in argv
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from cometbft_tpu_torch import kernels
+
+    dev = torch.device("cuda", 0)
+    card = smi("name,power.limit")
+    int_rate, rate_from = int_ops_s()
+    emit("card", nvidia_smi=card, torch=torch.__version__, cuda=torch.version.cuda,
+         int_rate=rate_from)
+
+    t0 = time.perf_counter()
+    info = kernels.build_all(force=True)
+    emit("build", seconds=time.perf_counter() - t0, kernels=info)
+
+    rng = np.random.default_rng(SEED)
+    checks = phase_kernels(dev, rng, 500 if quick else N_CHECK)
+    torch.cuda.synchronize()
+    emit("kernel_vs_plain", **checks)
+    if quick:
+        print(card)
+        print(json.dumps({"quick": True}))
+        return 0
+
+    launches, window_items, commit_items = phase_main(dev, rng)
+    bulk_ms, x_bulk, bulk_errs = phase_bulk(dev, rng)
+
+    # phase 6: each kernel against its plain version on the main path's
+    # own inputs (the window's lanes and the commit's), timed at the window
+    x = kernel_inputs(window_items, dev)
+    calls = stage_calls(x)
+    errs = compare(calls)
+    x_commit = kernel_inputs(commit_items, dev)
+    commit_calls = stage_calls(x_commit)
+    commit_errs = compare(commit_calls)
+    emit("main_path_vs_plain", lanes=x["n"], commit_lanes=x_commit["n"],
+         equal=True, max_abs_err=errs, commit_max_abs_err=commit_errs)
+    rows = []
+    for name in ("ladder", "decompress", "hash_digits"):
+        f, plain = calls[name]
+        parts = (name, "straus") if name == "ladder" else (name,)
+        err = max(max(errs[k], commit_errs[k]) for k in parts)
+        b_ms, b_by = bound(name, x, int_rate)
+        bc_ms, bc_by = bound(name, x_commit, int_rate)
+        bb_ms, bb_by = bound(name, x_bulk, int_rate)
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": err, "tolerance": 0,
+            "ms": cuda_ms(f, 10, warm=2),
+            "plain_ms": cuda_ms(plain, 2, warm=0), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "lanes": x["n"], "commit_lanes": x_commit["n"],
+            "commit_ms": cuda_ms(commit_calls[name][0], 10, warm=2),
+            "commit_bound_ms": bc_ms, "commit_bound_by": bc_by,
+            "bulk_lanes": N_BULK, "bulk_ms": bulk_ms[name],
+            "bulk_bound_ms": bb_ms, "bulk_bound_by": bb_by,
+            "bulk_max_abs_err": max(bulk_errs[k] for k in parts),
+            "check": checks[name],
+        })
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

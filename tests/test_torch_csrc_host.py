@@ -1,0 +1,210 @@
+"""The CUDA kernels' arithmetic, compiled for the host, vs the plain versions.
+
+There is no nvcc on a CPU-only machine, but the kernels in
+cometbft_tpu_torch/csrc/ are one thread per lane over plain integer
+code. This test compiles each source with the host C++ compiler, with
+the CUDA qualifiers defined away and each ``<<<grid, block>>>`` launch
+rewritten as a loop over (block, thread), and calls the same C entry
+points through ctypes on CPU tensors. Each kernel must equal its plain
+PyTorch version exactly; on the card, chip_smoke.py holds the real
+build to the same versions.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from cometbft_tpu_torch import kernels
+from cometbft_tpu_torch.crypto import ref_ed25519 as ref
+from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+from cometbft_tpu_torch.ops import curve25519 as curve
+from cometbft_tpu_torch.ops import ed25519 as ed
+from cometbft_tpu_torch.ops import ladder
+from cometbft_tpu_torch.ops import sc25519 as sc
+
+# the plain versions run many small torch ops: one intra-op thread per
+# test process, so parallel test workers do not oversubscribe the cores
+torch.set_num_threads(1)
+
+STUB = r"""
+#pragma once
+#include <cstring>
+#include <cstddef>
+#include <cstdint>
+#define __device__
+#define __global__
+#define __constant__
+#define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
+#define __launch_bounds__(x)
+#define __restrict__
+typedef void* cudaStream_t;
+struct host_dim3 { int x; };
+static thread_local host_dim3 blockIdx, threadIdx, blockDim;
+inline int cudaGetLastError() { return 0; }
+template <class T> int cudaMemcpyToSymbol(T& sym, const void* src, size_t n) {
+    std::memcpy(&sym, src, n);
+    return 0;
+}
+#define HOST_LAUNCH(B, T) \
+    for (int b_ = 0; b_ < (B); ++b_) for (int t_ = 0; t_ < (T); ++t_) \
+        if ((blockIdx.x = b_, threadIdx.x = t_, blockDim.x = (T), true))
+"""
+
+P = ref.P
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the kernels' sources")
+    out = tmp_path_factory.mktemp("csrc_host")
+    (out / "cuda_runtime.h").write_text(STUB)
+    procs = {}
+    for name, src in kernels.SOURCES.items():
+        code = (kernels.CSRC / src).read_text()
+        code = re.sub(
+            r"(\w+(?:<\w+>)?)<<<\s*([^,]+),\s*([^,]+),[^>]*>>>\(",
+            r"HOST_LAUNCH(\2, \3) \1(", code,
+        )
+        (out / f"{name}.cpp").write_text(code)
+        procs[name] = subprocess.Popen(
+            [cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-I", str(out),
+             "-I", str(kernels.CSRC), "-o", str(out / f"lib{name}.so"),
+             str(out / f"{name}.cpp")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+    loaded = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate(timeout=600)
+        assert proc.returncode == 0, log[-4000:]
+        lib = ctypes.CDLL(str(out / f"lib{name}.so"))
+        for fn, argtypes in kernels.SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        loaded[name] = lib
+    assert ladder._set_btable(loaded["ladder"]) == 0
+    return loaded
+
+
+def _cols(rows):
+    return torch.tensor(np.stack([np.frombuffer(r, np.uint8) for r in rows], 1).copy())
+
+
+def test_decompress_kernel_equals_plain(libs):
+    rng = np.random.default_rng(8)
+    encs = [
+        ref.point_compress(ref.IDENTITY), (P - 1).to_bytes(32, "little"),
+        (P + 1).to_bytes(32, "little"), (1 << 255).to_bytes(32, "little"),
+        (2).to_bytes(32, "little"),
+    ]
+    encs += [ref.public_from_seed(bytes([i]) * 32) for i in range(4)]
+    encs += [rng.bytes(32) for _ in range(7)]
+    b = _cols(encs)
+    n = b.shape[1]
+    out = torch.zeros((4, 10, n), dtype=torch.int32)
+    ok = torch.zeros(n, dtype=torch.bool)
+    rc = libs["decompress"].decompress_launch(
+        b.data_ptr(), n, n, out.data_ptr(), n, ok.data_ptr(), None
+    )
+    assert rc == 0
+    want, want_ok = curve.decompress_plain(b)
+    assert torch.equal(out, want) and torch.equal(ok, want_ok)
+
+
+def test_hash_digits_kernel_equals_plain(libs):
+    rng = np.random.default_rng(9)
+    cap = ed.MSG_CAPS[-1]
+    lens = np.array([0, 1, 47, 48, 111, 112, 175, 300, 431, 432, 900, 943], np.int32)
+    n = len(lens)
+    msgs = np.zeros((cap, n), np.uint8)
+    for i, ln in enumerate(lens):
+        msgs[:ln, i] = rng.integers(0, 256, ln, dtype=np.uint8)
+    pr = torch.tensor(rng.integers(0, 256, (32, 2 * n), dtype=np.uint8))
+    ss = rng.integers(0, 256, (32, n), dtype=np.uint8)
+    for i, v in enumerate((sc.L - 1, sc.L, sc.L + 1, 0)):
+        ss[:, i] = np.frombuffer(v.to_bytes(32, "little"), np.uint8)
+    msgs, lens, ss = torch.tensor(msgs), torch.tensor(lens), torch.tensor(ss)
+    ds = torch.zeros((64, n), dtype=torch.uint8)
+    dh = torch.zeros((64, n), dtype=torch.uint8)
+    ok_s = torch.zeros(n, dtype=torch.bool)
+    rc = libs["hash_digits"].hash_digits_launch(
+        msgs.data_ptr(), cap, lens.data_ptr(), pr.data_ptr(), pr[:, n:].data_ptr(),
+        2 * n, ss.data_ptr(), n, ds.data_ptr(), dh.data_ptr(), ok_s.data_ptr(), None,
+    )
+    assert rc == 0
+    want = sc.hash_digits_plain(msgs, lens, pr[:, :n], pr[:, n:], ss)
+    assert all(torch.equal(g, w) for g, w in zip((ds, dh, ok_s), want))
+
+
+def test_hash_digits_kernel_clamps_lengths_to_cap(libs):
+    """A length above the bucket counts as the bucket, in kernel and
+    plain version alike; the kernel reads nothing past the buffer."""
+    rng = np.random.default_rng(11)
+    cap, n = ed.MSG_CAPS[0], 3
+    msgs = torch.tensor(rng.integers(0, 256, (cap, n), dtype=np.uint8))
+    pr = torch.tensor(rng.integers(0, 256, (32, 2 * n), dtype=np.uint8))
+    ss = torch.tensor(rng.integers(0, 256, (32, n), dtype=np.uint8))
+    over = torch.tensor([cap + 1, 10 * cap, 2**30], dtype=torch.int32)
+    got = [torch.zeros((64, n), dtype=torch.uint8) for _ in range(2)]
+    ok_s = torch.zeros(n, dtype=torch.bool)
+    rc = libs["hash_digits"].hash_digits_launch(
+        msgs.data_ptr(), cap, over.data_ptr(), pr.data_ptr(), pr[:, n:].data_ptr(),
+        2 * n, ss.data_ptr(), n, got[0].data_ptr(), got[1].data_ptr(),
+        ok_s.data_ptr(), None,
+    )
+    assert rc == 0
+    at_cap = torch.full((n,), cap, dtype=torch.int32)
+    want = sc.hash_digits_plain(msgs, at_cap, pr[:, :n], pr[:, n:], ss)
+    assert all(torch.equal(g, w) for g, w in zip((*got, ok_s), want))
+    plain = sc.hash_digits(msgs, over, pr[:, :n], pr[:, n:], ss)
+    assert all(torch.equal(g, w) for g, w in zip(plain, want))
+
+
+def test_ladder_kernels_equal_plain(libs):
+    """Bare entry on random digits, fused entry on real signatures."""
+    rng = np.random.default_rng(10)
+    items = []
+    for i in range(6):
+        k = Ed25519PrivKey.from_seed(rng.bytes(32))
+        m = rng.bytes(20 * i)
+        items.append((m, k.pub_key().key_bytes, k.sign(m)))
+    m, pk, sig = items[2]
+    items[2] = (m + b"x", pk, sig)
+    ident = ref.point_compress(ref.IDENTITY)
+    items.append((b"msg", (P - 1).to_bytes(32, "little"), ident + bytes(32)))
+    n = len(items)
+    msgs, lens, pr, ss, _, _ = ed.pack(items, False)
+    msgs, pr, ss = (torch.tensor(a.T.copy()) for a in (msgs, pr, ss))
+    lens = torch.tensor(lens)
+    ds, dh, ok_s = sc.hash_digits_plain(msgs, lens, pr[:, :n], pr[:, n:], ss)
+    pt, ok = curve.decompress_plain(pr)
+    table = torch.zeros((16, 4, 10, n), dtype=torch.int32)
+
+    out = torch.zeros((3, 10, n), dtype=torch.int32)
+    rds = torch.tensor(rng.integers(0, 16, (64, n), dtype=np.uint8))
+    rdh = torch.tensor(rng.integers(0, 16, (64, n), dtype=np.uint8))
+    rc = libs["ladder"].straus_launch(
+        rds.data_ptr(), rdh.data_ptr(), n, pt.data_ptr(), 2 * n,
+        table.data_ptr(), out.data_ptr(), None,
+    )
+    assert rc == 0
+    assert torch.equal(out, ladder.straus_plain(rds, rdh, pt[..., :n]))
+
+    verdict = torch.zeros(n, dtype=torch.bool)
+    rc = libs["ladder"].verify_launch(
+        ds.data_ptr(), dh.data_ptr(), n, pt.data_ptr(), 2 * n,
+        pt[..., n:].data_ptr(), 2 * n, ok.data_ptr(), ok[n:].data_ptr(),
+        ok_s.data_ptr(), table.data_ptr(), verdict.data_ptr(), None,
+    )
+    assert rc == 0
+    want = ladder.verify_plain(ds, dh, pt[..., :n], pt[..., n:], ok[:n], ok[n:], ok_s)
+    assert torch.equal(verdict, want)
+    assert verdict.tolist() == [ref.verify_zip215(pk, m, s) for m, pk, s in items]
+    assert verdict.tolist().count(False) == 1
