@@ -6,10 +6,14 @@
 
 Phases, each printing one JSON line:
 1. the card (nvidia-smi name and power limit);
-2. the build of every CUDA kernel from csrc/ (nvcc, registers, spills);
+2. the build of every CUDA kernel from csrc/ (nvcc; registers, spills,
+   stack frame and shared memory from ptxas; counts of chosen SASS
+   instructions where cuobjdump is found);
 3. each kernel against its plain PyTorch version on the card, exact
-   equality, at 4,100 lanes with edge cases and every message bucket
-   (phase 6 repeats the comparison at the main path's own shapes);
+   equality, at 4,100 lanes with edge cases and every message bucket,
+   and K1 (both entries) and K2 again at 4,101 lanes, where K1's last
+   warp and block are partial (phase 6 repeats the comparison at the
+   main path's own shapes);
 4. the main path: a 150-validator set, a 32-height window of commits
    through types.validation.verify_commits_coalesced (one tampered
    signature, one commit under 2/3, nil votes) and one verify_commit,
@@ -23,7 +27,8 @@ Phases, each printing one JSON line:
    width, and the plain/precomp crossover;
 6. the kernels line: each kernel against its plain version on the
    main path's own inputs (the window's 4,740 lanes and the commit's
-   150), its launches on the main path, times and bound.
+   150), its launches on the main path, times and bound; for K1 and K2
+   also block size, registers, shared memory and resident warps per SM.
 
 The line before last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
@@ -42,6 +47,7 @@ import time
 
 SEED = 20261016
 N_CHECK = 4100  # not a multiple of 128: the last block is partial
+N_RAGGED = 4101  # not a multiple of 4 or 32 either
 N_BULK = 131072
 N_DISTINCT = 4096
 N_VALS = 150
@@ -196,7 +202,9 @@ def tensor_of(rows, dev):
 # --- phase 3: kernel vs plain ------------------------------------------------
 
 
-def phase_kernels(dev, rng, n):
+def phase_kernels(dev, rng, n, hashes=True):
+    """Each kernel against its plain version at n lanes; K3 (every
+    message bucket) only when ``hashes``."""
     import numpy as np
     import torch
 
@@ -219,7 +227,7 @@ def phase_kernels(dev, rng, n):
 
     # K3: every message bucket, S values around L
     equal, err = True, 0
-    for cap in ed.MSG_CAPS:
+    for cap in ed.MSG_CAPS if hashes else ():
         lens = rng.integers(0, cap + 1, n).astype(np.int32)
         lens[:4] = [0, 1, cap - 1, cap]
         msgs = np.zeros((cap, n), np.uint8)
@@ -238,8 +246,9 @@ def phase_kernels(dev, rng, n):
         equal &= all(torch.equal(g, w) for g, w in zip(got, want))
         err = max(err, max_err(got, want))
     check(equal, "hash_digits != plain")
-    res["hash_digits"] = {"lanes": n, "caps": list(ed.MSG_CAPS), "equal": True,
-                          "max_abs_err": err}
+    if hashes:
+        res["hash_digits"] = {"lanes": n, "caps": list(ed.MSG_CAPS), "equal": True,
+                              "max_abs_err": err}
 
     # K1 bare: random digits on valid A
     A = pt[..., : len(valid)].repeat(1, 1, n // len(valid) + 1)[..., :n].contiguous()
@@ -318,11 +327,12 @@ def build_window(rng):
 def phase_main(dev, rng):
     from cometbft_tpu_torch import kernels
     from cometbft_tpu_torch.ops import ed25519 as ed
+    from cometbft_tpu_torch.ops import ladder as ld
     from cometbft_tpu_torch.types import validation as V
 
     chain_id, vals, privs, jobs, expected = build_window(rng)
     # warm the libraries outside the counted run
-    kernels.load("ladder"), kernels.load("decompress"), kernels.load("hash_digits")
+    kernels.load("ladder", ld._init), kernels.load("decompress"), kernels.load("hash_digits")
     kernels.reset_counts()
     t0 = time.perf_counter()
     errs = V.verify_commits_coalesced(chain_id, jobs, light=False, device=dev)
@@ -428,6 +438,26 @@ def bound(name, x, int_rate):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def occupancy(name) -> dict:
+    """Block size, registers, shared memory and resident warps per SM
+    of K1 (fused entry) or K2, as the CUDA runtime reports them."""
+    import ctypes
+
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.ops import ladder as ld
+
+    info = (ctypes.c_int * 6)()
+    if name == "ladder":
+        rc = kernels.load("ladder", ld._init).ladder_info(1, ctypes.addressof(info))
+    else:
+        rc = kernels.load("decompress").decompress_info(ctypes.addressof(info))
+    kernels.check(rc, f"{name} info")
+    threads = info[5]
+    return {"threads": threads, "registers": info[0], "smem_bytes": info[1] + info[2],
+            "stack_bytes": info[3], "blocks_per_sm": info[4],
+            "warps_per_sm": info[4] * threads // 32}
+
+
 # --- phase 5: bulk --------------------------------------------------------------
 
 
@@ -467,7 +497,12 @@ def phase_bulk(dev, rng):
     t0 = time.perf_counter()
     errs = compare(calls)
     compare_s = time.perf_counter() - t0
-    per_kernel = {k: cuda_ms(f, 3) for k, (f, _) in calls.items()}
+    # median of single calls after a warm one: a mean over three calls
+    # moved by up to 15% between phases of one run
+    per_kernel = {}
+    for k, (f, _) in calls.items():
+        f()
+        per_kernel[k] = median_ms(f, 5)
     emit("bulk", lanes=N_BULK, distinct=N_DISTINCT, corrupted=len(bad_idx),
          verdicts_ok=True, device_ms_median=dev_ms, verifies_per_s=N_BULK / dev_ms * 1e3,
          end_to_end_s=e2e_s, end_to_end_verifies_per_s=N_BULK / e2e_s,
@@ -512,11 +547,17 @@ def main(argv) -> int:
 
     t0 = time.perf_counter()
     info = kernels.build_all(force=True)
-    emit("build", seconds=time.perf_counter() - t0, kernels=info)
+    seconds = time.perf_counter() - t0
+    for name in info:
+        info[name]["sass"] = kernels.sass(name)
+    emit("build", seconds=seconds, kernels=info)
 
     rng = np.random.default_rng(SEED)
     checks = phase_kernels(dev, rng, 500 if quick else N_CHECK)
+    ragged = phase_kernels(dev, rng, 501 if quick else N_RAGGED, hashes=False)
     torch.cuda.synchronize()
+    for name, r in ragged.items():
+        checks[name]["ragged"] = r
     emit("kernel_vs_plain", **checks)
     if quick:
         print(card)
@@ -539,6 +580,7 @@ def main(argv) -> int:
     rows = []
     for name in ("ladder", "decompress", "hash_digits"):
         f, plain = calls[name]
+        extra = occupancy(name) if name in ("ladder", "decompress") else {}
         parts = (name, "straus") if name == "ladder" else (name,)
         err = max(max(errs[k], commit_errs[k]) for k in parts)
         b_ms, b_by = bound(name, x, int_rate)
@@ -557,7 +599,7 @@ def main(argv) -> int:
             "bulk_lanes": N_BULK, "bulk_ms": bulk_ms[name],
             "bulk_bound_ms": bb_ms, "bulk_bound_by": bb_by,
             "bulk_max_abs_err": max(bulk_errs[k] for k in parts),
-            "check": checks[name],
+            "check": checks[name], **extra,
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -8,16 +8,22 @@
 // reduce it), x = 0 with the sign bit set is accepted (x = -0 = 0).
 // Invalid lanes (u/v not a square) get ok = 0 and the identity.
 //
-// Bound: integer multiply-adds. ~270 field multiplies per lane, 254 of
-// them in the sequential pow2523 square chain; lanes are independent,
-// so the card is filled by lane count, not by chain depth. In plain
-// mode one launch covers the public keys and the R points together.
+// Bound: integer multiply-adds. ~270 field operations per lane, 251 of
+// them squares in the sequential pow2523 chain; lanes are independent,
+// so the card is filled by lane count, not by chain depth. The chain
+// runs on the inlined 55-product square (fe25519.cuh) with the
+// multiplies around it inlined too. In plain mode one launch covers
+// the public keys and the R points together: 9,480 points for a
+// 32-height window of 150-validator commits, which blocks of 64
+// threads spread over all 132 SMs of an H100.
 #include "fe25519.cuh"
 
-__global__ void __launch_bounds__(128)
+constexpr int THREADS = 64;  // threads a block
+
+__global__ void __launch_bounds__(THREADS)
 decompress_kernel(const uint8_t* __restrict__ in, int ld_in, int n,
                   int32_t* __restrict__ out, int ld_out, uint8_t* __restrict__ ok_out) {
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    const int lane = blockIdx.x * THREADS + threadIdx.x;
     if (lane >= n) return;
     uint8_t b[32];
 #pragma unroll
@@ -61,9 +67,24 @@ decompress_kernel(const uint8_t* __restrict__ in, int ld_in, int n,
 // int32 extended points; ok: (n,) bytes
 extern "C" int decompress_launch(const uint8_t* in, int ld_in, int n, int32_t* out,
                                  int ld_out, uint8_t* ok, void* stream) {
-    const int threads = 128;
-    const int blocks = (n + threads - 1) / threads;
-    decompress_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(in, ld_in, n, out,
+    const int blocks = (n + THREADS - 1) / THREADS;
+    decompress_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(in, ld_in, n, out,
                                                                     ld_out, ok);
+    return (int)cudaGetLastError();
+}
+
+// registers, static shared bytes, 0 (no dynamic shared memory), local
+// (stack) bytes, resident blocks per SM and threads a block
+extern "C" int decompress_info(int* info) {
+    cudaFuncAttributes fa;
+    int blocks = 0;
+    cudaFuncGetAttributes(&fa, decompress_kernel);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, decompress_kernel, THREADS, 0);
+    info[0] = fa.numRegs;
+    info[1] = (int)fa.sharedSizeBytes;
+    info[2] = 0;
+    info[3] = (int)fa.localSizeBytes;
+    info[4] = blocks;
+    info[5] = THREADS;
     return (int)cudaGetLastError();
 }

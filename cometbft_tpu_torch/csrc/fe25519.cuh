@@ -1,22 +1,27 @@
-// GF(2^255 - 19) and edwards25519 device functions, one thread per lane.
+// GF(2^255 - 19) and edwards25519 device functions.
 //
 // Radix 2^25.5: ten limbs of alternately 26 and 25 bits, stored as
 // int32, multiplied 32 x 32 -> 64 bits with int64 sums. This is the
 // arithmetic of cometbft_tpu_torch/ops/fe25519.py and curve25519.py,
-// operation for operation: the same 100 partial products, the same
-// parallel carry rounds (3 after a multiply, 1 after add/sub/neg, with
-// 2p added before a subtraction), the same point formulas. Integer
-// arithmetic is exact, so a kernel and its plain version agree limb
-// for limb. The JAX package (cometbft_tpu/ops/fe25519.py) uses 20 x 13
-// bits because the TPU has no 64-bit integers.
+// operation for operation: the same 100 partial products (a square
+// sums the same columns from 55), the same parallel carry rounds (3
+// after a multiply, 1 after add/sub/neg, with 2p added before a
+// subtraction), the same point formulas. Integer arithmetic is exact,
+// so a kernel and its plain version agree limb for limb. The JAX
+// package (cometbft_tpu/ops/fe25519.py) uses 20 x 13 bits because the
+// TPU has no 64-bit integers.
 //
-// What bounds these kernels: the integer multiply-add rate. A field
-// multiply is 100 IMAD.WIDE plus ~60 carry instructions; verification
-// costs ~3.3k field multiplies per signature in precomp mode. The
-// design keeps everything in registers per thread (one lane per
-// thread, no shared memory) and keeps the multiply out of line
-// (__noinline__) so the ladder compiles in seconds; making it fast
-// (a dedicated square, inlining, table placement) is later work.
+// What bounds these kernels: the integer multiply-add rate, and at
+// small widths the latency of one lane's chain of dependent field
+// operations. Every field operation is inlined with its operands by
+// reference, so the ten independent column sums of a multiply, and
+// the multiplies of a point operation that do not depend on each
+// other, issue back to back; nothing is called through the ABI. A
+// square has its own 55-product body: each off-diagonal product is
+// taken once against the doubled operand, which gives the int64
+// column sums of fe_mul(a, a) exactly, hence the same limbs. K1
+// spreads a point operation over four threads (ladder.cu); the
+// formulas here are the one-thread forms the rest of the code uses.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -26,8 +31,6 @@
 struct Fe { int32_t v[NL]; };
 struct Ext { Fe X, Y, Z, T; };      // extended: x = X/Z, y = Y/Z, xy = T/Z
 struct Proj { Fe X, Y, Z; };        // T-less
-struct Cached { Fe ypx, ymx, Z, t2d; };
-struct AffCached { Fe ypx, ymx, t2d; };
 
 __device__ __forceinline__ constexpr int fe_width(int i) { return (i & 1) ? 25 : 26; }
 
@@ -86,6 +89,14 @@ __device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b) {
     return fe_carry1(r);
 }
 
+// fe_sub(a, b) where sub, else fe_add(a, b): the same sums, limb for limb
+__device__ __forceinline__ Fe fe_addsub(const Fe& a, const Fe& b, bool sub) {
+    Fe r;
+#pragma unroll
+    for (int i = 0; i < NL; ++i) r.v[i] = a.v[i] + (sub ? two_p(i) - b.v[i] : b.v[i]);
+    return fe_carry1(r);
+}
+
 __device__ __forceinline__ Fe fe_neg(const Fe& a) {
     Fe r;
 #pragma unroll
@@ -93,57 +104,97 @@ __device__ __forceinline__ Fe fe_neg(const Fe& a) {
     return fe_carry1(r);
 }
 
+// The three parallel carry rounds after a product, on its column sums.
+// The values are those of three rounds on 64 bits throughout; only the
+// width differs: whatever the sums, after the first round every limb
+// is below 2^44 and after the second below 2^27, so the second round's
+// carries and the third round fit in 32 bits.
+__device__ __forceinline__ Fe fe_carry3(const uint64_t t[NL]) {
+    uint64_t u[NL];
+#pragma unroll
+    for (int i = 0; i < NL; ++i) u[i] = t[i] & ((1u << fe_width(i)) - 1);
+    u[0] += 19 * (t[NL - 1] >> fe_width(NL - 1));
+#pragma unroll
+    for (int i = 1; i < NL; ++i) u[i] += t[i - 1] >> fe_width(i - 1);
+    Fe x;
+#pragma unroll
+    for (int i = 0; i < NL; ++i) x.v[i] = (int32_t)((uint32_t)u[i] & ((1u << fe_width(i)) - 1));
+    x.v[0] += 19 * (int32_t)(u[NL - 1] >> fe_width(NL - 1));
+#pragma unroll
+    for (int i = 1; i < NL; ++i) x.v[i] += (int32_t)(u[i - 1] >> fe_width(i - 1));
+    return fe_carry1(x);
+}
+
 // out[k] = sum a_i b_j, weight 2 for odd x odd, 19 when i + j >= 10;
-// then three parallel carry rounds on the int64 sums
-__device__ __noinline__ Fe fe_mul(const Fe a, const Fe b) {
-    int32_t a2[NL], b19[NL];
+// then three parallel carry rounds on the sums. Limbs are nonnegative
+// (the invariant of ops/fe25519.py), so the products are taken
+// unsigned: one IMAD.WIDE.U32 each, where a signed 32 x 32 -> 64
+// product costs the compiler three instructions.
+__device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b) {
+    uint32_t a1[NL], a2[NL], b1[NL], b19[NL];
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
-        a2[i] = (i & 1) ? 2 * a.v[i] : a.v[i];
-        b19[i] = 19 * b.v[i];
+        a1[i] = (uint32_t)a.v[i];
+        a2[i] = (i & 1) ? 2 * a1[i] : a1[i];
+        b1[i] = (uint32_t)b.v[i];
+        b19[i] = 19 * b1[i];
     }
-    int64_t t[NL];
+    uint64_t t[NL];
 #pragma unroll
     for (int k = 0; k < NL; ++k) t[k] = 0;
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
 #pragma unroll
         for (int j = 0; j < NL; ++j) {
-            const int32_t ai = ((i & 1) && (j & 1)) ? a2[i] : a.v[i];
+            const uint32_t ai = ((i & 1) && (j & 1)) ? a2[i] : a1[i];
             if (i + j < NL)
-                t[i + j] += (int64_t)ai * b.v[j];
+                t[i + j] += (uint64_t)ai * b1[j];
             else
-                t[i + j - NL] += (int64_t)ai * b19[j];
+                t[i + j - NL] += (uint64_t)ai * b19[j];
         }
     }
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-        int64_t c[NL];
-#pragma unroll
-        for (int i = 0; i < NL; ++i) {
-            c[i] = t[i] >> fe_width(i);
-            t[i] &= (1LL << fe_width(i)) - 1;
-        }
-        t[0] += 19 * c[NL - 1];
-#pragma unroll
-        for (int i = 1; i < NL; ++i) t[i] += c[i - 1];
-    }
-    Fe out;
-#pragma unroll
-    for (int i = 0; i < NL; ++i) out.v[i] = (int32_t)t[i];
-    return out;
+    return fe_carry3(t);
 }
 
-__device__ __forceinline__ Fe fe_sq(const Fe& a) { return fe_mul(a, a); }
+// fe_mul(a, a) from 55 products: the diagonal once, each pair i < j
+// once with the symmetric weight 2 folded into the left operand (4a_i
+// where both limbs are odd); the column sums are fe_mul's exactly.
+// Carried limbs keep 4a_i below 2^28 and 19a_j below 2^31.
+__device__ __forceinline__ Fe fe_sq(const Fe& a) {
+    uint32_t a1[NL], a2[NL], a4[NL], a19[NL];
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+        a1[i] = (uint32_t)a.v[i];
+        a2[i] = 2 * a1[i];
+        a4[i] = 4 * a1[i];
+        a19[i] = 19 * a1[i];
+    }
+    uint64_t t[NL];
+#pragma unroll
+    for (int k = 0; k < NL; ++k) t[k] = 0;
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+#pragma unroll
+        for (int j = i; j < NL; ++j) {
+            const uint32_t l = i == j ? ((i & 1) ? a2[i] : a1[i])
+                                      : (((i & 1) && (j & 1)) ? a4[i] : a2[i]);
+            if (i + j < NL)
+                t[i + j] += (uint64_t)l * a1[j];
+            else
+                t[i + j - NL] += (uint64_t)l * a19[j];
+        }
+    }
+    return fe_carry3(t);
+}
 
-__device__ Fe fe_sqn(Fe x, int n) {
+__device__ __forceinline__ Fe fe_sqn(Fe x, int n) {
 #pragma unroll 1
     for (int i = 0; i < n; ++i) x = fe_sq(x);
     return x;
 }
 
 // x^((p-5)/8) = x^(2^252 - 3)
-__device__ Fe fe_pow2523(const Fe& x) {
+__device__ __forceinline__ Fe fe_pow2523(const Fe& x) {
     Fe x2 = fe_sq(x);
     Fe x9 = fe_mul(fe_sqn(x2, 2), x);
     Fe x11 = fe_mul(x9, x2);
@@ -159,7 +210,7 @@ __device__ Fe fe_pow2523(const Fe& x) {
 }
 
 // fully reduced limbs of x mod p (ops/fe25519.canonical)
-__device__ Fe fe_canonical(Fe x) {
+__device__ __forceinline__ Fe fe_canonical(Fe x) {
 #pragma unroll
     for (int pass = 0; pass < 2; ++pass) {
 #pragma unroll
@@ -220,69 +271,8 @@ __device__ __forceinline__ Ext pt_identity() {
     return p;
 }
 
-__device__ Ext pt_add(const Ext& p, const Ext& q) {
-    const Fe A = fe_mul(fe_sub(p.Y, p.X), fe_sub(q.Y, q.X));
-    const Fe B = fe_mul(fe_add(p.Y, p.X), fe_add(q.Y, q.X));
-    const Fe C = fe_mul(fe_mul(p.T, fe_d2()), q.T);
-    const Fe ZZ = fe_mul(p.Z, q.Z);
-    const Fe Dv = fe_add(ZZ, ZZ);
-    const Fe E = fe_sub(B, A), F = fe_sub(Dv, C), G = fe_add(Dv, C), H = fe_add(B, A);
-    return Ext{fe_mul(E, F), fe_mul(G, H), fe_mul(F, G), fe_mul(E, H)};
-}
-
-// doubling (dbl-2008-hwcd); the T-less form skips one multiply
-__device__ Proj pt_dbl_core(const Fe& X1, const Fe& Y1, const Fe& Z1, Fe* E_out,
-                            Fe* H_out) {
-    const Fe A = fe_sq(X1);
-    const Fe B = fe_sq(Y1);
-    const Fe Zsq = fe_sq(Z1);
-    const Fe C = fe_add(Zsq, Zsq);
-    const Fe H = fe_add(A, B);
-    const Fe E = fe_sub(H, fe_sq(fe_add(X1, Y1)));
-    const Fe G = fe_sub(A, B);
-    const Fe F = fe_add(C, G);
-    *E_out = E;
-    *H_out = H;
-    return Proj{fe_mul(E, F), fe_mul(G, H), fe_mul(F, G)};
-}
-
-__device__ __forceinline__ Proj pt_dbl(const Proj& p) {
-    Fe E, H;
-    return pt_dbl_core(p.X, p.Y, p.Z, &E, &H);
-}
-
-__device__ __forceinline__ Ext pt_dbl_ext(const Proj& p) {
-    Fe E, H;
-    const Proj r = pt_dbl_core(p.X, p.Y, p.Z, &E, &H);
-    return Ext{r.X, r.Y, r.Z, fe_mul(E, H)};
-}
-
-__device__ __forceinline__ Cached pt_to_cached(const Ext& p) {
-    return Cached{fe_add(p.Y, p.X), fe_sub(p.Y, p.X), p.Z, fe_mul(p.T, fe_d2())};
-}
-
-__device__ Ext pt_add_cached(const Ext& p, const Cached& c) {
-    const Fe A = fe_mul(fe_sub(p.Y, p.X), c.ymx);
-    const Fe B = fe_mul(fe_add(p.Y, p.X), c.ypx);
-    const Fe C = fe_mul(p.T, c.t2d);
-    const Fe ZZ = fe_mul(p.Z, c.Z);
-    const Fe Dv = fe_add(ZZ, ZZ);
-    const Fe E = fe_sub(B, A), F = fe_sub(Dv, C), G = fe_add(Dv, C), H = fe_add(B, A);
-    return Ext{fe_mul(E, F), fe_mul(G, H), fe_mul(F, G), fe_mul(E, H)};
-}
-
-// extended + cached affine (Z2 = 1), T output not computed
-__device__ Proj pt_add_affine_cached(const Ext& p, const AffCached& c) {
-    const Fe A = fe_mul(fe_sub(p.Y, p.X), c.ymx);
-    const Fe B = fe_mul(fe_add(p.Y, p.X), c.ypx);
-    const Fe C = fe_mul(p.T, c.t2d);
-    const Fe Dv = fe_add(p.Z, p.Z);
-    const Fe E = fe_sub(B, A), F = fe_sub(Dv, C), G = fe_add(Dv, C), H = fe_add(B, A);
-    return Proj{fe_mul(E, F), fe_mul(G, H), fe_mul(F, G)};
-}
-
 // projective addition (add-2008-bbjlp), reads no T
-__device__ Proj pt_add_projective(const Proj& p, const Proj& q) {
+__device__ __forceinline__ Proj pt_add_projective(const Proj& p, const Proj& q) {
     const Fe A = fe_mul(p.Z, q.Z);
     const Fe B = fe_sq(A);
     const Fe C = fe_mul(p.X, q.X);

@@ -9,14 +9,17 @@ libraries go to ``build/kernels/`` at the repository root (listed in
 library.
 
 Each C entry point returns ``cudaGetLastError()``; :func:`launch`
-raises on anything but 0. Each kernel wrapper adds one to its counter
-in ``LAUNCHES`` exactly where it launches, so a run can show which
-kernels it went through.
+raises on anything but 0. ``BUILD_INFO`` keeps, per kernel, what
+``ptxas -v`` reported; :func:`sass` counts chosen instructions in a
+built library's SASS, for reports only. Each kernel wrapper adds one to
+its counter in ``LAUNCHES`` exactly where it launches, so a run can
+show which kernels it went through.
 """
 
 from __future__ import annotations
 
 import ctypes
+import importlib.util
 import os
 import re
 import shutil
@@ -41,13 +44,15 @@ _I = ctypes.c_int
 # c_void_p: a plain int argument would be cut to 32 bits)
 SIGNATURES = {
     "ladder": {
-        "ladder_set_btable": [_P],
-        "straus_launch": [_P, _P, _I, _P, _I, _P, _P, _P],
-        "verify_launch": [
-            _P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
-        ],
+        "ladder_init": [_P],
+        "straus_launch": [_P, _P, _I, _P, _I, _P, _P],
+        "verify_launch": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P],
+        "ladder_info": [_I, _P],
     },
-    "decompress": {"decompress_launch": [_P, _I, _I, _P, _I, _P, _P]},
+    "decompress": {
+        "decompress_launch": [_P, _I, _I, _P, _I, _P, _P],
+        "decompress_info": [_P],
+    },
     "hash_digits": {
         "hash_digits_launch": [
             _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
@@ -89,15 +94,18 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """Whether kernel ``name``'s library is missing or older than its
+    source or the field layer every source includes."""
     so = _lib_path(name)
     if not so.exists():
         return True
-    newest = max(p.stat().st_mtime for p in CSRC.iterdir())
-    return so.stat().st_mtime < newest
+    deps = (CSRC / SOURCES[name], CSRC / "fe25519.cuh")
+    return so.stat().st_mtime < max(p.stat().st_mtime for p in deps)
 
 
 def _ptxas_summary(log: str) -> list:
-    """Per compiled function: registers, spill stores and loads."""
+    """Per compiled function: stack frame, spill stores and loads, and,
+    for entry functions, registers and static shared memory bytes."""
     out = []
     func = None
     for line in log.splitlines():
@@ -107,15 +115,84 @@ def _ptxas_summary(log: str) -> list:
         if m:
             func = m.group(1)
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and func and not any(o["function"] == func for o in out):
-            out.append({"function": func, "spill_stores": int(m.group(1)),
-                        "spill_loads": int(m.group(2))})
+            out.append({"function": func, "stack_frame": int(m.group(1)),
+                        "spill_stores": int(m.group(2)),
+                        "spill_loads": int(m.group(3))})
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and func and out and out[-1]["function"] == func:
             out[-1]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[-1]["smem"] = int(smem.group(1)) if smem else 0
     return out
+
+
+# SASS instructions counted per function: the 32 x 32 -> 64 products,
+# the exchanges between threads, and what would mean a call or local
+# memory (spills, arrays the compiler could not keep in registers)
+SASS_OPS = ("IMAD.WIDE", "SHFL", "LDS", "STS", "LDL", "STL", "CALL")
+
+
+def _cuobjdump():
+    """cuobjdump from PATH, the CUDA toolkit or Triton's package, or None."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    if cand.exists():
+        return str(cand)
+    spec = importlib.util.find_spec("triton")
+    for loc in (spec.submodule_search_locations or []) if spec else []:
+        cand = Path(loc) / "backends" / "nvidia" / "bin" / "cuobjdump"
+        if cand.exists():
+            return str(cand)
+    return None
+
+
+def sass_counts(sass: str) -> dict:
+    """Static counts, per function of ``cuobjdump -sass`` output, of the
+    instructions in ``SASS_OPS`` (by mnemonic, any suffix) and in all."""
+    out = {}
+    func = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = out.setdefault(m.group(1), {**dict.fromkeys(SASS_OPS, 0), "total": 0})
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and func is not None:
+            op = m.group(1)
+            func["total"] += 1
+            if op.startswith("IMAD.WIDE"):
+                func["IMAD.WIDE"] += 1
+            elif op.split(".")[0] in SASS_OPS:
+                func[op.split(".")[0]] += 1
+    return out
+
+
+def sass(name: str, timeout: float = 120):
+    """:func:`sass_counts` of kernel ``name``'s built library, or why
+    there are none (no cuobjdump, or it failed or timed out)."""
+    tool = _cuobjdump()
+    if tool is None:
+        return "cuobjdump not found"
+    try:
+        res = subprocess.run([tool, "-sass", str(_lib_path(name))],
+                             capture_output=True, text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        return f"cuobjdump timed out after {timeout} s"
+    if res.returncode != 0:
+        return f"cuobjdump failed: {res.stderr.strip()[-300:]}"
+    return sass_counts(res.stdout)
+
+
+def nvcc_command(src: Path, lib: Path, nvcc: str | None = None) -> list:
+    """The nvcc command line that builds ``src`` into the shared library
+    ``lib`` (the kernels' flags; csrc/ on the include path)."""
+    return [nvcc or _nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(lib), str(src)]
 
 
 def build_all(force: bool = False) -> dict:
@@ -131,11 +208,9 @@ def build_all(force: bool = False) -> dict:
         procs = {}
         t0 = time.perf_counter()
         for name in todo:
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o",
-                   str(_lib_path(name)), str(CSRC / SOURCES[name])]
             procs[name] = subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True,
+                nvcc_command(CSRC / SOURCES[name], _lib_path(name), nvcc),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
         failed = []
         logs = []

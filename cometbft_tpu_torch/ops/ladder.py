@@ -15,6 +15,10 @@ the cofactor, test for the identity, AND with ok_a, ok_r, ok_s — and
 writes one verdict per lane. On the GPU the window-width policy of
 the Pallas path (``pallas_enabled``, ``min_lanes``) does not apply:
 the kernel runs at every width.
+
+K1 runs four threads per lane (``csrc/ladder.cu``), with both window
+tables in shared memory: it needs no device scratch besides its inputs
+and output.
 """
 
 from __future__ import annotations
@@ -39,9 +43,9 @@ def _btab(device) -> torch.Tensor:
     return t
 
 
-def _set_btable(lib) -> int:
-    """Copy the [d]B table into the kernel's __constant__ memory."""
-    return lib.ladder_set_btable(_BTAB_I32.ctypes.data)
+def _init(lib) -> int:
+    """Copy the [d]B table to the card and allow K1 its shared memory."""
+    return lib.ladder_init(_BTAB_I32.ctypes.data)
 
 
 def _a_table(A):
@@ -118,14 +122,12 @@ def straus(ds, dh, A):
     _check_digits(ds, dh, n)
     ld_a = _check_point(A, n)
     dev = ds.device
-    table = torch.empty((16, 4, fe.NLIMBS, n), dtype=torch.int32, device=dev)
     out = torch.empty((3, fe.NLIMBS, n), dtype=torch.int32, device=dev)
     if n:
         kernels.launch(
             "ladder", "straus_launch",
             ds.data_ptr(), dh.data_ptr(), n, A.data_ptr(), ld_a,
-            table.data_ptr(), out.data_ptr(), kernels.stream_ptr(dev),
-            on_load=_set_btable,
+            out.data_ptr(), kernels.stream_ptr(dev), on_load=_init,
         )
     return out
 
@@ -148,14 +150,13 @@ def verify(ds, dh, A, R, ok_a, ok_r, ok_s):
         kernels.require(ok, torch.bool, (n,))
         kernels.require_rows(ok, n)
     dev = ds.device
-    table = torch.empty((16, 4, fe.NLIMBS, n), dtype=torch.int32, device=dev)
     verdict = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
         kernels.launch(
             "ladder", "verify_launch",
             ds.data_ptr(), dh.data_ptr(), n, A.data_ptr(), ld_a,
             R.data_ptr(), ld_r, ok_a.data_ptr(), ok_r.data_ptr(),
-            ok_s.data_ptr(), table.data_ptr(), verdict.data_ptr(),
-            kernels.stream_ptr(dev), on_load=_set_btable,
+            ok_s.data_ptr(), verdict.data_ptr(), kernels.stream_ptr(dev),
+            on_load=_init,
         )
     return verdict

@@ -1,12 +1,16 @@
 """The CUDA kernels' arithmetic, compiled for the host, vs the plain versions.
 
 There is no nvcc on a CPU-only machine, but the kernels in
-cometbft_tpu_torch/csrc/ are one thread per lane over plain integer
-code. This test compiles each source with the host C++ compiler, with
-the CUDA qualifiers defined away and each ``<<<grid, block>>>`` launch
-rewritten as a loop over (block, thread), and calls the same C entry
-points through ctypes on CPU tensors. Each kernel must equal its plain
-PyTorch version exactly; on the card, chip_smoke.py holds the real
+cometbft_tpu_torch/csrc/ are plain integer code. This test compiles each
+source with the host C++ compiler, with the CUDA qualifiers defined
+away and each ``<<<grid, block>>>`` launch rewritten to run the blocks
+one after another and each block's threads at once, as ``std::thread``s
+sharing the block's ``__shared__`` memory; ``__syncwarp`` and
+``__syncthreads`` meet at one barrier of the block (K1's four threads
+per lane wait on each other, so they cannot run as a loop). It calls
+the same C entry points through ctypes on CPU tensors. Each kernel must
+equal its plain PyTorch version exactly, at widths that leave quads,
+warps and blocks partial; on the card, chip_smoke.py holds the real
 build to the same versions.
 """
 
@@ -33,27 +37,64 @@ torch.set_num_threads(1)
 
 STUB = r"""
 #pragma once
+#include <barrier>
 #include <cstring>
 #include <cstddef>
 #include <cstdint>
+#include <thread>
+#include <vector>
 #define __device__
 #define __global__
 #define __constant__
+#define __shared__
 #define __forceinline__ inline
-#define __noinline__ __attribute__((noinline))
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 typedef void* cudaStream_t;
+struct alignas(16) int4 { int x, y, z, w; };
+inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
+struct alignas(8) int2 { int x, y; };
+inline int2 make_int2(int x, int y) { return int2{x, y}; }
 struct host_dim3 { int x; };
 static thread_local host_dim3 blockIdx, threadIdx, blockDim;
+enum { cudaErrorInvalidValue = 1, cudaSharedmemCarveoutMaxShared = 100 };
+enum cudaFuncAttribute {
+    cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncAttributePreferredSharedMemoryCarveout,
+};
+struct cudaFuncAttributes { int numRegs; size_t sharedSizeBytes, localSizeBytes; };
 inline int cudaGetLastError() { return 0; }
 template <class T> int cudaMemcpyToSymbol(T& sym, const void* src, size_t n) {
     std::memcpy(&sym, src, n);
     return 0;
 }
-#define HOST_LAUNCH(B, T) \
-    for (int b_ = 0; b_ < (B); ++b_) for (int t_ = 0; t_ < (T); ++t_) \
-        if ((blockIdx.x = b_, threadIdx.x = t_, blockDim.x = (T), true))
+template <class F> int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+template <class F> int cudaFuncGetAttributes(cudaFuncAttributes* a, F) {
+    *a = {};
+    return 0;
+}
+template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* b, F, int, size_t) {
+    *b = 0;
+    return 0;
+}
+// one block at a time: its dynamic shared memory, and its barrier
+alignas(16) int4 smem4[1 << 14];
+static std::barrier<>* block_barrier;
+inline void __syncwarp(unsigned = 0xffffffffu) { block_barrier->arrive_and_wait(); }
+inline void __syncthreads() { block_barrier->arrive_and_wait(); }
+template <class F> void host_launch(int blocks, int threads, F body) {
+    for (int b = 0; b < blocks; ++b) {
+        std::barrier<> bar(threads);
+        block_barrier = &bar;
+        std::vector<std::thread> ts;
+        for (int t = 0; t < threads; ++t)
+            ts.emplace_back([=] {
+                blockIdx.x = b, threadIdx.x = t, blockDim.x = threads;
+                body();
+            });
+        for (auto& th : ts) th.join();
+    }
+}
 """
 
 P = ref.P
@@ -70,12 +111,12 @@ def libs(tmp_path_factory):
     for name, src in kernels.SOURCES.items():
         code = (kernels.CSRC / src).read_text()
         code = re.sub(
-            r"(\w+(?:<\w+>)?)<<<\s*([^,]+),\s*([^,]+),[^>]*>>>\(",
-            r"HOST_LAUNCH(\2, \3) \1(", code,
+            r"(\w+(?:<\w+>)?)<<<\s*([^,]+),\s*([^,]+),[^>]*>>>\(([^;]*)\);",
+            r"host_launch(\2, \3, [&] { \1(\4); });", code,
         )
         (out / f"{name}.cpp").write_text(code)
         procs[name] = subprocess.Popen(
-            [cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-I", str(out),
+            [cxx, "-O1", "-std=c++20", "-pthread", "-shared", "-fPIC", "-I", str(out),
              "-I", str(kernels.CSRC), "-o", str(out / f"lib{name}.so"),
              str(out / f"{name}.cpp")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -89,7 +130,7 @@ def libs(tmp_path_factory):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         loaded[name] = lib
-    assert ladder._set_btable(loaded["ladder"]) == 0
+    assert ladder._init(loaded["ladder"]) == 0
     return loaded
 
 
@@ -97,16 +138,14 @@ def _cols(rows):
     return torch.tensor(np.stack([np.frombuffer(r, np.uint8) for r in rows], 1).copy())
 
 
-def test_decompress_kernel_equals_plain(libs):
-    rng = np.random.default_rng(8)
-    encs = [
-        ref.point_compress(ref.IDENTITY), (P - 1).to_bytes(32, "little"),
-        (P + 1).to_bytes(32, "little"), (1 << 255).to_bytes(32, "little"),
-        (2).to_bytes(32, "little"),
-    ]
-    encs += [ref.public_from_seed(bytes([i]) * 32) for i in range(4)]
-    encs += [rng.bytes(32) for _ in range(7)]
-    b = _cols(encs)
+EDGES = [
+    ref.point_compress(ref.IDENTITY), (P - 1).to_bytes(32, "little"),
+    (P + 1).to_bytes(32, "little"), (1 << 255).to_bytes(32, "little"),
+    (2).to_bytes(32, "little"),
+]
+
+
+def _decompress(libs, b):
     n = b.shape[1]
     out = torch.zeros((4, 10, n), dtype=torch.int32)
     ok = torch.zeros(n, dtype=torch.bool)
@@ -114,6 +153,29 @@ def test_decompress_kernel_equals_plain(libs):
         b.data_ptr(), n, n, out.data_ptr(), n, ok.data_ptr(), None
     )
     assert rc == 0
+    return out, ok
+
+
+def test_decompress_kernel_equals_plain(libs):
+    rng = np.random.default_rng(8)
+    encs = EDGES + [ref.public_from_seed(bytes([i]) * 32) for i in range(4)]
+    encs += [rng.bytes(32) for _ in range(7)]
+    b = _cols(encs)
+    out, ok = _decompress(libs, b)
+    want, want_ok = curve.decompress_plain(b)
+    assert torch.equal(out, want) and torch.equal(ok, want_ok)
+
+
+# lanes: partial quads, warps and blocks (K1 takes 32 lanes a block, K2 64)
+RAGGED = [1, 3, 7, 33, 65]
+
+
+@pytest.mark.parametrize("n", RAGGED)
+def test_decompress_kernel_ragged_widths(libs, n):
+    encs = EDGES + [ref.public_from_seed(bytes([i]) * 32) for i in range(n)]
+    encs = (encs[::-1] if n % 2 else encs)[:n]
+    b = _cols(encs)
+    out, ok = _decompress(libs, b)
     want, want_ok = curve.decompress_plain(b)
     assert torch.equal(out, want) and torch.equal(ok, want_ok)
 
@@ -167,32 +229,39 @@ def test_hash_digits_kernel_clamps_lengths_to_cap(libs):
     assert all(torch.equal(g, w) for g, w in zip(plain, want))
 
 
-def test_ladder_kernels_equal_plain(libs):
-    """Bare entry on random digits, fused entry on real signatures."""
-    rng = np.random.default_rng(10)
+def _ladder_inputs(n, seed):
+    """n signed items (every third corrupted, one order-2 key with the
+    identity R) through the plain stages, and random digits."""
+    rng = np.random.default_rng(seed)
     items = []
-    for i in range(6):
+    for i in range(n):
         k = Ed25519PrivKey.from_seed(rng.bytes(32))
-        m = rng.bytes(20 * i)
+        m = rng.bytes(20 * (i % 7))
         items.append((m, k.pub_key().key_bytes, k.sign(m)))
-    m, pk, sig = items[2]
-    items[2] = (m + b"x", pk, sig)
-    ident = ref.point_compress(ref.IDENTITY)
-    items.append((b"msg", (P - 1).to_bytes(32, "little"), ident + bytes(32)))
-    n = len(items)
+    for i in range(2, n, 3):
+        m, pk, sig = items[i]
+        items[i] = (m + b"x", pk, sig)
+    if n > 1:
+        ident = ref.point_compress(ref.IDENTITY)
+        items[-1] = (b"msg", (P - 1).to_bytes(32, "little"), ident + bytes(32))
     msgs, lens, pr, ss, _, _ = ed.pack(items, False)
     msgs, pr, ss = (torch.tensor(a.T.copy()) for a in (msgs, pr, ss))
     lens = torch.tensor(lens)
     ds, dh, ok_s = sc.hash_digits_plain(msgs, lens, pr[:, :n], pr[:, n:], ss)
     pt, ok = curve.decompress_plain(pr)
-    table = torch.zeros((16, 4, 10, n), dtype=torch.int32)
-
-    out = torch.zeros((3, 10, n), dtype=torch.int32)
     rds = torch.tensor(rng.integers(0, 16, (64, n), dtype=np.uint8))
     rdh = torch.tensor(rng.integers(0, 16, (64, n), dtype=np.uint8))
+    return items, (ds, dh, ok_s), (pt, ok), (rds, rdh)
+
+
+def _check_ladder(libs, n, seed):
+    """Bare entry on random digits, fused entry on real signatures;
+    returns the fused verdicts."""
+    items, (ds, dh, ok_s), (pt, ok), (rds, rdh) = _ladder_inputs(n, seed)
+    out = torch.zeros((3, 10, n), dtype=torch.int32)
     rc = libs["ladder"].straus_launch(
         rds.data_ptr(), rdh.data_ptr(), n, pt.data_ptr(), 2 * n,
-        table.data_ptr(), out.data_ptr(), None,
+        out.data_ptr(), None,
     )
     assert rc == 0
     assert torch.equal(out, ladder.straus_plain(rds, rdh, pt[..., :n]))
@@ -201,10 +270,21 @@ def test_ladder_kernels_equal_plain(libs):
     rc = libs["ladder"].verify_launch(
         ds.data_ptr(), dh.data_ptr(), n, pt.data_ptr(), 2 * n,
         pt[..., n:].data_ptr(), 2 * n, ok.data_ptr(), ok[n:].data_ptr(),
-        ok_s.data_ptr(), table.data_ptr(), verdict.data_ptr(), None,
+        ok_s.data_ptr(), verdict.data_ptr(), None,
     )
     assert rc == 0
     want = ladder.verify_plain(ds, dh, pt[..., :n], pt[..., n:], ok[:n], ok[n:], ok_s)
     assert torch.equal(verdict, want)
     assert verdict.tolist() == [ref.verify_zip215(pk, m, s) for m, pk, s in items]
-    assert verdict.tolist().count(False) == 1
+    return verdict
+
+
+def test_ladder_kernels_equal_plain(libs):
+    """Bare entry on random digits, fused entry on real signatures."""
+    verdict = _check_ladder(libs, 7, 10)
+    assert verdict.tolist() == [True, True, False, True, True, False, True]
+
+
+@pytest.mark.parametrize("n", RAGGED)
+def test_ladder_kernels_ragged_widths(libs, n):
+    _check_ladder(libs, n, 100 + n)
