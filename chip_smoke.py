@@ -11,9 +11,9 @@ Phases, each printing one JSON line:
    instructions where cuobjdump is found);
 3. each kernel against its plain PyTorch version on the card, exact
    equality, at 4,100 lanes with edge cases and every message bucket,
-   and K1 (both entries) and K2 again at 4,101 lanes, where K1's last
-   warp and block are partial (phase 6 repeats the comparison at the
-   main path's own shapes);
+   and again at 4,101 lanes, where the last warps and blocks are
+   partial and K3's rows are not 4-byte aligned (phase 6 repeats the
+   comparison at the main path's own shapes);
 4. the main path: a 150-validator set, a 32-height window of commits
    through types.validation.verify_commits_coalesced (one tampered
    signature, one commit under 2/3, nil votes) and one verify_commit,
@@ -22,13 +22,17 @@ Phases, each printing one JSON line:
    after);
 5. bulk: ops.ed25519.verify_batch at 131,072 lanes tiled from 4,096
    distinct signed items with ~1% corrupted; median device time,
-   verifies/s, per-kernel ms and launches, host packing ms, peak
+   verifies/s, per-kernel device ms (CUDA graph) and single-call ms
+   (with the wrapper's host time) and launches, host packing ms, peak
    device memory, each kernel against its plain version at this
    width, and the plain/precomp crossover;
 6. the kernels line: each kernel against its plain version on the
    main path's own inputs (the window's 4,740 lanes and the commit's
-   150), its launches on the main path, times and bound; for K1 and K2
-   also block size, registers, shared memory and resident warps per SM.
+   150), its launches on the main path, times and bound, block size,
+   registers, shared memory, stack and resident warps per SM. "ms"
+   times are device times, of calls replayed from a CUDA graph;
+   "call_ms" times are of calls from Python, back to back at the window
+   and the commit, single at bulk, wrapper host time included.
 
 The line before last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
@@ -72,7 +76,13 @@ FE_OPS = {
     # x * sqrt(-1) and x * y are not counted
     "decompress": {"mul": 18, "sq": 255},
 }
-SHA_OPS_PER_BLOCK = 2 * 2832  # 64-bit ops per block, two 32-bit each
+# SHA-512, 32-bit instructions a 128-byte block at the least: a 64-bit
+# rotate is two funnel shifts, a three-way XOR, choose or majority one
+# LOP3 a half, a sum of three 64-bit words one IADD3 pair. A round: S0,
+# S1 8 each, ch 2, maj 2, t1 (five terms) 4, e 2, a 2 = 28; a schedule
+# word: s0, s1 8 each, its four terms 4 = 20; the feed-forward 16; the
+# byte swap of the 16 message words 32
+SHA_OPS_PER_BLOCK = 80 * 28 + 64 * 20 + 16 + 32
 SC_OPS = 600  # reduction mod L, negation, digits: 32-bit ops per lane
 
 REPLACES = {
@@ -126,6 +136,32 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     a.record()
     for _ in range(reps):
         fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device ms per call over ``reps`` calls captured in one CUDA
+    graph: the card's time alone. Called back to back from Python, a
+    kernel of a few microseconds waits on the host's launch overhead
+    (the wrappers' checks and allocations), which ``cuda_ms`` counts."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
@@ -202,9 +238,9 @@ def tensor_of(rows, dev):
 # --- phase 3: kernel vs plain ------------------------------------------------
 
 
-def phase_kernels(dev, rng, n, hashes=True):
-    """Each kernel against its plain version at n lanes; K3 (every
-    message bucket) only when ``hashes``."""
+def phase_kernels(dev, rng, n):
+    """Each kernel against its plain version at n lanes, K3 in every
+    message bucket."""
     import numpy as np
     import torch
 
@@ -225,11 +261,17 @@ def phase_kernels(dev, rng, n, hashes=True):
     res["decompress"] = {"lanes": n, "equal": True, "ok_lanes": int(ok.sum()),
                          "max_abs_err": max_err((pt, ok), (ppt, pok))}
 
-    # K3: every message bucket, S values around L
+    # K3: every message bucket, S values around L; the first and the
+    # last full block of 64 lanes each hold lanes of every SHA block
+    # count the bucket allows, at the count's edges (47/48, 175/176...)
     equal, err = True, 0
-    for cap in ed.MSG_CAPS if hashes else ():
+    end = n // 64 * 64
+    for cap in ed.MSG_CAPS:
         lens = rng.integers(0, cap + 1, n).astype(np.int32)
-        lens[:4] = [0, 1, cap - 1, cap]
+        edges = [0, 1, cap - 1, cap] + [128 * b + d for b in range(8) for d in (47, 48)
+                                        if 128 * b + d <= cap]
+        lens[: len(edges)] = edges
+        lens[end - len(edges): end] = edges[::-1]
         msgs = np.zeros((cap, n), np.uint8)
         for i, ln in enumerate(lens):
             msgs[:ln, i] = rng.integers(0, 256, ln, dtype=np.uint8)
@@ -246,9 +288,8 @@ def phase_kernels(dev, rng, n, hashes=True):
         equal &= all(torch.equal(g, w) for g, w in zip(got, want))
         err = max(err, max_err(got, want))
     check(equal, "hash_digits != plain")
-    if hashes:
-        res["hash_digits"] = {"lanes": n, "caps": list(ed.MSG_CAPS), "equal": True,
-                              "max_abs_err": err}
+    res["hash_digits"] = {"lanes": n, "caps": list(ed.MSG_CAPS), "equal": True,
+                          "max_abs_err": err}
 
     # K1 bare: random digits on valid A
     A = pt[..., : len(valid)].repeat(1, 1, n // len(valid) + 1)[..., :n].contiguous()
@@ -440,7 +481,7 @@ def bound(name, x, int_rate):
 
 def occupancy(name) -> dict:
     """Block size, registers, shared memory and resident warps per SM
-    of K1 (fused entry) or K2, as the CUDA runtime reports them."""
+    of K1 (fused entry), K2 or K3, as the CUDA runtime reports them."""
     import ctypes
 
     from cometbft_tpu_torch import kernels
@@ -450,7 +491,7 @@ def occupancy(name) -> dict:
     if name == "ladder":
         rc = kernels.load("ladder", ld._init).ladder_info(1, ctypes.addressof(info))
     else:
-        rc = kernels.load("decompress").decompress_info(ctypes.addressof(info))
+        rc = getattr(kernels.load(name), f"{name}_info")(ctypes.addressof(info))
     kernels.check(rc, f"{name} info")
     threads = info[5]
     return {"threads": threads, "registers": info[0], "smem_bytes": info[1] + info[2],
@@ -497,17 +538,17 @@ def phase_bulk(dev, rng):
     t0 = time.perf_counter()
     errs = compare(calls)
     compare_s = time.perf_counter() - t0
-    # median of single calls after a warm one: a mean over three calls
-    # moved by up to 15% between phases of one run
-    per_kernel = {}
-    for k, (f, _) in calls.items():
-        f()
-        per_kernel[k] = median_ms(f, 5)
+    # device time of calls replayed from a CUDA graph: a single call
+    # from Python also counts the wrapper's host overhead, which at this
+    # width is of the order of K3's own time
+    per_kernel = {k: graph_ms(f, 5) for k, (f, _) in calls.items()}
+    per_call = {k: median_ms(f, 5) for k, (f, _) in calls.items()}
     emit("bulk", lanes=N_BULK, distinct=N_DISTINCT, corrupted=len(bad_idx),
          verdicts_ok=True, device_ms_median=dev_ms, verifies_per_s=N_BULK / dev_ms * 1e3,
          end_to_end_s=e2e_s, end_to_end_verifies_per_s=N_BULK / e2e_s,
          pack_ms=dispatch["pack_ms"], mode="precomp" if dispatch["precomp"] else "plain",
-         kernel_ms=per_kernel, launches=dispatch["launches"], peak_mem_bytes=peak,
+         kernel_ms=per_kernel, kernel_call_ms=per_call, launches=dispatch["launches"],
+         peak_mem_bytes=peak,
          plain_equal=True, max_abs_err=errs, compare_s=compare_s)
 
     # plain/precomp crossover: device time plus host packing, per width
@@ -525,7 +566,7 @@ def phase_bulk(dev, rng):
             row[mode] = {"device_ms": median_ms(f, 3), "pack_ms": pack_ms}
         rows.append(row)
     emit("crossover", rows=rows)
-    return per_kernel, x, errs
+    return per_kernel, per_call, x, errs
 
 
 def main(argv) -> int:
@@ -554,7 +595,7 @@ def main(argv) -> int:
 
     rng = np.random.default_rng(SEED)
     checks = phase_kernels(dev, rng, 500 if quick else N_CHECK)
-    ragged = phase_kernels(dev, rng, 501 if quick else N_RAGGED, hashes=False)
+    ragged = phase_kernels(dev, rng, 501 if quick else N_RAGGED)
     torch.cuda.synchronize()
     for name, r in ragged.items():
         checks[name]["ragged"] = r
@@ -565,7 +606,7 @@ def main(argv) -> int:
         return 0
 
     launches, window_items, commit_items = phase_main(dev, rng)
-    bulk_ms, x_bulk, bulk_errs = phase_bulk(dev, rng)
+    bulk_ms, bulk_call_ms, x_bulk, bulk_errs = phase_bulk(dev, rng)
 
     # phase 6: each kernel against its plain version on the main path's
     # own inputs (the window's lanes and the commit's), timed at the window
@@ -580,7 +621,7 @@ def main(argv) -> int:
     rows = []
     for name in ("ladder", "decompress", "hash_digits"):
         f, plain = calls[name]
-        extra = occupancy(name) if name in ("ladder", "decompress") else {}
+        extra = occupancy(name)
         parts = (name, "straus") if name == "ladder" else (name,)
         err = max(max(errs[k], commit_errs[k]) for k in parts)
         b_ms, b_by = bound(name, x, int_rate)
@@ -590,13 +631,14 @@ def main(argv) -> int:
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err, "tolerance": 0,
-            "ms": cuda_ms(f, 10, warm=2),
+            "ms": graph_ms(f), "call_ms": cuda_ms(f, 20),
             "plain_ms": cuda_ms(plain, 2, warm=0), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
             "lanes": x["n"], "commit_lanes": x_commit["n"],
-            "commit_ms": cuda_ms(commit_calls[name][0], 10, warm=2),
+            "commit_ms": graph_ms(commit_calls[name][0]),
+            "commit_call_ms": cuda_ms(commit_calls[name][0], 20),
             "commit_bound_ms": bc_ms, "commit_bound_by": bc_by,
-            "bulk_lanes": N_BULK, "bulk_ms": bulk_ms[name],
+            "bulk_lanes": N_BULK, "bulk_ms": bulk_ms[name], "bulk_call_ms": bulk_call_ms[name],
             "bulk_bound_ms": bb_ms, "bulk_bound_by": bb_by,
             "bulk_max_abs_err": max(bulk_errs[k] for k in parts),
             "check": checks[name], **extra,

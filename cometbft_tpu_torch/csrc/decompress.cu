@@ -73,18 +73,8 @@ extern "C" int decompress_launch(const uint8_t* in, int ld_in, int n, int32_t* o
     return (int)cudaGetLastError();
 }
 
-// registers, static shared bytes, 0 (no dynamic shared memory), local
-// (stack) bytes, resident blocks per SM and threads a block
+// launch facts, as kernel_info (fe25519.cuh) gives them (no dynamic
+// shared memory)
 extern "C" int decompress_info(int* info) {
-    cudaFuncAttributes fa;
-    int blocks = 0;
-    cudaFuncGetAttributes(&fa, decompress_kernel);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, decompress_kernel, THREADS, 0);
-    info[0] = fa.numRegs;
-    info[1] = (int)fa.sharedSizeBytes;
-    info[2] = 0;
-    info[3] = (int)fa.localSizeBytes;
-    info[4] = blocks;
-    info[5] = THREADS;
-    return (int)cudaGetLastError();
+    return kernel_info(decompress_kernel, THREADS, 0, info);
 }

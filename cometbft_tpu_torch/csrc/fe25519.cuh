@@ -303,3 +303,23 @@ __device__ __forceinline__ void store_fe(int32_t* base, int c, int ld, int lane,
 #pragma unroll
     for (int l = 0; l < NL; ++l) base[(size_t)(c * NL + l) * ld + lane] = x.v[l];
 }
+
+// --- launch facts, for the *_info entries
+
+// info: registers, static and dynamic shared bytes, local (stack) bytes,
+// resident blocks per SM and threads a block of `kernel` launched with
+// `threads` threads and `smem_bytes` of dynamic shared memory
+template <class Kernel>
+int kernel_info(Kernel kernel, int threads, int smem_bytes, int* info) {
+    cudaFuncAttributes fa;
+    int blocks = 0;
+    cudaFuncGetAttributes(&fa, kernel);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem_bytes);
+    info[0] = fa.numRegs;
+    info[1] = (int)fa.sharedSizeBytes;
+    info[2] = smem_bytes;
+    info[3] = (int)fa.localSizeBytes;
+    info[4] = blocks;
+    info[5] = threads;
+    return (int)cudaGetLastError();
+}

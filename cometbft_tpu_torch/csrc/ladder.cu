@@ -330,26 +330,9 @@ extern "C" int verify_launch(const uint8_t* ds, const uint8_t* dh, int n, const 
     return (int)cudaGetLastError();
 }
 
-// registers, static and dynamic shared bytes, local (stack) bytes,
-// resident blocks per SM and threads a block of the fused (fused != 0)
-// or bare entry
+// launch facts, as kernel_info (fe25519.cuh) gives them, of the fused
+// (fused != 0) or bare entry
 extern "C" int ladder_info(int fused, int* info) {
-    cudaFuncAttributes fa;
-    int blocks = 0;
-    if (fused) {
-        cudaFuncGetAttributes(&fa, ladder_kernel<true>);
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ladder_kernel<true>, THREADS,
-                                                      SMEM_BYTES);
-    } else {
-        cudaFuncGetAttributes(&fa, ladder_kernel<false>);
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ladder_kernel<false>, THREADS,
-                                                      SMEM_BYTES);
-    }
-    info[0] = fa.numRegs;
-    info[1] = (int)fa.sharedSizeBytes;
-    info[2] = (int)SMEM_BYTES;
-    info[3] = (int)fa.localSizeBytes;
-    info[4] = blocks;
-    info[5] = THREADS;
-    return (int)cudaGetLastError();
+    return fused ? kernel_info(ladder_kernel<true>, THREADS, SMEM_BYTES, info)
+                 : kernel_info(ladder_kernel<false>, THREADS, SMEM_BYTES, info);
 }

@@ -57,6 +57,7 @@ SIGNATURES = {
         "hash_digits_launch": [
             _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P,
         ],
+        "hash_digits_info": [_P],
     },
 }
 
@@ -131,9 +132,10 @@ def _ptxas_summary(log: str) -> list:
 
 
 # SASS instructions counted per function: the 32 x 32 -> 64 products,
-# the exchanges between threads, and what would mean a call or local
-# memory (spills, arrays the compiler could not keep in registers)
-SASS_OPS = ("IMAD.WIDE", "SHFL", "LDS", "STS", "LDL", "STL", "CALL")
+# the exchanges between threads, global loads, block barriers, and what
+# would mean a call or local memory (spills, arrays the compiler could
+# not keep in registers)
+SASS_OPS = ("IMAD.WIDE", "SHFL", "LDS", "STS", "LDG", "BAR", "LDL", "STL", "CALL")
 
 
 def _cuobjdump():

@@ -37,6 +37,8 @@ torch.set_num_threads(1)
 
 STUB = r"""
 #pragma once
+#include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cstring>
 #include <cstddef>
@@ -55,6 +57,14 @@ struct alignas(16) int4 { int x, y, z, w; };
 inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
 struct alignas(8) int2 { int x, y; };
 inline int2 make_int2(int x, int y) { return int2{x, y}; }
+using std::min;
+// byte k of the result is byte (s >> 4k) & 7 of the pair y:x
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+    const unsigned long long xy = ((unsigned long long)y << 32) | x;
+    unsigned r = 0;
+    for (int k = 0; k < 4; ++k) r |= (unsigned)((xy >> (8 * ((s >> (4 * k)) & 7))) & 0xFF) << (8 * k);
+    return r;
+}
 struct host_dim3 { int x; };
 static thread_local host_dim3 blockIdx, threadIdx, blockDim;
 enum { cudaErrorInvalidValue = 1, cudaSharedmemCarveoutMaxShared = 100 };
@@ -82,10 +92,23 @@ alignas(16) int4 smem4[1 << 14];
 static std::barrier<>* block_barrier;
 inline void __syncwarp(unsigned = 0xffffffffu) { block_barrier->arrive_and_wait(); }
 inline void __syncthreads() { block_barrier->arrive_and_wait(); }
+// call k of a block ORs into or_acc[k % 3]; after the barrier, thread 0
+// clears the word of call k + 2, whose last readers (call k - 1) are done
+static std::atomic<int> or_acc[3];
+static thread_local int or_calls;
+inline int __syncthreads_or(int pred) {
+    const int k = or_calls++ % 3;
+    if (pred) or_acc[k] |= 1;
+    block_barrier->arrive_and_wait();
+    const int r = or_acc[k].load();
+    if (threadIdx.x == 0) or_acc[(k + 2) % 3] = 0;
+    return r;
+}
 template <class F> void host_launch(int blocks, int threads, F body) {
     for (int b = 0; b < blocks; ++b) {
         std::barrier<> bar(threads);
         block_barrier = &bar;
+        for (auto& a : or_acc) a = 0;
         std::vector<std::thread> ts;
         for (int t = 0; t < threads; ++t)
             ts.emplace_back([=] {
@@ -180,29 +203,45 @@ def test_decompress_kernel_ragged_widths(libs, n):
     assert torch.equal(out, want) and torch.equal(ok, want_ok)
 
 
-def test_hash_digits_kernel_equals_plain(libs):
-    rng = np.random.default_rng(9)
-    cap = ed.MSG_CAPS[-1]
-    lens = np.array([0, 1, 47, 48, 111, 112, 175, 300, 431, 432, 900, 943], np.int32)
-    n = len(lens)
+def _check_hash_digits(libs, n, cap, lens, seed, ld_pr=None):
+    """K3 on n lanes of the bucket cap, with pks and rs as rows ld_pr
+    apart (default 2n) of one buffer, exactly against the plain version."""
+    rng = np.random.default_rng(seed)
+    ld_pr = 2 * n if ld_pr is None else ld_pr
+    lens = np.asarray(lens, np.int32)
     msgs = np.zeros((cap, n), np.uint8)
     for i, ln in enumerate(lens):
-        msgs[:ln, i] = rng.integers(0, 256, ln, dtype=np.uint8)
-    pr = torch.tensor(rng.integers(0, 256, (32, 2 * n), dtype=np.uint8))
+        msgs[: min(ln, cap), i] = rng.integers(0, 256, min(ln, cap), dtype=np.uint8)
+    pr = torch.tensor(rng.integers(0, 256, (32, ld_pr), dtype=np.uint8))
+    pks, rs = pr[:, :n], pr[:, ld_pr - n:]
     ss = rng.integers(0, 256, (32, n), dtype=np.uint8)
-    for i, v in enumerate((sc.L - 1, sc.L, sc.L + 1, 0)):
+    for i, v in enumerate((sc.L - 1, sc.L, sc.L + 1, 0)[:n]):
         ss[:, i] = np.frombuffer(v.to_bytes(32, "little"), np.uint8)
     msgs, lens, ss = torch.tensor(msgs), torch.tensor(lens), torch.tensor(ss)
     ds = torch.zeros((64, n), dtype=torch.uint8)
     dh = torch.zeros((64, n), dtype=torch.uint8)
     ok_s = torch.zeros(n, dtype=torch.bool)
     rc = libs["hash_digits"].hash_digits_launch(
-        msgs.data_ptr(), cap, lens.data_ptr(), pr.data_ptr(), pr[:, n:].data_ptr(),
-        2 * n, ss.data_ptr(), n, ds.data_ptr(), dh.data_ptr(), ok_s.data_ptr(), None,
+        msgs.data_ptr(), cap, lens.data_ptr(), pks.data_ptr(), rs.data_ptr(), ld_pr,
+        ss.data_ptr(), n, ds.data_ptr(), dh.data_ptr(), ok_s.data_ptr(), None,
     )
     assert rc == 0
-    want = sc.hash_digits_plain(msgs, lens, pr[:, :n], pr[:, n:], ss)
+    want = sc.hash_digits_plain(msgs, lens, pks, rs, ss)
     assert all(torch.equal(g, w) for g, w in zip((ds, dh, ok_s), want))
+
+
+def _mixed_lens(rng, n, cap):
+    """Lengths that give one block lanes of every SHA block count the
+    bucket allows, with the block-count edges (47/48, 111/112 bytes...)."""
+    edges = [ln for b in range(8) for ln in (128 * b + 47, 128 * b + 48) if ln <= cap]
+    lens = rng.integers(0, cap + 1, n)
+    lens[: len(edges) + 2] = ([0, cap] + edges)[:n]
+    return rng.permutation(lens)
+
+
+def test_hash_digits_kernel_equals_plain(libs):
+    lens = [0, 1, 47, 48, 111, 112, 175, 300, 431, 432, 900, 943]
+    _check_hash_digits(libs, len(lens), ed.MSG_CAPS[-1], lens, 9)
 
 
 def test_hash_digits_kernel_clamps_lengths_to_cap(libs):
@@ -227,6 +266,31 @@ def test_hash_digits_kernel_clamps_lengths_to_cap(libs):
     assert all(torch.equal(g, w) for g, w in zip((*got, ok_s), want))
     plain = sc.hash_digits(msgs, over, pr[:, :n], pr[:, n:], ss)
     assert all(torch.equal(g, w) for g, w in zip(plain, want))
+
+
+# K3 takes 64 lanes a block: partial 4-lane groups, warps and blocks
+@pytest.mark.parametrize("n", RAGGED + [129])
+def test_hash_digits_kernel_ragged_widths(libs, n):
+    rng = np.random.default_rng(200 + n)
+    cap = ed.MSG_CAPS[2]
+    _check_hash_digits(libs, n, cap, _mixed_lens(rng, n, cap), 300 + n)
+
+
+@pytest.mark.parametrize("cap", ed.MSG_CAPS)
+def test_hash_digits_kernel_every_bucket(libs, cap):
+    """132 lanes: rows 4-byte aligned, so whole 4-lane groups take the
+    word loads; 943 bytes is 8 SHA blocks, so both buffers turn over."""
+    rng = np.random.default_rng(cap)
+    _check_hash_digits(libs, 132, cap, _mixed_lens(rng, 132, cap), cap + 1)
+
+
+@pytest.mark.parametrize("n", [150, 67])
+def test_hash_digits_kernel_unaligned_rows(libs, n):
+    """n % 4 != 0 and an odd row stride for pks and rs: loads fall back
+    to single bytes wherever a 4-lane group is not 4-byte aligned."""
+    rng = np.random.default_rng(400 + n)
+    cap = ed.MSG_CAPS[1]
+    _check_hash_digits(libs, n, cap, _mixed_lens(rng, n, cap), 500 + n, ld_pr=2 * n + 1)
 
 
 def _ladder_inputs(n, seed):

@@ -171,8 +171,13 @@ def test_csrc_constants_match_python():
     for name, val in (("fe_d", curve.D), ("fe_d2", curve.D2), ("fe_sqrtm1", curve.SQRT_M1)):
         assert _cu_ints(name, hdr) == [int(v) for v in fe.to_limbs(val)], name
     hd = (CSRC / "hash_digits.cu").read_text()
-    k = [int(x, 16) for x in re.findall(r"0x([0-9a-f]{16})ULL", hd)]
-    assert k[:80] == sha.K64 and k[80:88] == sha.H64
+
+    def words(name):
+        body = re.search(name + r" = \{([^}]*)\}", hd).group(1)
+        return [int(x, 16) for x in re.findall(r"0x([0-9a-f]{16})ULL", body)]
+
+    assert words(r"SHA_K\[80\]") == sha.K64 and words(r"H\[8\]") == sha.H64
+    assert words(r"Lw\[4\]") == [(sc.L >> (64 * i)) % 2**64 for i in range(4)]
     ls = re.search(r"Ls\[13\] = \{([^}]*)\}", hd).group(1)
     assert [int(v) for v in ls.replace("\n", " ").split(",")] == list(sc.L_LIMBS)
     folds = [int(v) for v in re.findall(r"s\[k\] \* (\d+)", hd)]

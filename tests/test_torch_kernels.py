@@ -43,6 +43,8 @@ SASS = """\
         /*0020*/                   WARPSYNC R3 ;                               /* 0x0000000300007348 */
         /*0030*/                   LDSM.16.M88.4 R12, [R2] ;                   /* 0x000000000204783b */
         /*0040*/                   SHFL.IDX PT, R5, R4, R7, 0x1f ;             /* 0x00001f0704057589 */
+        /*0050*/                   LDG.E.U8 R9, desc[UR4][R2.64] ;             /* 0x0000000402097981 */
+        /*0060*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;               /* 0x0000000000007b1d */
 """
 
 
@@ -62,11 +64,11 @@ def test_sass_counts_per_function():
     got = kernels.sass_counts(SASS)
     assert got == {
         "_Z17decompress_kernelPKhiiPiiPh": {
-            "IMAD.WIDE": 2, "SHFL": 0, "LDS": 0, "STS": 0, "LDL": 0, "STL": 1,
-            "CALL": 1, "total": 7},
+            "IMAD.WIDE": 2, "SHFL": 0, "LDS": 0, "STS": 0, "LDG": 0, "BAR": 0,
+            "LDL": 0, "STL": 1, "CALL": 1, "total": 7},
         "_Z13ladder_kernelILb1EEvPKh": {
-            "IMAD.WIDE": 0, "SHFL": 1, "LDS": 1, "STS": 1, "LDL": 0, "STL": 0,
-            "CALL": 0, "total": 5},
+            "IMAD.WIDE": 0, "SHFL": 1, "LDS": 1, "STS": 1, "LDG": 1, "BAR": 1,
+            "LDL": 0, "STL": 0, "CALL": 0, "total": 7},
     }
 
 

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Time the port's kernels at bulk width, the same way for any checkout.
+"""Time the port's kernels at given widths, the same way for any checkout.
 
-    python3 tools/torch_kernel_times.py [--tree DIR] [--lanes N] [--runs R]
+    python3 tools/torch_kernel_times.py [--tree DIR] [--lanes N [N ...]] [--runs R]
 
 Imports ``cometbft_tpu_torch`` from the checkout DIR (default: this
 repository), builds its kernels there, and runs each kernel wrapper
 (K1 fused ``ladder`` and bare ``straus``, K2 ``decompress``, K3
 ``hash_digits``) and the whole device pass (``ops.ed25519.verify_lanes``)
 on N lanes tiled from 4,096 distinct signed items, made with
-chip_smoke.py's seed and helpers. Each kernel is first held to its plain
-version (exact equality); a time is the median of R single calls after
-a warm one, measured with CUDA events. Prints the card's name and power
-limit, then one JSON line.
+chip_smoke.py's seed and helpers, for each N given (default 131,072).
+Each kernel is first held to its plain version (exact equality); "ms"
+is the median of R single calls after a warm one, measured with CUDA
+events, and "graph_ms" the device time of a call replayed from a CUDA
+graph (chip_smoke.graph_ms), which leaves out the host's launch
+overhead that dominates at small widths. Prints the card's name and
+power limit, then one JSON line per width.
 
 To compare two commits like for like, unpack one with ``git archive``
 into a git-ignored directory and run this script once per tree in one
@@ -32,7 +35,7 @@ ROOT = Path(__file__).resolve().parent.parent
 def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(ROOT))
-    ap.add_argument("--lanes", type=int, default=131072)
+    ap.add_argument("--lanes", type=int, nargs="+", default=[131072])
     ap.add_argument("--runs", type=int, default=5)
     args = ap.parse_args(argv)
     tree = Path(args.tree).resolve()
@@ -58,19 +61,22 @@ def main(argv) -> int:
 
     rng = np.random.default_rng(smoke.SEED)
     distinct = smoke.signed_items(rng, smoke.N_DISTINCT)
-    items = [distinct[i % len(distinct)] for i in range(args.lanes)]
-    x = smoke.kernel_inputs(items, dev)
-    run = lambda: verify_lanes(x["msgs"], x["lens"], x["pr"], x["ss"])  # noqa: E731
-    smoke.check(bool(run().all()), "a valid signature failed")
-    calls = smoke.stage_calls(x)
-    errs = smoke.compare(calls)
-    ms = {}
-    for name, f in [("device", run)] + [(k, f) for k, (f, _) in calls.items()]:
-        f()
-        ms[name] = smoke.median_ms(f, args.runs)
     print(card, flush=True)
-    print(json.dumps({"tree": str(tree), "lanes": args.lanes, "runs": args.runs,
-                      "ms": ms, "max_abs_err": errs}), flush=True)
+    for lanes in args.lanes:
+        items = [distinct[i % len(distinct)] for i in range(lanes)]
+        x = smoke.kernel_inputs(items, dev)
+        run = lambda: verify_lanes(x["msgs"], x["lens"], x["pr"], x["ss"])  # noqa: E731
+        smoke.check(bool(run().all()), "a valid signature failed")
+        calls = smoke.stage_calls(x)
+        errs = smoke.compare(calls)
+        ms, graph_ms = {}, {}
+        for name, f in [("device", run)] + [(k, f) for k, (f, _) in calls.items()]:
+            f()
+            ms[name] = smoke.median_ms(f, args.runs)
+            graph_ms[name] = smoke.graph_ms(f)
+        print(json.dumps({"tree": str(tree), "lanes": lanes, "runs": args.runs,
+                          "ms": ms, "graph_ms": graph_ms, "max_abs_err": errs}),
+              flush=True)
     return 0
 
 
