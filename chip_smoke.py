@@ -15,11 +15,12 @@ Phases, each printing one JSON line:
    partial and K3's rows are not 4-byte aligned (phase 6 repeats the
    comparison at the main path's own shapes);
 4. the main path: a 150-validator set, a 32-height window of commits
-   through types.validation.verify_commits_coalesced (one tampered
-   signature, one commit under 2/3, nil votes) and one verify_commit,
-   lane verdicts against the host oracle, and every kernel's launch
-   counter above 0 (counters are zeroed just before and read just
-   after);
+   through types.validation.verify_commits_coalesced at catch-up
+   priority (one tampered signature, one commit under 2/3, nil votes)
+   and one verify_commit at live priority, both through the verify
+   scheduler with the device route pinned (floor 1), lane verdicts
+   against the host oracle, and every kernel's launch counter above 0
+   (counters are zeroed just before and read just after);
 5. bulk: ops.ed25519.verify_batch at 131,072 lanes tiled from 4,096
    distinct signed items with ~1% corrupted; median device time,
    verifies/s, per-kernel device ms (CUDA graph) and single-call ms
@@ -28,11 +29,28 @@ Phases, each printing one JSON line:
    width, and the plain/precomp crossover;
 6. the kernels line: each kernel against its plain version on the
    main path's own inputs (the window's 4,740 lanes and the commit's
-   150), its launches on the main path, times and bound, block size,
+   150), its launches on the unforced main path (phase 7a) and on the
+   pinned one (phase 4), times and bound, block size,
    registers, shared memory, stack and resident warps per SM. "ms"
    times are device times, of calls replayed from a CUDA graph;
    "call_ms" times are of calls from Python, back to back at the window
    and the commit, single at bulk, wrapper host time included.
+   It is printed after phase 7:
+7. dispatch, through the verify scheduler without a pinned route:
+   (a) the main path as a node runs it: the window through
+   verify_commits_coalesced and the commit through verify_commit, five
+   times each from the calibration seeds, unforced, with the route
+   each took and what the calibration learned; every window must take
+   the device route and every kernel must launch (counters zeroed just
+   before (a) and read just after);
+   (b) the device route and the host plane, each forced, at 150, 4,740
+   and 32,768 lanes, with the route the calibration picks, the walls
+   (submit to resolve, host packing included) and a straight-line fit
+   of the device walls (the seeds' source); (c) eight catch-up windows
+   queued and then one live commit: the live wall, the catch-up drain,
+   promotions, device dispatches, host chunks and degraded tickets
+   (must be 0), and the live ticket must resolve before the last
+   catch-up one. Every verdict against the host oracle.
 
 The line before last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
@@ -57,6 +75,9 @@ N_DISTINCT = 4096
 N_VALS = 150
 N_HEIGHTS = 32
 CROSSOVER_WIDTHS = (512, 1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072)
+DISPATCH_WIDTHS = (N_VALS, 4740, 32768)  # the commit, the window, bulk
+DISPATCH_REPS = 5
+PRIORITY_WINDOWS = 8
 
 # card peaks: HBM bytes/s from the H100 SXM data sheet; 32-bit integer
 # results per clock per SM on sm_90 (IMAD, IADD, LOP, shifts: 64, the
@@ -367,6 +388,7 @@ def build_window(rng):
 
 def phase_main(dev, rng):
     from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.crypto import batch
     from cometbft_tpu_torch.ops import ed25519 as ed
     from cometbft_tpu_torch.ops import ladder as ld
     from cometbft_tpu_torch.types import validation as V
@@ -374,22 +396,30 @@ def phase_main(dev, rng):
     chain_id, vals, privs, jobs, expected = build_window(rng)
     # warm the libraries outside the counted run
     kernels.load("ladder", ld._init), kernels.load("decompress"), kernels.load("hash_digits")
-    kernels.reset_counts()
-    t0 = time.perf_counter()
-    errs = V.verify_commits_coalesced(chain_id, jobs, light=False, device=dev)
-    window_dispatch = dict(ed.LAST_DISPATCH)
-    _, bid1, h1, c1 = jobs[0]
-    V.verify_commit(chain_id, vals, bid1, h1, c1, device=dev)
-    wall = time.perf_counter() - t0
-    commit_dispatch = dict(ed.LAST_DISPATCH)
-    launches = dict(kernels.LAUNCHES)
+    # through the scheduler with the device route pinned (floor 1), so
+    # the launch and lane checks below keep their meaning
+    floor = batch._MIN_DEVICE_BATCH
+    batch.set_min_device_batch(1)
+    try:
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        errs = V.verify_commits_coalesced(chain_id, jobs, light=False,
+                                          priority=V.PRIORITY_CATCHUP, device=dev)
+        window_dispatch = dict(ed.LAST_DISPATCH)
+        _, bid1, h1, c1 = jobs[0]
+        V.verify_commit(chain_id, vals, bid1, h1, c1, priority=V.PRIORITY_LIVE, device=dev)
+        wall = time.perf_counter() - t0
+        commit_dispatch = dict(ed.LAST_DISPATCH)
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        batch.set_min_device_batch(floor)
     got = [None if e is None else (type(e), str(e)) for e in errs]
     check(got == expected, f"window errors {got} != {expected}")
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
     # verify_commit must also reject the tampered commit
     _, bid5, h5, c5 = jobs[4]
     try:
-        V.verify_commit(chain_id, vals, bid5, h5, c5, device=dev)
+        V.verify_commit(chain_id, vals, bid5, h5, c5, priority=V.PRIORITY_LIVE, device=dev)
         raise AssertionError("tampered commit verified")
     except V.ErrInvalidSignature as e:
         check(str(e) == "invalid signature for validator 7", str(e))
@@ -412,8 +442,116 @@ def phase_main(dev, rng):
          commit_mode=commit_dispatch,
          errors=[None if g is None else g[1] for g in got], launches=launches,
          wall_s=wall, oracle_lanes=len(items), oracle_equal=True)
-    as_bytes = lambda its: [(m, pk.key_bytes, s) for m, pk, s in its]  # noqa: E731
-    return launches, as_bytes(items), as_bytes(per_commit[0])
+    return launches, items, per_commit[0], want_v, (chain_id, vals, jobs, expected)
+
+
+# --- phase 7: dispatch (scheduler, calibrated routing, host plane) -----------
+
+
+def ticket_wall(sched, lanes, priority, dev, want):
+    """Submit one ticket, wait for it, check its verdicts; its wall."""
+    t = sched.submit(lanes, priority=priority, label="smoke", device=dev)
+    _, oks = t.result(timeout=120)
+    check(oks == want, "ticket verdicts != host oracle")
+    return t.wall()
+
+
+def phase_dispatch(dev, window, window_lanes, commit_lanes, window_want, pinned_launches):
+    """(a) the unforced main path: what routes the commits and windows
+    take and what the calibration learns from them, (b) the device
+    route and the host plane, each forced, at 150, 4,740 and 32,768
+    lanes, (c) priority: one live commit behind eight queued catch-up
+    windows. Every verdict against the oracle. Returns (a)'s launch
+    counts."""
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import native_verify as nv
+    from cometbft_tpu_torch.crypto import parallel_verify as pv
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.types import validation as V
+
+    chain_id, vals, jobs, expected = window
+    _, bid1, h1, c1 = jobs[0]
+    commit_want = window_want[: len(commit_lanes)]
+    reps = DISPATCH_REPS
+    floor = batch._MIN_DEVICE_BATCH
+    sched = S.VerifyScheduler()
+    S.set_scheduler(sched)
+    try:
+        # (a) unforced, from the seeds, through the entry points
+        batch.calibration = batch._Calibration()
+        seeds = batch.calibration.snapshot()
+        routes = []
+        kernels.reset_counts()
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            V.verify_commit(chain_id, vals, bid1, h1, c1, priority=V.PRIORITY_LIVE, device=dev)
+            routes.append({"lanes": len(commit_lanes), "route": batch.LAST_ROUTE["path"],
+                           "wall_s": time.perf_counter() - t0})
+            t0 = time.perf_counter()
+            errs = V.verify_commits_coalesced(chain_id, jobs, light=False,
+                                              priority=V.PRIORITY_CATCHUP, device=dev)
+            routes.append({"lanes": len(window_lanes), "route": batch.LAST_ROUTE["path"],
+                           "wall_s": time.perf_counter() - t0})
+            got = [None if e is None else (type(e), str(e)) for e in errs]
+            check(got == expected, f"unforced window errors {got} != {expected}")
+        launches = dict(kernels.LAUNCHES)
+        windows = [r for r in routes if r["lanes"] == len(window_lanes)]
+        check(all(r["route"] == "device" for r in windows),
+              f"an unforced window left the device route: {windows}")
+        check(all(v > 0 for v in launches.values()),
+              f"a kernel never launched on the unforced main path: {launches}")
+        learned = batch.calibration.snapshot()
+
+        # (b) both routes, forced, at each width
+        widths = []
+        for n in DISPATCH_WIDTHS:
+            if n == len(commit_lanes):
+                lanes, want = commit_lanes, commit_want
+            else:
+                k = -(-n // len(window_lanes))
+                lanes, want = (window_lanes * k)[:n], (window_want * k)[:n]
+            row = {"lanes": n, "picked": "device" if batch.calibration.device_wins(n) else "host"}
+            for route, fl in (("device", 1), ("host", 1 << 30)):
+                batch.set_min_device_batch(fl)
+                walls = [ticket_wall(sched, lanes, S.PRIORITY_CATCHUP, dev, want) for _ in range(reps)]
+                row[route] = {"wall_s": statistics.median(walls), "walls_s": walls}
+            batch.set_min_device_batch(floor)
+            widths.append(row)
+        dev_pts = [(r["lanes"], r["device"]["wall_s"]) for r in widths]
+        mx = statistics.fmean(n for n, _ in dev_pts)
+        my = statistics.fmean(w for _, w in dev_pts)
+        slope = (sum((n - mx) * (w - my) for n, w in dev_pts)
+                 / sum((n - mx) ** 2 for n, _ in dev_pts))
+        fit = {"lane_s": slope, "flat_s": my - slope * mx,
+               "host_s": widths[-1]["host"]["wall_s"] / widths[-1]["lanes"]}
+
+        # (c) priority: eight catch-up windows queued, then a live commit
+        before = sched.stats()
+        t0 = time.perf_counter()
+        catchup = [sched.submit(window_lanes, priority=S.PRIORITY_CATCHUP, label="catchup",
+                                device=dev) for _ in range(PRIORITY_WINDOWS)]
+        live = sched.submit(commit_lanes, priority=S.PRIORITY_LIVE, label="live", device=dev)
+        check(live.result(timeout=120)[1] == commit_want, "live verdicts != host oracle")
+        for t in catchup:
+            check(t.result(timeout=300)[1] == window_want, "catch-up verdicts != host oracle")
+        drain = max(t.t_done for t in catchup) - t0
+        after = sched.stats()
+        prio = {k: after[k] - before[k]
+                for k in ("promoted", "device_dispatches", "host_chunks", "degraded")}
+        prio.update(live_wall_s=live.wall(), catchup_drain_s=drain,
+                    live_before_last_catchup=live.t_done < max(t.t_done for t in catchup),
+                    windows=PRIORITY_WINDOWS)
+        check(prio["degraded"] == 0 and sched.degraded == 0, f"degraded tickets: {prio}")
+        check(prio["live_before_last_catchup"], "the live ticket resolved after every catch-up")
+    finally:
+        batch.set_min_device_batch(floor)
+        S.set_scheduler(None)
+    emit("dispatch", seeds=seeds, learned=learned, unforced=routes, widths=widths,
+         fit=fit, host_plane={**pv.engine().stats(), "native": nv.module() is not None},
+         priority=prio, scheduler=sched.stats(), launches=launches,
+         pinned_launches=pinned_launches, oracle_equal=True)
+    return launches
 
 
 # --- timing and bounds --------------------------------------------------------
@@ -605,8 +743,14 @@ def main(argv) -> int:
         print(json.dumps({"quick": True}))
         return 0
 
-    launches, window_items, commit_items = phase_main(dev, rng)
+    pinned, window_lanes, commit_lanes, window_want, window = phase_main(dev, rng)
+    as_bytes = lambda its: [(m, pk.key_bytes, s) for m, pk, s in its]  # noqa: E731
+    window_items, commit_items = as_bytes(window_lanes), as_bytes(commit_lanes)
     bulk_ms, bulk_call_ms, x_bulk, bulk_errs = phase_bulk(dev, rng)
+    # the scheduler takes (pubkey, msg, sig) lanes
+    swap = lambda its: [(pk, m, s) for m, pk, s in its]  # noqa: E731
+    launches = phase_dispatch(dev, window, swap(window_lanes), swap(commit_lanes), window_want,
+                              pinned)
 
     # phase 6: each kernel against its plain version on the main path's
     # own inputs (the window's lanes and the commit's), timed at the window
@@ -630,6 +774,7 @@ def main(argv) -> int:
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
+            "pinned_launches": pinned[name],
             "max_abs_err": err, "tolerance": 0,
             "ms": graph_ms(f), "call_ms": cuda_ms(f, 20),
             "plain_ms": cuda_ms(plain, 2, warm=0), "bound_ms": b_ms,

@@ -19,10 +19,17 @@ launches, on PyTorch's current stream:
 
 Every lane gets its own verdict; malformed key or signature lengths
 give False. On a CPU device each wrapper runs its plain version.
+
+The copies, the three launches and the dispatch's event all go on the
+calling thread's current stream (``kernels.stream_ptr``), so a
+dispatch made from the verify scheduler's thread is ordered on that
+thread's stream. Each handle carries its own dispatch record
+(``AsyncVerdicts.dispatch``); ``LAST_DISPATCH`` repeats the newest one.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
 import numpy as np
@@ -84,21 +91,26 @@ def _expand_pubkey(pk: bytes):
     return val
 
 
-# How the last dispatch ran: lanes, bucket, mode, device, host packing
-# time and the launches of each kernel it made.
+# How the newest dispatch ran: lanes, bucket, mode, device, host
+# packing time and the launches of each kernel it made.
 LAST_DISPATCH: dict = {}
+# held from the first launch of a dispatch to its event, so the launch
+# counts a dispatch records are its own when threads dispatch at once
+_LAUNCH_LOCK = threading.Lock()
 
 
 class AsyncVerdicts:
     """Handle for an in-flight dispatch. The kernels are enqueued on
     the stream; ``wait()`` blocks on a CUDA event recorded after the
-    last one, ``result()`` copies the verdicts to the host."""
+    last one, ``result()`` copies the verdicts to the host.
+    ``dispatch`` is how this dispatch ran (see ``LAST_DISPATCH``)."""
 
-    def __init__(self, verdict, bad, n, event=None):
+    def __init__(self, verdict, bad, n, event=None, dispatch=None):
         self._verdict = verdict
         self._bad = bad
         self._n = n
         self._event = event
+        self.dispatch = dispatch or {}
 
     def wait(self) -> "AsyncVerdicts":
         if self._event is not None:
@@ -183,29 +195,32 @@ def verify_batch_async(items, device=None, precomp=None) -> AsyncVerdicts:
     t0 = time.perf_counter()
     msgs, lens, pr, ss, a_arr, bad = pack(items, precomp)
     pack_s = time.perf_counter() - t0
-    before = dict(kernels.LAUNCHES)
-    verdict = verify_lanes(
-        _to_device(msgs, dev),
-        _to_device(lens, dev, transpose=False),
-        _to_device(pr, dev),
-        _to_device(ss, dev),
-        None if a_arr is None
-        else _to_device(a_arr.reshape(n, -1), dev).view(4, fe.NLIMBS, n),
-    )
-    event = None
-    if dev.type == "cuda":
-        event = torch.cuda.Event()
-        event.record()
-    LAST_DISPATCH.clear()
-    LAST_DISPATCH.update(
+    with _LAUNCH_LOCK:
+        before = dict(kernels.LAUNCHES)
+        verdict = verify_lanes(
+            _to_device(msgs, dev),
+            _to_device(lens, dev, transpose=False),
+            _to_device(pr, dev),
+            _to_device(ss, dev),
+            None if a_arr is None
+            else _to_device(a_arr.reshape(n, -1), dev).view(4, fe.NLIMBS, n),
+        )
+        event = None
+        if dev.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    dispatch = dict(
         lanes=n,
         cap=msgs.shape[1],
         precomp=precomp,
         device=str(dev),
         pack_ms=pack_s * 1e3,
-        launches={k: kernels.LAUNCHES[k] - before[k] for k in before},
+        launches=launches,
     )
-    return AsyncVerdicts(verdict, bad, n, event)
+    global LAST_DISPATCH
+    LAST_DISPATCH = dispatch
+    return AsyncVerdicts(verdict, bad, n, event, dispatch)
 
 
 def verify_batch(items, device=None, precomp=None) -> np.ndarray:

@@ -1,9 +1,11 @@
-"""BlockID, PartSetHeader, CommitSig, Commit (reference types/block.go).
+"""BlockID, PartSetHeader, CommitSig, Commit, ExtendedCommit
+(reference types/block.go).
 
 The parts of the JAX package's ``types/block.py`` that commit
 verification needs: block identity, the per-validator commit
-signature with its flag, and the commit. Hashing of headers, data and
-commits is not part of this slice.
+signature with its flag, the commit, and the extended commit whose
+signatures carry vote extensions (``verify_extended_commit``). Hashing
+of headers, data and commits is not ported yet.
 """
 
 from __future__ import annotations
@@ -78,3 +80,39 @@ class Commit:
 
     def size(self) -> int:
         return len(self.signatures)
+
+
+@dataclass(frozen=True)
+class ExtendedCommitSig(CommitSig):
+    """CommitSig carrying the vote extension and its signature
+    (reference types/block.go ExtendedCommitSig, ABCI 2.0)."""
+
+    extension: bytes = b""
+    extension_signature: bytes = b""
+
+    def strip(self) -> CommitSig:
+        return CommitSig(
+            block_id_flag=self.block_id_flag,
+            validator_address=self.validator_address,
+            timestamp_ns=self.timestamp_ns,
+            signature=self.signature,
+        )
+
+
+@dataclass
+class ExtendedCommit:
+    """Commit whose signatures carry vote extensions (reference
+    types/block.go ExtendedCommit)."""
+
+    height: int = 0
+    round: int = 0
+    block_id: BlockID = field(default_factory=BlockID)
+    extended_signatures: List[ExtendedCommitSig] = field(default_factory=list)
+
+    def to_commit(self) -> Commit:
+        return Commit(
+            height=self.height,
+            round=self.round,
+            block_id=self.block_id,
+            signatures=[s.strip() for s in self.extended_signatures],
+        )

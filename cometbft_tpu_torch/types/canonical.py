@@ -1,7 +1,7 @@
 """Canonical vote sign bytes (reference types/canonical.go).
 
 The encoding every precommit signature covers, and so the bytes the
-GPU hashes per lane: protobuf CanonicalVote, varint-length-delimited
+GPU hashes per lane (and the vote-extension encoding beside it): protobuf CanonicalVote, varint-length-delimited
 (libs/protoio), sfixed64 height/round, the chain id last. Byte
 identical to the JAX package's ``types/canonical.py``.
 """
@@ -54,3 +54,15 @@ def vote_sign_bytes(
     """CanonicalVote encoding, length-delimited (types/vote.go:152)."""
     prefix, suffix = vote_sign_bytes_parts(chain_id, type_, height, round_, block_id)
     return finish_vote_sign_bytes(prefix, suffix, timestamp_ns)
+
+
+def vote_extension_sign_bytes(
+    chain_id: str, height: int, round_: int, extension: bytes
+) -> bytes:
+    """CanonicalVoteExtension, length-delimited (ABCI 2.0 vote
+    extensions)."""
+    body = proto.field_bytes(1, extension)
+    body += proto.field_sfixed64(2, height)
+    body += proto.field_sfixed64(3, round_)
+    body += proto.field_string(4, chain_id)
+    return proto.delimited(body)

@@ -2,26 +2,41 @@
 
 Port of the JAX package's ``types/validation.py`` (reference
 types/validation.go): ``verify_commit`` (:30), ``verify_commit_light``
-(:65) and the cross-height ``verify_commits_coalesced(_async)``, with
+(:65), ``verify_commit_light_trusting`` (:148), the cross-height
+``verify_commits_coalesced(_async)``, the mixed light/trusting
+``verify_commit_jobs_coalesced`` and ``verify_extended_commit``, with
 the same error classes and messages. Every multi-signature check
-builds one lane batch for the GPU (crypto/batch ``"cuda"`` backend),
-which returns per-lane verdicts; light mode only restricts which
-signatures are checked (those tallied toward +2/3).
+builds one lane batch and submits it to the verify scheduler
+(``crypto/scheduler.py``) under the caller's priority class — live >
+light > catch-up/evidence (the default) — which routes it to the GPU
+kernels or to the multi-core host plane by the measured crossover.
+Light mode only restricts which signatures are checked (those tallied
+toward the threshold).
 
-``device`` selects where the batch runs (``None`` = the GPU;
-``"cpu"`` = the kernels' plain versions). The priority scheduler of
-the JAX package (``crypto/scheduler.py``) is not part of this slice:
-batches go straight to ``crypto/batch``.
+``device`` selects where the batch may run (``None`` = the GPU, and
+raises without one; ``"cpu"`` = the host plane, or the kernels' plain
+versions when the device route is forced).
 """
 
 from __future__ import annotations
 
+from fractions import Fraction
 from typing import Optional
 
-from ..crypto import batch as crypto_batch
+from ..crypto import scheduler as crypto_sched
+from ..crypto.scheduler import (  # re-exported: consumers pass these
+    PRIORITY_CATCHUP,
+    PRIORITY_LIGHT,
+    PRIORITY_LIVE,
+)
 from ..device import resolve
 from .block import BLOCK_ID_FLAG_COMMIT, BlockID, Commit
-from .canonical import PRECOMMIT_TYPE, finish_vote_sign_bytes, vote_sign_bytes_parts
+from .canonical import (
+    PRECOMMIT_TYPE,
+    finish_vote_sign_bytes,
+    vote_extension_sign_bytes,
+    vote_sign_bytes_parts,
+)
 from .signature_cache import SignatureCache
 from .validator_set import ValidatorSet
 
@@ -82,25 +97,42 @@ def _basic_checks(
         raise CommitVerifyError("wrong BlockID in commit")
 
 
-def _run_batch_async(items, cache: Optional[SignatureCache], device=None):
+def _run_batch_async(
+    items,
+    cache: Optional[SignatureCache],
+    priority: Optional[int] = None,
+    label: str = "",
+    device=None,
+):
     """items: list of (pubkey, sign_bytes, sig). Lanes already in the
-    cache are skipped; the rest go to the batch backend as one
-    dispatch. Returns a handle whose ``result()`` yields list[bool]."""
+    cache are skipped; the rest go to the verify scheduler as ONE
+    ticket under ``priority`` (default catch-up) on ``device``.
+    Returns a handle whose ``result()`` yields list[bool]; the ticket
+    is pending on either route, so the caller's host work overlaps
+    the verification."""
     to_verify = []
-    bv = None
-    for i, (pk, sb, sig) in enumerate(items):
+    lanes = []
+    for i, item in enumerate(items):
+        pk, sb, sig = item
         if cache is not None and cache.contains(sb, sig, pk.key_bytes):
             continue
-        if bv is None:
-            bv = crypto_batch.create_batch_verifier(device=device)
-        bv.add(pk, sb, sig)
+        lanes.append(item)
         to_verify.append(i)
-    pending = bv.verify_async() if bv is not None else None
+    pending = (
+        crypto_sched.scheduler().submit(
+            lanes,
+            priority=PRIORITY_CATCHUP if priority is None else priority,
+            label=label,
+            device=device,
+        )
+        if lanes
+        else None
+    )
     return _BatchHandle(items, to_verify, pending, cache)
 
 
 class _BatchHandle:
-    """``result()`` resolves the dispatch, fills verdicts over the
+    """``result()`` resolves the ticket, fills verdicts over the
     cache-skipped lanes, and feeds verified signatures to the cache."""
 
     __slots__ = ("_items", "_to_verify", "_pending", "_cache")
@@ -124,10 +156,17 @@ class _BatchHandle:
         return oks
 
 
-def _run_batch(items, cache: Optional[SignatureCache], device=None):
+def _run_batch(
+    items,
+    cache: Optional[SignatureCache],
+    priority: Optional[int] = None,
+    label: str = "",
+    device=None,
+):
+    """items: list of (pubkey, sign_bytes, sig). Returns list[bool]."""
     if not items:
         return []
-    return _run_batch_async(items, cache, device).result()
+    return _run_batch_async(items, cache, priority, label, device).result()
 
 
 def verify_commit(
@@ -137,6 +176,7 @@ def verify_commit(
     height: int,
     commit: Commit,
     cache: Optional[SignatureCache] = None,
+    priority: Optional[int] = None,
     device=None,
 ) -> None:
     """Full verification: every non-absent signature must be valid
@@ -158,7 +198,7 @@ def verify_commit(
             (val.pub_key, _commit_sign_bytes(chain_id, commit, cs), cs.signature)
         )
         tally_idx.append(i)
-    oks = _run_batch(items, cache, device)
+    oks = _run_batch(items, cache, priority, "commit", device)
     tallied = 0
     for i, ok in zip(tally_idx, oks):
         if not ok:
@@ -171,23 +211,22 @@ def verify_commit(
         )
 
 
-def verify_commit_light(
+def _collect_light_lanes(
     chain_id: str,
     vals: ValidatorSet,
-    block_id: BlockID,
+    block_id: Optional[BlockID],
     height: int,
     commit: Commit,
-    cache: Optional[SignatureCache] = None,
-    all_signatures: bool = False,
-    device=None,
-) -> None:
-    """Light verification: only signatures for block_id are checked,
-    and tallied up to the 2/3 threshold (reference :65;
-    all_signatures=True checks every block signature, reference :96)."""
-    device = resolve(device)
+    all_signatures: bool,
+    items: list,
+) -> list:
+    """Lane collection for LIGHT verification, shared by the serial and
+    the coalesced paths so their verdicts cannot drift. Appends
+    (pubkey, sign_bytes, sig) lanes to ``items``; returns
+    [(lane_idx, validator_idx)]. Raises CommitVerifyError on
+    structural failures."""
     _basic_checks(vals, commit, height, block_id)
     total = vals.total_voting_power()
-    items = []
     lanes = []
     tallied_known = 0
     for i, cs in enumerate(commit.signatures):
@@ -202,15 +241,98 @@ def verify_commit_light(
         )
         tallied_known += val.voting_power
         if not all_signatures and tallied_known * 3 > total * 2:
-            break
-    oks = _run_batch(items, cache, device)
+            break  # enough power collected; verify just these lanes
+    return lanes
+
+
+def _fold_light_lanes(lanes: list, oks: list, vals: ValidatorSet, commit: Commit) -> None:
+    """Tally/verdict fold for LIGHT verification."""
     tallied = 0
     for lane, i in lanes:
         if not oks[lane]:
             raise ErrInvalidSignature(f"invalid signature for validator {i}")
-        tallied += vals.get_by_index(i).voting_power
+        if commit.signatures[i].for_block():
+            tallied += vals.get_by_index(i).voting_power
+    total = vals.total_voting_power()
     if not tallied * 3 > total * 2:
         raise ErrNotEnoughVotingPower(f"tallied {tallied} <= 2/3 of {total}")
+
+
+def _collect_trusting_lanes(
+    chain_id: str,
+    vals: ValidatorSet,
+    commit: Commit,
+    trust_level: Fraction,
+    all_signatures: bool,
+    items: list,
+):
+    """Lane collection for TRUSTING verification (see
+    _collect_light_lanes). Returns ([(lane_idx, voting_power)], total,
+    need)."""
+    if commit is None:
+        raise CommitVerifyError("nil commit")
+    if trust_level.numerator * 3 < trust_level.denominator or (
+        trust_level.numerator > trust_level.denominator
+    ):
+        raise CommitVerifyError("trust level must be in [1/3, 1]")
+    total = vals.total_voting_power()
+    need = total * trust_level.numerator
+    lanes = []
+    seen = set()
+    tallied_known = 0
+    for cs in commit.signatures:
+        if not cs.for_block():
+            continue
+        idx, val = vals.get_by_address(cs.validator_address)
+        if idx < 0:
+            continue
+        if idx in seen:
+            raise CommitVerifyError("double vote from same validator")
+        seen.add(idx)
+        lanes.append((len(items), val.voting_power))
+        items.append(
+            (val.pub_key, _commit_sign_bytes(chain_id, commit, cs), cs.signature)
+        )
+        tallied_known += val.voting_power
+        if not all_signatures and tallied_known * trust_level.denominator > need:
+            break
+    return lanes, total, need
+
+
+def _fold_trusting_lanes(lanes: list, oks: list, total, need, trust_level: Fraction) -> None:
+    """Tally/verdict fold for TRUSTING verification."""
+    tallied = 0
+    for lane, power in lanes:
+        if not oks[lane]:
+            raise ErrInvalidSignature("invalid signature in trusted commit")
+        tallied += power
+    if not tallied * trust_level.denominator > need:
+        raise ErrNotEnoughVotingPower(
+            f"trusted tally {tallied} <= {trust_level} of {total}"
+        )
+
+
+def verify_commit_light(
+    chain_id: str,
+    vals: ValidatorSet,
+    block_id: BlockID,
+    height: int,
+    commit: Commit,
+    cache: Optional[SignatureCache] = None,
+    all_signatures: bool = False,
+    priority: Optional[int] = None,
+    device=None,
+) -> None:
+    """Light verification: only signatures for block_id are checked,
+    and tallied up to the 2/3 threshold (reference :65;
+    all_signatures=True checks every block signature, reference :96)."""
+    device = resolve(device)
+    items: list = []
+    lanes = _collect_light_lanes(
+        chain_id, vals, block_id, height, commit, all_signatures, items
+    )
+    oks = _run_batch(items, cache, priority, "light", device)
+    _fold_light_lanes(lanes, oks, vals, commit)
 
 
 def verify_commits_coalesced_async(
@@ -218,6 +340,7 @@ def verify_commits_coalesced_async(
     jobs,
     cache: Optional[SignatureCache] = None,
     light: bool = True,
+    priority: Optional[int] = None,
     device=None,
 ):
     """Enqueue ONE lane batch for every job's signatures; ``result()``
@@ -256,7 +379,7 @@ def verify_commits_coalesced_async(
             errors[j] = e
             lanes = []
         job_lanes.append(lanes)
-    batch_handle = _run_batch_async(items, cache, device)
+    batch_handle = _run_batch_async(items, cache, priority, "coalesced", device)
     return _CoalescedHandle(batch_handle, jobs, job_lanes, errors)
 
 
@@ -301,10 +424,140 @@ def verify_commits_coalesced(
     jobs,
     cache: Optional[SignatureCache] = None,
     light: bool = True,
+    priority: Optional[int] = None,
     device=None,
 ) -> list:
-    """Verify MANY commits in one GPU dispatch (cross-height
+    """Verify MANY commits in one lane batch (cross-height
     coalescing): one None or CommitVerifyError per job."""
     return verify_commits_coalesced_async(
-        chain_id, jobs, cache=cache, light=light, device=device
+        chain_id, jobs, cache=cache, light=light, priority=priority, device=device
     ).result()
+
+
+def verify_commit_jobs_coalesced(
+    chain_id: str,
+    jobs,
+    cache: Optional[SignatureCache] = None,
+    priority: Optional[int] = None,
+    device=None,
+) -> list:
+    """Mixed-kind coalesced verification: many light and trusting
+    commit checks in ONE lane batch (a light client's bisection hop is
+    one trusting and one light check).
+
+    jobs: list of either
+        ("light", vals, block_id, height, commit)
+        ("trusting", vals, commit, trust_level)
+
+    Returns one entry per job: None or the exact CommitVerifyError the
+    serial path raises — collection and fold run the same helpers as
+    verify_commit_light and verify_commit_light_trusting, over one
+    shared lane batch."""
+    device = resolve(device)
+    items: list = []
+    metas: list = []
+    errors: list = [None] * len(jobs)
+    for j, job in enumerate(jobs):
+        kind = job[0]
+        try:
+            if kind == "light":
+                _, vals, block_id, height, commit = job
+                lanes = _collect_light_lanes(
+                    chain_id, vals, block_id, height, commit, False, items
+                )
+                metas.append(("light", lanes, vals, commit))
+            elif kind == "trusting":
+                _, vals, commit, trust_level = job
+                lanes, total, need = _collect_trusting_lanes(
+                    chain_id, vals, commit, trust_level, False, items
+                )
+                metas.append(("trusting", lanes, total, need, trust_level))
+            else:
+                raise CommitVerifyError(f"unknown job kind {kind!r}")
+        except CommitVerifyError as e:
+            errors[j] = e
+            metas.append(None)
+    oks = _run_batch(items, cache, priority, "jobs", device)
+    for j, meta in enumerate(metas):
+        if meta is None:
+            continue
+        try:
+            if meta[0] == "light":
+                _, lanes, vals, commit = meta
+                _fold_light_lanes(lanes, oks, vals, commit)
+            else:
+                _, lanes, total, need, trust_level = meta
+                _fold_trusting_lanes(lanes, oks, total, need, trust_level)
+        except CommitVerifyError as e:
+            errors[j] = e
+    return errors
+
+
+def verify_commit_light_trusting(
+    chain_id: str,
+    vals: ValidatorSet,
+    commit: Commit,
+    trust_level: Fraction = Fraction(1, 3),
+    cache: Optional[SignatureCache] = None,
+    all_signatures: bool = False,
+    priority: Optional[int] = None,
+    device=None,
+) -> None:
+    """Trusting verification against an OLD validator set: tally the
+    power of trusted validators who signed; require > trust_level of
+    the trusted total (reference :148; light bisection, evidence)."""
+    device = resolve(device)
+    items: list = []
+    lanes, total, need = _collect_trusting_lanes(
+        chain_id, vals, commit, trust_level, all_signatures, items
+    )
+    oks = _run_batch(items, cache, priority, "trusting", device)
+    _fold_trusting_lanes(lanes, oks, total, need, trust_level)
+
+
+def verify_extended_commit(
+    chain_id: str,
+    vals: ValidatorSet,
+    block_hash: bytes,
+    height: int,
+    ec,
+    cache: Optional[SignatureCache] = None,
+    priority: Optional[int] = None,
+    device=None,
+) -> None:
+    """Full extended-commit verification (the checks guarding the
+    reference's SaveBlockWithExtendedCommit, blocksync/reactor.go:648):
+
+      * the extended commit binds to this height and block hash;
+      * the embedded plain commit fully verifies against ``vals``;
+      * non-commit lanes carry no extension data;
+      * every commit lane has an extension signature, and all of them
+        verify in one batch.
+
+    Raises CommitVerifyError on any failure.
+    """
+    device = resolve(device)
+    if ec.height != height or ec.block_id.hash != block_hash:
+        raise CommitVerifyError("extended commit does not bind to block")
+    verify_commit(
+        chain_id, vals, ec.block_id, height, ec.to_commit(),
+        cache=cache, priority=priority, device=device,
+    )
+    items = []
+    for i, s in enumerate(ec.extended_signatures):
+        if not s.for_block():
+            if s.extension or s.extension_signature:
+                raise CommitVerifyError(f"sig {i}: extension data on non-commit lane")
+            continue
+        if not s.extension_signature:
+            raise CommitVerifyError(f"commit sig {i} missing extension signature")
+        val = vals.get_by_index(i)
+        items.append(
+            (
+                val.pub_key,
+                vote_extension_sign_bytes(chain_id, height, ec.round, s.extension),
+                s.extension_signature,
+            )
+        )
+    if not all(_run_batch(items, cache, priority, "extension", device)):
+        raise CommitVerifyError("invalid extension signature")

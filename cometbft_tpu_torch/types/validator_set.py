@@ -2,8 +2,8 @@
 
 The parts of the JAX package's ``types/validator_set.py`` that
 verification needs (reference types/validator_set.go): canonical
-order (power descending, then address), lookup by index, and the
-total voting power. Proposer rotation and set
+order (power descending, then address), lookup by index and by
+address, and the total voting power. Proposer rotation and set
 updates are not part of this slice.
 """
 
@@ -32,7 +32,8 @@ class ValidatorSet:
     def __init__(self, validators: Sequence[Validator]):
         vals = sorted(validators, key=lambda v: (-v.voting_power, v.address))
         self.validators: List[Validator] = vals
-        if len({v.address for v in vals}) != len(vals):
+        self._by_address = {v.address: i for i, v in enumerate(vals)}
+        if len(self._by_address) != len(vals):
             raise ValueError("duplicate validator address")
         self._total_power = None
 
@@ -51,3 +52,10 @@ class ValidatorSet:
         if 0 <= i < len(self.validators):
             return self.validators[i]
         return None
+
+    def get_by_address(self, addr: bytes):
+        """(index, validator), or (-1, None) for an unknown address."""
+        i = self._by_address.get(addr)
+        if i is None:
+            return -1, None
+        return i, self.validators[i]

@@ -3,11 +3,15 @@
 - A fresh interpreter imports every module of cometbft_tpu_torch and
   finds neither ``jax`` nor any ``cometbft_tpu.`` module loaded.
 - With no CUDA device (this test lane), calling an entry point without
-  ``device="cpu"`` raises instead of falling back to the CPU.
+  ``device="cpu"`` raises instead of falling back to the CPU: the
+  kernels' entry, the batch factories ("cuda" and "cpu-parallel"), the
+  verify scheduler's ``submit``, the vote coalescer, and every
+  validation entry point.
 """
 
 import subprocess
 import sys
+from fractions import Fraction
 from pathlib import Path
 
 import pytest
@@ -15,8 +19,14 @@ import torch
 
 from cometbft_tpu_torch import device as port_device
 from cometbft_tpu_torch.crypto import batch
+from cometbft_tpu_torch.crypto import coalesce
+from cometbft_tpu_torch.crypto import parallel_verify as pv
+from cometbft_tpu_torch.crypto import scheduler as sched_mod
+from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
 from cometbft_tpu_torch.ops import ed25519 as ed
+from cometbft_tpu_torch.types import block as B
 from cometbft_tpu_torch.types import validation as V
+from cometbft_tpu_torch.types.validator_set import Validator, ValidatorSet
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -58,3 +68,60 @@ def test_entry_points_raise_without_a_gpu():
     assert port_device.resolve("cpu") == torch.device("cpu")
     # zero key and zero R are small-order points: valid under ZIP-215
     assert ed.verify_batch(item, device="cpu").tolist() == [True]
+
+
+@pytest.fixture
+def no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    eng = pv.ParallelVerifyEngine(workers=2)
+    pv.set_engine(eng)
+    old = batch.default_backend()
+    yield
+    batch.set_default_backend(old)
+    sched_mod.set_scheduler(None)
+    pv.set_engine(None)
+    eng.close()
+
+
+def test_dispatch_layer_raises_without_a_gpu(no_gpu):
+    p = Ed25519PrivKey.from_seed(bytes(32))
+    lane = [(p.pub_key(), b"m", p.sign(b"m"))]
+    s = sched_mod.VerifyScheduler()
+    try:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            s.submit(lane)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            s.submit([])
+        assert s.submit(lane, device="cpu").result(timeout=30) == (True, [True])
+    finally:
+        s.close()
+    batch.set_default_backend("cpu-parallel")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        batch.create_batch_verifier()
+    v = batch.create_batch_verifier(device="cpu")
+    v.add(*lane[0])
+    assert v.verify() == (True, [True])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        coalesce.CoalescingVerifier()
+
+
+def test_new_validation_entry_points_raise_without_a_gpu(no_gpu):
+    p = Ed25519PrivKey.from_seed(bytes(range(32)))
+    vals = ValidatorSet([Validator(p.pub_key(), 10)])
+    commit = B.Commit(1, 0, B.BlockID(b"h" * 32), [B.CommitSig.absent()])
+    ec = B.ExtendedCommit(1, 0, B.BlockID(b"h" * 32), [B.ExtendedCommitSig()])
+    calls = [
+        (V.verify_commit_light_trusting, ("c", vals, commit)),
+        (V.verify_commit_jobs_coalesced, ("c", [("trusting", vals, commit, Fraction(1, 3))])),
+        (V.verify_extended_commit, ("c", vals, b"h" * 32, 1, ec)),
+    ]
+    for fn, args in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(*args)
+    # on the CPU they run: an absent-only commit tallies nothing
+    with pytest.raises(V.ErrNotEnoughVotingPower):
+        V.verify_commit_light_trusting("c", vals, commit, device="cpu")
+    assert V.verify_commit_jobs_coalesced("c", calls[1][1][1], device="cpu")[0] is not None
+    with pytest.raises(V.ErrNotEnoughVotingPower):
+        V.verify_extended_commit("c", vals, b"h" * 32, 1, ec, device="cpu")

@@ -140,12 +140,13 @@ def test_expanded_key_cache_evicts_least_recently_used(monkeypatch):
 
 
 def test_cuda_batch_verifier_splits_other_key_types():
-    """ed25519 lanes go to the kernels (plain versions on the CPU);
-    lanes of any other key type verify on the host; verdicts come
-    back in add() order."""
+    """ed25519 lanes go to the kernels (plain versions on the CPU; the
+    device route pinned by the floor at 1, since the calibrated routing
+    keeps 8 lanes on the host); lanes of any other key type verify on
+    the host; verdicts come back in add() order."""
     from dataclasses import dataclass
 
-    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import batch, scheduler
     from cometbft_tpu_torch.crypto.keys import Ed25519PubKey, PubKey
 
     @dataclass(frozen=True)
@@ -163,12 +164,18 @@ def test_cuda_batch_verifier_splits_other_key_types():
         if i % 3 == 0:
             bv.add(OtherKey(b"k"), b"yes" if i % 2 else b"no", b"")
             want.append(i % 2 == 1)
-    all_ok, oks = bv.verify()
+    floor = batch._MIN_DEVICE_BATCH
+    batch.set_min_device_batch(1)
+    try:
+        all_ok, oks = bv.verify()
+    finally:
+        batch.set_min_device_batch(floor)
+        scheduler.set_scheduler(None)
     assert oks == want and all_ok is False
     assert ed.LAST_DISPATCH["lanes"] == len(items)
     batch.set_default_backend("cpu")
     try:
-        cpu = batch.create_batch_verifier()
+        cpu = batch.create_batch_verifier(device="cpu")
     finally:
         batch.set_default_backend("cuda")
     assert isinstance(cpu, batch.CpuBatchVerifier)
