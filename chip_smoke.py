@@ -52,6 +52,26 @@ Phases, each printing one JSON line:
    (must be 0), and the live ticket must resolve before the last
    catch-up one. Every verdict against the host oracle.
 
+8. replay, the slice's main path: a 150-validator chain of 1,025
+   blocks (one tx a block, keys from a seeded generator) built with
+   utils.chaingen (its build time on its own line), then replayed into
+   a fresh build_node by a BlockSyncReactor on the card from a
+   StorePeerClient, waited on on_caught_up with a deadline. It fails
+   unless the store reaches 1,023, every height's app hash, results
+   hash, validator-set hash and block hash equal the source's, the pool
+   routine caught nothing, every window's dispatch took the device
+   route (no host chunk, 0 degraded) and launched each kernel (counters
+   zeroed just before the replay, read just after). Then a 129-block
+   prefix is replayed twice with two bad peers that fill the pool first
+   (a TamperingPeerClient at one height, a peer whose block carries a
+   last commit with one corrupted signature among its first 100
+   lanes): on the card, and with the host route forced. Both must
+   refetch the same heights from the honest peer and reach the
+   source's state at every height. The replay line has blocks/s,
+   signatures/s, windows, pipeline_stats, the summed
+   blocksync.window.prepare / verify_wait / apply / persist spans and
+   each route's ticket walls (submit to resolve).
+
 The line before last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result line. Needs no network; exits non-zero without a GPU or
@@ -78,6 +98,15 @@ CROSSOVER_WIDTHS = (512, 1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072)
 DISPATCH_WIDTHS = (N_VALS, 4740, 32768)  # the commit, the window, bulk
 DISPATCH_REPS = 5
 PRIORITY_WINDOWS = 8
+# phase 8: the width of BASELINE.json's replay config (150 validators);
+# its depth cut from 10,000 blocks to 1,025 (1,024 applied: 32 windows
+# of VERIFY_WINDOW) to fit the smoke's time
+REPLAY_VALS = 150
+REPLAY_BLOCKS = 1025
+REFUSAL_BLOCKS = 129
+TAMPER_AT = 40  # both bad heights sit in the second window
+FORGE_AT = 50
+REPLAY_DEADLINE_S = 600
 
 # card peaks: HBM bytes/s from the H100 SXM data sheet; 32-bit integer
 # results per clock per SM on sm_90 (IMAD, IADD, LOP, shifts: 64, the
@@ -554,6 +583,314 @@ def phase_dispatch(dev, window, window_lanes, commit_lanes, window_want, pinned_
     return launches
 
 
+# --- phase 8: replay -----------------------------------------------------------
+
+
+def _state_row(st) -> tuple:
+    return (st.app_hash, st.last_results_hash, st.validators.hash(),
+            st.next_validators.hash(), st.last_block_id.key())
+
+
+def _record_states(node, rows: dict, stamp: dict | None = None) -> None:
+    """rows[h] = the state after block h, as the executor produces it;
+    stamp["last"] = the clock when the last block was applied."""
+    real = node.block_exec.apply_verified_block
+
+    def wrapped(state, bid, block):
+        st = real(state, bid, block)
+        rows[st.last_block_height] = _state_row(st)
+        if stamp is not None:
+            stamp["last"] = time.perf_counter()
+        return st
+
+    node.block_exec.apply_verified_block = wrapped
+
+
+def _forging_peer(node, bad_height):
+    """A peer whose block at ``bad_height`` carries its last commit with
+    one signature corrupted, among the first 100 lanes. It serves
+    bad_height - 1 too, honestly: the failed commit then names this
+    peer alone, as the sender of both blocks."""
+    import dataclasses
+
+    from cometbft_tpu_torch.utils.chaingen import StorePeerClient
+
+    class ForgingPeerClient(StorePeerClient):
+        async def request_block(self, height):
+            blk = await super().request_block(height)
+            if blk is not None and height == bad_height:
+                lc = blk.last_commit
+                i = min(17, len(lc.signatures) // 2)  # a lane the light check reads
+                sig = bytearray(lc.signatures[i].signature)
+                sig[5] ^= 0x40
+                lc.signatures[i] = dataclasses.replace(lc.signatures[i], signature=bytes(sig))
+                lc._hash = None
+                for o in (blk, lc):
+                    if hasattr(o, "_raw_bytes"):
+                        del o._raw_bytes
+            return blk
+
+    return ForgingPeerClient(node)
+
+
+def replay(gen, src, dev, top, bad_peers=False):
+    """Replay ``src`` up to ``top`` into a fresh node on ``dev`` through
+    a BlockSyncReactor; with ``bad_peers`` a tampering and a forging
+    peer fill the pool with their bad heights before the honest peer
+    joins. Returns (node, reactor, rows, redos, spans, dispatches,
+    tickets, wall, to_last_apply, kept): ``tickets`` is (lanes, route,
+    submit-to-resolve wall) for each verify ticket, in submission
+    order; ``wall`` runs from the honest peer's arrival to the caught-up
+    signal (polled every second), ``to_last_apply`` to the last applied
+    block; ``kept`` maps each dispatch width to the kernel items of its
+    first dispatch."""
+    import asyncio
+    from collections import defaultdict
+
+    from cometbft_tpu_torch.blocksync.reactor import BlockSyncReactor
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.node.inprocess import build_node
+    from cometbft_tpu_torch.ops import ed25519 as ed
+    from cometbft_tpu_torch.trace import Tracer
+    from cometbft_tpu_torch.utils.chaingen import StorePeerClient, TamperingPeerClient
+
+    fresh = build_node(gen, device=dev)
+    rows: dict = {}
+    stamp: dict = {}
+    _record_states(fresh, rows, stamp)
+    spans = defaultdict(lambda: [0, 0.0])
+
+    def observe(name, dur_ns, args):
+        spans[name][0] += 1
+        spans[name][1] += dur_ns / 1e6
+
+    tracer = Tracer(name="replay")
+    tracer.add_observer(observe)
+    dispatches = []
+    kept: dict = {}
+    real_async = ed.verify_batch_async
+
+    def recording(items, device=None, precomp=None):
+        h = real_async(items, device=device, precomp=precomp)
+        dispatches.append(h.dispatch)
+        kept.setdefault(len(items), list(items))
+        return h
+
+    # one dispatcher thread routes the catch-up class in submission
+    # order, so the i-th routing decision is the i-th ticket's
+    sched = S.scheduler()
+    submitted, routes = [], []
+    real_submit, real_route = sched.submit, batch.route_to_device
+
+    def submit(items, **kw):
+        t = real_submit(items, **kw)
+        submitted.append(t)
+        return t
+
+    def route(n, device):
+        r = real_route(n, device)
+        routes.append("device" if r else "host")
+        return r
+
+    async def main():
+        caught = asyncio.Event()
+        reactor = BlockSyncReactor(fresh.state, fresh.block_exec, fresh.block_store,
+                                   on_caught_up=lambda st: caught.set(), device=dev)
+        reactor.tracer = tracer
+        pool = reactor.pool
+        redos = []
+        real_redo = pool.redo_request
+
+        def redo(height, ban_peer):
+            redos.append((height, ban_peer))
+            real_redo(height, ban_peer)
+
+        pool.redo_request = redo
+        loop = asyncio.get_running_loop()
+        if bad_peers:
+            pool.set_peer_range("tamper", TamperingPeerClient(src, TAMPER_AT), TAMPER_AT, TAMPER_AT)
+            pool.set_peer_range("forge", _forging_peer(src, FORGE_AT), FORGE_AT - 1, FORGE_AT)
+            deadline = loop.time() + 60
+            while not {TAMPER_AT, FORGE_AT - 1, FORGE_AT} <= set(pool.blocks):
+                check(loop.time() < deadline, "bad peers never served their heights")
+                await asyncio.sleep(0.01)
+        t0 = time.perf_counter()
+        pool.set_peer_range("good", StorePeerClient(src), 1, top)
+        await reactor.start()
+        try:
+            await asyncio.wait_for(caught.wait(), REPLAY_DEADLINE_S)
+        finally:
+            await reactor.stop()
+        return reactor, redos, t0, time.perf_counter() - t0
+
+    ed.verify_batch_async, sched.submit, batch.route_to_device = recording, submit, route
+    try:
+        reactor, redos, t0, wall = asyncio.run(main())
+        # the stopped reactor's lookahead may still be queued: let it
+        # resolve here, so its dispatch counts in this replay
+        check(sched.drain(60), "the verify scheduler did not drain")
+    finally:
+        ed.verify_batch_async, batch.route_to_device = real_async, real_route
+        del sched.submit
+    tickets = [(len(t.items), r, t.wall()) for t, r in zip(submitted, routes)]
+    return (fresh, reactor, rows, redos, {k: v for k, v in spans.items()}, dispatches,
+            tickets, wall, stamp["last"] - t0, kept)
+
+
+def ticket_walls(tickets) -> dict:
+    """Per route: tickets, lanes, median and max submit-to-resolve wall."""
+    out = {}
+    for route in ("device", "host"):
+        ws = [(n, w) for n, r, w in tickets if r == route]
+        if ws:
+            out[route] = {"tickets": len(ws), "lanes": [n for n, _ in ws],
+                          "median_wall_s": statistics.median(w for _, w in ws),
+                          "max_wall_s": max(w for _, w in ws)}
+    return out
+
+
+def phase_replay(dev):
+    """The replay: corpus, the replay on the card, the same unforced,
+    refusals on the card and on the host route. Returns the pinned
+    replay's launch counts and the kernel items of two of its
+    dispatches (the widest and the narrowest)."""
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.blocksync.reactor import VERIFY_WINDOW
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.node.inprocess import build_node, make_genesis
+    from cometbft_tpu_torch.utils.chaingen import make_chain
+
+    t0 = time.perf_counter()
+    gen, privs = make_genesis(REPLAY_VALS, chain_id="smoke-replay", seed=SEED)
+    src = build_node(gen, device=dev)
+    src_rows: dict = {}
+    _record_states(src, src_rows)
+    make_chain(gen, privs, REPLAY_BLOCKS, node=src)
+    emit("replay_corpus", validators=REPLAY_VALS, blocks=REPLAY_BLOCKS, txs_per_block=1,
+         seconds=time.perf_counter() - t0)
+    top = src.block_store.height()
+
+    def same_as_source(fresh, rows, upto, what):
+        check(fresh.block_store.height() >= upto, f"{what}: store at {fresh.block_store.height()}")
+        check(sorted(rows) == list(range(1, max(rows) + 1)) and max(rows) >= upto,
+              f"{what}: applied heights")
+        bad = [h for h in rows if rows[h] != src_rows[h]]
+        check(not bad, f"{what}: state differs from the source at heights {bad[:5]}")
+        bad = [h for h in range(1, fresh.block_store.height() + 1)
+               if fresh.block_store.load_block_meta(h).block_id != src.block_store.load_block_meta(h).block_id]
+        check(not bad, f"{what}: block IDs differ at heights {bad[:5]}")
+
+    floor = batch._MIN_DEVICE_BATCH
+    sched = S.VerifyScheduler()
+    S.set_scheduler(sched)
+    try:
+        # 8b: the replay on the card, the device route pinned by the
+        # floor at 1 as in phase 4. Unforced, the calibration samples
+        # the device route's wall as the JAX package does, and under the
+        # apply loop that wall is mostly the dispatcher waiting for the
+        # interpreter lock: 8c shows where it routes the same replay
+        batch.set_min_device_batch(1)
+        kernels.reset_counts()
+        (fresh, reactor, rows, redos, spans, dispatches, tickets, wall, applied_s,
+         kept) = replay(gen, src, dev, top)
+        launches = dict(kernels.LAUNCHES)
+        stats = sched.stats()
+        windows = spans["blocksync.window.verify_wait"][0]
+        applied = reactor.blocks_applied
+        lanes = sum(d["lanes"] for d in dispatches)
+        emit("replay", validators=REPLAY_VALS, blocks=top, applied=applied,
+             store_height=fresh.block_store.height(), window=VERIFY_WINDOW, windows=windows,
+             route="device (pinned)", to_last_apply_s=applied_s,
+             blocks_per_s=applied / applied_s, signatures_per_s=lanes / applied_s,
+             wall_s=wall, blocks_per_s_to_caught_up=applied / wall,
+             lanes=lanes, pipeline_stats=reactor.pipeline_stats, scheduler=stats,
+             launches=launches, dispatch_lanes=[d["lanes"] for d in dispatches],
+             pack_ms=[round(d["pack_ms"], 3) for d in dispatches],
+             ticket_walls=ticket_walls(tickets),
+             spans_ms={k: v[1] for k, v in spans.items()},
+             span_counts={k: v[0] for k, v in spans.items()},
+             loop_errors=[repr(e) for e in reactor.loop_errors])
+        check(reactor.loop_errors == [], f"the pool routine caught {reactor.loop_errors!r}")
+        same_as_source(fresh, rows, top - 2, "replay")
+        check(redos == [], f"honest replay refetched {redos}")
+        check(stats["host_chunks"] == 0 and stats["degraded"] == 0 and sched.degraded == 0,
+              f"a window left the device route: {stats}")
+        check(len(dispatches) == stats["device_dispatches"] >= windows > 0,
+              f"{len(dispatches)} dispatches, {windows} windows: {stats}")
+        check(all(d["device"] == str(dev) and all(d["launches"][k] >= 1 for k in SOURCES)
+                  for d in dispatches), "a window's dispatch skipped a kernel")
+        check(all(launches[k] == sum(d["launches"][k] for d in dispatches) for k in SOURCES),
+              f"launches {launches} outside the window dispatches")
+
+        # 8c: the same replay unforced, routed by the calibration from
+        # its seeds; reported, and held to the same states
+        batch.set_min_device_batch(floor)
+        batch.calibration = batch._Calibration()
+        before = sched.stats()
+        (fresh, reactor, rows, redos, spans, dispatches, tickets, wall, applied_s,
+         _) = replay(gen, src, dev, top)
+        after = sched.stats()
+        moved = {k: after[k] - before[k] for k in ("tickets", "device_dispatches", "host_chunks",
+                                                    "degraded")}
+        emit("replay_unforced", applied=reactor.blocks_applied, to_last_apply_s=applied_s,
+             blocks_per_s=reactor.blocks_applied / applied_s, wall_s=wall, routes=moved,
+             ticket_routes="".join("d" if r == "device" else "h" for _, r, _ in tickets),
+             ticket_lanes=[n for n, _, _ in tickets], learned=batch.calibration.snapshot(),
+             ticket_walls=ticket_walls(tickets),
+             spans_ms={k: v[1] for k, v in spans.items()},
+             loop_errors=[repr(e) for e in reactor.loop_errors])
+        check(reactor.loop_errors == [], f"unforced: the pool routine caught {reactor.loop_errors!r}")
+        same_as_source(fresh, rows, top - 2, "unforced replay")
+        check(redos == [] and moved["degraded"] == 0, f"unforced: redos {redos}, {moved}")
+
+        # 8d: refusals with the device route pinned, 8e: the same with
+        # the host route forced
+        runs = {}
+        for route, fl in (("device", 1), ("host", 1 << 30)):
+            batch.set_min_device_batch(fl)
+            before = sched.stats()
+            fresh, reactor, rows, redos, spans, dispatches, tickets, wall, _, _ = replay(
+                gen, src, dev, REFUSAL_BLOCKS, bad_peers=True)
+            after = sched.stats()
+            check(reactor.loop_errors == [], f"{route}: the pool routine caught {reactor.loop_errors!r}")
+            same_as_source(fresh, rows, REFUSAL_BLOCKS - 2, f"refusals ({route})")
+            check(redos == [(TAMPER_AT, "tamper"), (FORGE_AT - 1, "forge")], f"{route}: redos {redos}")
+            check(sorted(reactor.pool.banned_peers()) == ["forge", "tamper"],
+                  f"{route}: banned {reactor.pool.banned_peers()}")
+            for h in (TAMPER_AT, FORGE_AT):
+                check(fresh.block_store.load_block(h).encode() == src.block_store.load_block(h).encode(),
+                      f"{route}: stored block {h} is not the honest one")
+            moved = {k: after[k] - before[k] for k in ("device_dispatches", "host_chunks", "degraded")}
+            check(moved["degraded"] == 0, f"{route}: degraded {moved}")
+            if route == "device":
+                check(moved["host_chunks"] == 0 and moved["device_dispatches"] > 0, f"device: {moved}")
+            else:
+                check(moved["device_dispatches"] == 0 and moved["host_chunks"] > 0, f"host: {moved}")
+            runs[route] = {"redos": redos, "rows": rows, "wall_s": wall, "routes": moved,
+                           "ticket_walls": ticket_walls(tickets),
+                           "pipeline_stats": reactor.pipeline_stats}
+        check(runs["device"]["redos"] == runs["host"]["redos"],
+              f"refetches differ: {runs['device']['redos']} vs {runs['host']['redos']}")
+        # the caught-up check runs between windows, so a run may stop one
+        # height short of the other: compare the heights both applied
+        dev_rows, host_rows = runs["device"]["rows"], runs["host"]["rows"]
+        common = sorted(set(dev_rows) & set(host_rows))
+        check(len(common) >= REFUSAL_BLOCKS - 2 and all(dev_rows[h] == host_rows[h] for h in common),
+              "host and device states differ")
+        emit("replay_refusals", blocks=REFUSAL_BLOCKS, tamper_at=TAMPER_AT, forge_at=FORGE_AT,
+             **{route: {k: v for k, v in r.items() if k != "rows"} for route, r in runs.items()},
+             host_equals_device=True)
+    finally:
+        batch.set_min_device_batch(floor)
+        S.set_scheduler(None)
+        sched.close()
+    # the kernel items of the widest window dispatch and of the narrowest
+    # (the one-height tail), for phase 6
+    return launches, {n: kept[n] for n in {max(kept), min(kept)}}
+
+
 # --- timing and bounds --------------------------------------------------------
 
 
@@ -751,31 +1088,41 @@ def main(argv) -> int:
     swap = lambda its: [(pk, m, s) for m, pk, s in its]  # noqa: E731
     launches = phase_dispatch(dev, window, swap(window_lanes), swap(commit_lanes), window_want,
                               pinned)
+    replay_launches, replay_items = phase_replay(dev)
 
-    # phase 6: each kernel against its plain version on the main path's
-    # own inputs (the window's lanes and the commit's), timed at the window
+    # phase 6: each kernel against its plain version on the main paths'
+    # own inputs (the window's lanes and the commit's; the replay's
+    # widest and narrowest dispatches), timed at the window and at the
+    # replay's widest
     x = kernel_inputs(window_items, dev)
     calls = stage_calls(x)
     errs = compare(calls)
     x_commit = kernel_inputs(commit_items, dev)
     commit_calls = stage_calls(x_commit)
     commit_errs = compare(commit_calls)
+    x_replay = {n: kernel_inputs(its, dev) for n, its in sorted(replay_items.items())}
+    replay_calls = {n: stage_calls(xr) for n, xr in x_replay.items()}
+    replay_errs = {n: compare(c) for n, c in replay_calls.items()}
+    n_wide = max(x_replay)
     emit("main_path_vs_plain", lanes=x["n"], commit_lanes=x_commit["n"],
-         equal=True, max_abs_err=errs, commit_max_abs_err=commit_errs)
+         replay_lanes=list(x_replay), equal=True, max_abs_err=errs,
+         commit_max_abs_err=commit_errs, replay_max_abs_err=replay_errs)
     rows = []
     for name in ("ladder", "decompress", "hash_digits"):
         f, plain = calls[name]
         extra = occupancy(name)
         parts = (name, "straus") if name == "ladder" else (name,)
+        replay_err = max(e[k] for e in replay_errs.values() for k in parts)
         err = max(max(errs[k], commit_errs[k]) for k in parts)
         b_ms, b_by = bound(name, x, int_rate)
         bc_ms, bc_by = bound(name, x_commit, int_rate)
+        br_ms, br_by = bound(name, x_replay[n_wide], int_rate)
         bb_ms, bb_by = bound(name, x_bulk, int_rate)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
-            "pinned_launches": pinned[name],
-            "max_abs_err": err, "tolerance": 0,
+            "pinned_launches": pinned[name], "replay_launches": replay_launches[name],
+            "max_abs_err": max(err, replay_err), "tolerance": 0,
             "ms": graph_ms(f), "call_ms": cuda_ms(f, 20),
             "plain_ms": cuda_ms(plain, 2, warm=0), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
@@ -783,6 +1130,10 @@ def main(argv) -> int:
             "commit_ms": graph_ms(commit_calls[name][0]),
             "commit_call_ms": cuda_ms(commit_calls[name][0], 20),
             "commit_bound_ms": bc_ms, "commit_bound_by": bc_by,
+            "replay_lanes": list(x_replay), "replay_max_abs_err": replay_err,
+            "replay_ms": graph_ms(replay_calls[n_wide][name][0]),
+            "replay_plain_ms": cuda_ms(replay_calls[n_wide][name][1], 2, warm=0),
+            "replay_bound_ms": br_ms, "replay_bound_by": br_by,
             "bulk_lanes": N_BULK, "bulk_ms": bulk_ms[name], "bulk_call_ms": bulk_call_ms[name],
             "bulk_bound_ms": bb_ms, "bulk_bound_by": bb_by,
             "bulk_max_abs_err": max(bulk_errs[k] for k in parts),

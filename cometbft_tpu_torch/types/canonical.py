@@ -11,6 +11,7 @@ from __future__ import annotations
 from ..utils import proto
 from .block import BlockID
 
+PREVOTE_TYPE = 1
 PRECOMMIT_TYPE = 2
 
 

@@ -256,3 +256,35 @@ def test_result_time_overlap_does_not_poison_flat_cost(routing, fake_card):
     pending.result()
     assert routing.device_samples == 1
     assert routing.flat_s == flat
+
+
+def test_slow_device_side_host_work_pushes_windows_to_the_host_plane(routing, fake_card,
+                                                                     monkeypatch):
+    """The device sample is the wall from just before the dispatch (the
+    host's packing and copies included) to the card's event, as in the
+    JAX package: a dispatch whose host side is slow (a loaded or slow
+    host, 150 ms here) raises flat_s, and the next catch-up window of
+    the same width goes to the host plane."""
+    def slow_dispatch(items, device=None):
+        time.sleep(0.15)  # the host side of the device route
+        return _FakeHandle(len(items))
+
+    monkeypatch.setattr(ed, "verify_batch_async", slow_dispatch)
+    sched = sched_mod.VerifyScheduler()
+    sched_mod.set_scheduler(sched)
+    try:
+        window = _signed(400, b"window")
+        first = sched.submit(window, device=CARD, priority=sched_mod.PRIORITY_CATCHUP)
+        assert first.result(timeout=30)[0]
+        assert crypto_batch.LAST_ROUTE["path"] == "device"
+        _wait_samples(routing, 1)
+        assert routing.device_samples == 1 and routing.flat_s > 0.05
+        assert not routing.device_wins(len(window))
+        second = sched.submit(window, device=CARD, priority=sched_mod.PRIORITY_CATCHUP)
+        assert second.result(timeout=30)[0]
+        assert crypto_batch.LAST_ROUTE["path"] == "host"
+        stats = sched.stats()
+        assert stats["device_dispatches"] == 1 and stats["host_chunks"] >= 1
+    finally:
+        sched_mod.set_scheduler(None)
+        sched.close()

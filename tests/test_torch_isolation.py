@@ -5,8 +5,10 @@
 - With no CUDA device (this test lane), calling an entry point without
   ``device="cpu"`` raises instead of falling back to the CPU: the
   kernels' entry, the batch factories ("cuda" and "cpu-parallel"), the
-  verify scheduler's ``submit``, the vote coalescer, and every
-  validation entry point.
+  verify scheduler's ``submit``, the vote coalescer, every validation
+  entry point, and the replay's: ``build_node`` (and ``make_chain``,
+  which builds one), ``BlockExecutor.validate_block`` and
+  ``BlockSyncReactor``.
 """
 
 import subprocess
@@ -50,7 +52,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 15, proc.stdout
+    assert n_modules >= 40, proc.stdout
 
 
 def test_entry_points_raise_without_a_gpu():
@@ -125,3 +127,34 @@ def test_new_validation_entry_points_raise_without_a_gpu(no_gpu):
     assert V.verify_commit_jobs_coalesced("c", calls[1][1][1], device="cpu")[0] is not None
     with pytest.raises(V.ErrNotEnoughVotingPower):
         V.verify_extended_commit("c", vals, b"h" * 32, 1, ec, device="cpu")
+
+
+def test_replay_entry_points_raise_without_a_gpu(no_gpu):
+    from cometbft_tpu_torch.blocksync.reactor import BlockSyncReactor
+    from cometbft_tpu_torch.node.inprocess import build_node, make_genesis
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.utils.chaingen import make_chain
+
+    gen, privs = make_genesis(2, chain_id="iso")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_node(gen)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_chain(gen, privs, 2)
+    src = make_chain(gen, privs, 3, device="cpu")
+    node = build_node(gen, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BlockSyncReactor(node.state, node.block_exec, node.block_store)
+    with pytest.raises(NotImplementedError, match="ingestor"):
+        BlockSyncReactor(node.state, node.block_exec, node.block_store,
+                         block_ingestor=object(), device="cpu")
+    gpu_exec = BlockExecutor(node.state_store, node.proxy.consensus, node.mempool)
+    block2 = src.block_store.load_block(2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gpu_exec.validate_block(src.state_store.load(), block2)
+    # on the CPU the same checks run: block 1 against the genesis state
+    # passes, block 2 against it does not
+    node.block_exec.validate_block(node.state, src.block_store.load_block(1))
+    with pytest.raises(ValueError, match="wrong height"):
+        node.block_exec.validate_block(node.state, block2)
+    r = BlockSyncReactor(node.state, node.block_exec, node.block_store, device="cpu")
+    assert r.device == torch.device("cpu")
