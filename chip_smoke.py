@@ -72,6 +72,26 @@ Phases, each printing one JSON line:
    blocksync.window.prepare / verify_wait / apply / persist spans and
    each route's ticket walls (submit to resolve).
 
+9. light bisection, BASELINE config 4 (bench.py::bench_bisect's shape):
+   150 validators of power 10, a 50,000-height skip from a trust root at
+   height 1, sets rotating 60 keys every 2,500 heights, headers minted
+   on demand (150 host signatures a fetch) by
+   utils.chaingen.RotatingLightProvider, through the port's light Client:
+   (a) on the card with the device route pinned: fetched heights, hops,
+   every verify ticket (label, lanes, route, wall), K1-K3 launches (49
+   of each, one per ticket), cache size, trusted hash, the wall with and
+   without fetching and signing; it fails unless the counts equal the
+   JAX package's run of this shape (22 fetches in its order, 20 hops, 49
+   tickets of 30-101 lanes, 2,199 cached signatures); (b) the same
+   unforced, with the route of each ticket; (c) the same host-forced,
+   equal to (a); (d) refusals on the card and host-forced: one signature
+   forged at pivot 2,816, one at the target, a witness serving a fork
+   valid in itself; each must refuse at the same height with the same
+   error on both routes, the fork with the same attack evidence
+   (timestamp aside). The kernels line adds bisect_launches and each
+   kernel against its plain version on the bisection's 101- and 30-lane
+   dispatches, with its device time and bound at 101 lanes.
+
 The line before last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result line. Needs no network; exits non-zero without a GPU or
@@ -107,6 +127,21 @@ REFUSAL_BLOCKS = 129
 TAMPER_AT = 40  # both bad heights sit in the second window
 FORGE_AT = 50
 REPLAY_DEADLINE_S = 600
+# phase 9: BASELINE.json's bisect config (bench.py::bench_bisect): 150
+# validators of power 10, a 50,000-height skip, sets rotating 60 keys
+# every 2,500 heights; what the JAX package's run of it does (22
+# fetches in this order, 20 hops, 49 verify tickets, 2,199 cached
+# signatures)
+BISECT_VALS = 150
+BISECT_TARGET = 50_000
+BISECT_EPOCH = 2_500
+BISECT_SHIFT = 60
+BISECT_FETCHED = [1, 1, 50000, 28125, 15820, 8899, 5006, 2816, 12792, 11088, 22741, 19713,
+                  21416, 25769, 40429, 35046, 32018, 33721, 38073, 45812, 43456, 48167]
+BISECT_HOPS = 20
+BISECT_DISPATCHES = 49
+BISECT_CACHE = 2199
+BISECT_FORGE_PIVOT = 2816
 
 # card peaks: HBM bytes/s from the H100 SXM data sheet; 32-bit integer
 # results per clock per SM on sm_90 (IMAD, IADD, LOP, shifts: 64, the
@@ -811,8 +846,8 @@ def phase_replay(dev):
              ticket_walls=ticket_walls(tickets),
              spans_ms={k: v[1] for k, v in spans.items()},
              span_counts={k: v[0] for k, v in spans.items()},
-             loop_errors=[repr(e) for e in reactor.loop_errors])
-        check(reactor.loop_errors == [], f"the pool routine caught {reactor.loop_errors!r}")
+             loop_errors=reactor.loop_errors.count)
+        check(reactor.loop_errors.count == 0, f"the pool routine caught {reactor.loop_errors!r}")
         same_as_source(fresh, rows, top - 2, "replay")
         check(redos == [], f"honest replay refetched {redos}")
         check(stats["host_chunks"] == 0 and stats["degraded"] == 0 and sched.degraded == 0,
@@ -840,8 +875,8 @@ def phase_replay(dev):
              ticket_lanes=[n for n, _, _ in tickets], learned=batch.calibration.snapshot(),
              ticket_walls=ticket_walls(tickets),
              spans_ms={k: v[1] for k, v in spans.items()},
-             loop_errors=[repr(e) for e in reactor.loop_errors])
-        check(reactor.loop_errors == [], f"unforced: the pool routine caught {reactor.loop_errors!r}")
+             loop_errors=reactor.loop_errors.count)
+        check(reactor.loop_errors.count == 0, f"unforced: the pool routine caught {reactor.loop_errors!r}")
         same_as_source(fresh, rows, top - 2, "unforced replay")
         check(redos == [] and moved["degraded"] == 0, f"unforced: redos {redos}, {moved}")
 
@@ -854,7 +889,7 @@ def phase_replay(dev):
             fresh, reactor, rows, redos, spans, dispatches, tickets, wall, _, _ = replay(
                 gen, src, dev, REFUSAL_BLOCKS, bad_peers=True)
             after = sched.stats()
-            check(reactor.loop_errors == [], f"{route}: the pool routine caught {reactor.loop_errors!r}")
+            check(reactor.loop_errors.count == 0, f"{route}: the pool routine caught {reactor.loop_errors!r}")
             same_as_source(fresh, rows, REFUSAL_BLOCKS - 2, f"refusals ({route})")
             check(redos == [(TAMPER_AT, "tamper"), (FORGE_AT - 1, "forge")], f"{route}: redos {redos}")
             check(sorted(reactor.pool.banned_peers()) == ["forge", "tamper"],
@@ -888,6 +923,225 @@ def phase_replay(dev):
         sched.close()
     # the kernel items of the widest window dispatch and of the narrowest
     # (the one-height tail), for phase 6
+    return launches, {n: kept[n] for n in {max(kept), min(kept)}}
+
+
+# --- phase 9: light bisection ----------------------------------------------------
+
+
+def bisect_keys():
+    """The bench's keys: 150 from default_rng(7), then the rotation
+    pool from default_rng(99)."""
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+
+    rng = np.random.default_rng(7)
+    keys = [Ed25519PrivKey.from_seed(rng.bytes(32)) for _ in range(BISECT_VALS)]
+    rng = np.random.default_rng(99)
+    n = (BISECT_TARGET // BISECT_EPOCH + 2) * BISECT_SHIFT
+    return keys + [Ed25519PrivKey.from_seed(rng.bytes(32)) for _ in range(n)]
+
+
+def bisect(dev, keys, t0_ns, forge_at=(), fork=False):
+    """One run of config 4: trust height 1, verify the target through
+    the port's light Client on ``dev``. Returns what it did: fetched
+    heights, hops, the verify tickets (label, lanes, route, wall), the
+    kernel items of the first dispatch of each width, the cache size,
+    the trusted hash or the error and the height of the last block a
+    hop checked, and the walls with and without fetching and signing."""
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.light import Client, TrustOptions, verifier
+    from cometbft_tpu_torch.ops import ed25519 as ed
+    from cometbft_tpu_torch.utils.chaingen import RotatingLightProvider
+
+    fetch = {"s": 0.0}
+
+    class Timed(RotatingLightProvider):
+        def light_block(self, height):
+            t = time.perf_counter()
+            lb = super().light_block(height)
+            fetch["s"] += time.perf_counter() - t
+            return lb
+
+    def provider(**kw):
+        return Timed("bench-chain", keys, BISECT_VALS, BISECT_EPOCH, BISECT_SHIFT, t0_ns, **kw)
+
+    primary = provider(forge_at=forge_at)
+    witnesses = [provider(app_hash=b"\x0f" * 32)] if fork else []
+    sched = S.scheduler()
+    submitted, routes, kept, checked = [], [], {}, []
+    real_submit, real_route, real_async = sched.submit, batch.route_to_device, ed.verify_batch_async
+    hops = {name: getattr(verifier, name) for name in ("verify_adjacent", "verify_non_adjacent")}
+
+    def submit(items, **kw):
+        t = real_submit(items, **kw)
+        submitted.append(t)
+        return t
+
+    def route(n, device):
+        r = real_route(n, device)
+        routes.append("device" if r else "host")
+        return r
+
+    def recording(items, device=None, precomp=None):
+        kept.setdefault(len(items), list(items))
+        return real_async(items, device=device, precomp=precomp)
+
+    def hop(fn, untrusted_at):
+        def checked_hop(*args, **kw):
+            checked.append(args[untrusted_at].height)
+            return fn(*args, **kw)
+        return checked_hop
+
+    out = {"error": None}
+    sched.submit, batch.route_to_device, ed.verify_batch_async = submit, route, recording
+    verifier.verify_adjacent = hop(hops["verify_adjacent"], 2)
+    verifier.verify_non_adjacent = hop(hops["verify_non_adjacent"], 3)
+    try:
+        root = primary.light_block(1)
+        t0 = time.perf_counter()
+        fetch["s"] = 0.0
+        client = Client("bench-chain", TrustOptions(10 * 365 * 86400 * 10**9, 1, root.hash()),
+                        primary, witnesses=witnesses, device=dev)
+        try:
+            out["hash"] = client.verify_light_block_at_height(BISECT_TARGET).hash().hex()
+        except Exception as e:  # the refusal runs: which error, where
+            out["error"] = e
+        wall = time.perf_counter() - t0
+        check(sched.drain(60), "the verify scheduler did not drain")
+    finally:
+        ed.verify_batch_async, batch.route_to_device = real_async, real_route
+        del sched.submit
+        for name, fn in hops.items():
+            setattr(verifier, name, fn)
+    out.update(
+        fetched=list(primary.fetched), hops=client.hops, cache=len(client.cache),
+        at=checked[-1] if checked else None, client=client, kept=kept,
+        tickets=[(t.label, len(t.items), r, t.wall()) for t, r in zip(submitted, routes)],
+        wall_s=wall, fetch_s=fetch["s"], verify_s=wall - fetch["s"],
+    )
+    return out
+
+
+def phase_bisect(dev):
+    """Config 4 on the card with the device route pinned (9a), unforced
+    (9b) and host-forced (9c), each against the JAX package's counts;
+    refusals on the card and host-forced (9d). Returns the pinned run's
+    launch counts and the kernel items of its widest and narrowest
+    dispatches."""
+    import dataclasses
+
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.light.detector import DivergenceError
+
+    keys = bisect_keys()
+    # the target header 2 minutes in the past: the verifier refuses
+    # headers from the future
+    t0_ns = time.time_ns() - (BISECT_TARGET + 120) * 1_000_000_000
+    floor = batch._MIN_DEVICE_BATCH
+    sched = S.VerifyScheduler()
+    S.set_scheduler(sched)
+
+    def summary(r):
+        return {"fetched": r["fetched"], "hops": r["hops"], "cache": r["cache"],
+                "hash": r.get("hash"),
+                "dispatches": [(label, n) for label, n, _, _ in r["tickets"]]}
+
+    def held_to_reference(r, what):
+        check(r["error"] is None, f"{what}: {r['error']!r}")
+        check(r["fetched"] == BISECT_FETCHED, f"{what}: fetched {r['fetched']}")
+        check(r["hops"] == BISECT_HOPS and r["cache"] == BISECT_CACHE,
+              f"{what}: hops {r['hops']}, cache {r['cache']}")
+        widths = [n for _, n, _, _ in r["tickets"]]
+        check(len(widths) == BISECT_DISPATCHES and min(widths) == 30 and max(widths) == 101
+              and {label for label, _, _, _ in r["tickets"]} == {"light", "trusting"},
+              f"{what}: dispatches {[(label, n) for label, n, _, _ in r['tickets']]}")
+
+    def line(r):
+        return {"fetched": r["fetched"], "hops": r["hops"], "cache": r["cache"],
+                "trusted_hash": r.get("hash"),
+                "dispatches": [f"{label}:{n}" for label, n, _, _ in r["tickets"]],
+                "wall_s": r["wall_s"], "fetch_s": r["fetch_s"], "verify_s": r["verify_s"],
+                "ticket_walls": ticket_walls([(n, rt, w) for _, n, rt, w in r["tickets"]])}
+
+    try:
+        # 9a: on the card, the device route pinned
+        batch.set_min_device_batch(1)
+        before = sched.stats()
+        kernels.reset_counts()
+        pinned = bisect(dev, keys, t0_ns)
+        launches = dict(kernels.LAUNCHES)
+        after = sched.stats()
+        moved = {k: after[k] - before[k] for k in ("device_dispatches", "host_chunks", "degraded")}
+        held_to_reference(pinned, "pinned")
+        check(moved == {"device_dispatches": BISECT_DISPATCHES, "host_chunks": 0, "degraded": 0},
+              f"pinned: a ticket left the device route: {moved}")
+        check(all(launches[k] == BISECT_DISPATCHES for k in SOURCES),
+              f"pinned: launches {launches}, want {BISECT_DISPATCHES} of each")
+        emit("bisect", target=BISECT_TARGET, validators=BISECT_VALS, epoch=BISECT_EPOCH,
+             shift=BISECT_SHIFT, route="device (pinned)", launches=launches, scheduler=moved,
+             **line(pinned))
+
+        # 9b: the same, unforced, routed by the calibration from its seeds
+        batch.set_min_device_batch(floor)
+        batch.calibration = batch._Calibration()
+        unforced = bisect(dev, keys, t0_ns)
+        held_to_reference(unforced, "unforced")
+        check(summary(unforced) == summary(pinned), "unforced != pinned")
+        emit("bisect_unforced",
+             ticket_routes="".join("d" if rt == "device" else "h" for _, _, rt, _ in unforced["tickets"]),
+             learned=batch.calibration.snapshot(), **line(unforced))
+
+        # 9c: host route forced
+        batch.set_min_device_batch(1 << 30)
+        host = bisect(dev, keys, t0_ns)
+        held_to_reference(host, "host")
+        check(summary(host) == summary(pinned), "host-forced != pinned")
+        check(all(rt == "host" for _, _, rt, _ in host["tickets"]), "host-forced: a device route")
+        emit("bisect_host", route="host (forced)", **line(host))
+
+        # 9d: refusals, on the card and host-forced
+        runs = {}
+        for route, fl in (("device", 1), ("host", 1 << 30)):
+            batch.set_min_device_batch(fl)
+            row = {}
+            for case, kw in (("forge_pivot", {"forge_at": (BISECT_FORGE_PIVOT,)}),
+                             ("forge_target", {"forge_at": (BISECT_TARGET,)}),
+                             ("fork_witness", {"fork": True})):
+                r = bisect(dev, keys, t0_ns, **kw)
+                e = r["error"]
+                got = {"error": type(e).__name__, "message": str(e), "at": r["at"],
+                       "fetched": r["fetched"], "wall_s": r["wall_s"],
+                       "routes": "".join(rt[0] for _, _, rt, _ in r["tickets"])}
+                if isinstance(e, DivergenceError):
+                    ev = e.evidence
+                    got.update(common_height=ev.common_height,
+                               byzantine=len(ev.byzantine_validators),
+                               evidence_hash=dataclasses.replace(ev, timestamp_ns=0).hash().hex(),
+                               witnesses_left=len(r["client"].witnesses))
+                row[case] = got
+            runs[route] = row
+        for case, want, at in (("forge_pivot", "ErrInvalidSignature", BISECT_FORGE_PIVOT),
+                               ("forge_target", "ErrInvalidSignature", BISECT_TARGET),
+                               ("fork_witness", "DivergenceError", BISECT_TARGET)):
+            d, h = runs["device"][case], runs["host"][case]
+            check(d["error"] == h["error"] == want and d["at"] == h["at"] == at,
+                  f"{case}: device {d['error']} at {d['at']}, host {h['error']} at {h['at']}")
+            check({k: d[k] for k in d if k not in ("wall_s", "routes")}
+                  == {k: h[k] for k in h if k not in ("wall_s", "routes")},
+                  f"{case}: device and host runs differ")
+            check(set(d["routes"]) == {"d"} and set(h["routes"]) == {"h"}, f"{case}: routes")
+        check(runs["device"]["fork_witness"]["witnesses_left"] == 0, "the diverging witness stayed")
+        emit("bisect_refusals", **runs, host_equals_device=True)
+    finally:
+        batch.set_min_device_batch(floor)
+        S.set_scheduler(None)
+        sched.close()
+    kept = pinned["kept"]
     return launches, {n: kept[n] for n in {max(kept), min(kept)}}
 
 
@@ -1089,11 +1343,12 @@ def main(argv) -> int:
     launches = phase_dispatch(dev, window, swap(window_lanes), swap(commit_lanes), window_want,
                               pinned)
     replay_launches, replay_items = phase_replay(dev)
+    bisect_launches, bisect_items = phase_bisect(dev)
 
     # phase 6: each kernel against its plain version on the main paths'
-    # own inputs (the window's lanes and the commit's; the replay's
-    # widest and narrowest dispatches), timed at the window and at the
-    # replay's widest
+    # own inputs (the window's lanes and the commit's; the replay's and
+    # the bisection's widest and narrowest dispatches), timed at the
+    # window, at the replay's widest and at the bisection's widest
     x = kernel_inputs(window_items, dev)
     calls = stage_calls(x)
     errs = compare(calls)
@@ -1104,25 +1359,33 @@ def main(argv) -> int:
     replay_calls = {n: stage_calls(xr) for n, xr in x_replay.items()}
     replay_errs = {n: compare(c) for n, c in replay_calls.items()}
     n_wide = max(x_replay)
+    x_bisect = {n: kernel_inputs(its, dev) for n, its in sorted(bisect_items.items())}
+    bisect_calls = {n: stage_calls(xb) for n, xb in x_bisect.items()}
+    bisect_errs = {n: compare(c) for n, c in bisect_calls.items()}
+    b_wide = max(x_bisect)
     emit("main_path_vs_plain", lanes=x["n"], commit_lanes=x_commit["n"],
-         replay_lanes=list(x_replay), equal=True, max_abs_err=errs,
-         commit_max_abs_err=commit_errs, replay_max_abs_err=replay_errs)
+         replay_lanes=list(x_replay), bisect_lanes=list(x_bisect), equal=True, max_abs_err=errs,
+         commit_max_abs_err=commit_errs, replay_max_abs_err=replay_errs,
+         bisect_max_abs_err=bisect_errs)
     rows = []
     for name in ("ladder", "decompress", "hash_digits"):
         f, plain = calls[name]
         extra = occupancy(name)
         parts = (name, "straus") if name == "ladder" else (name,)
         replay_err = max(e[k] for e in replay_errs.values() for k in parts)
+        bisect_err = max(e[k] for e in bisect_errs.values() for k in parts)
         err = max(max(errs[k], commit_errs[k]) for k in parts)
         b_ms, b_by = bound(name, x, int_rate)
         bc_ms, bc_by = bound(name, x_commit, int_rate)
         br_ms, br_by = bound(name, x_replay[n_wide], int_rate)
+        bs_ms, bs_by = bound(name, x_bisect[b_wide], int_rate)
         bb_ms, bb_by = bound(name, x_bulk, int_rate)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "pinned_launches": pinned[name], "replay_launches": replay_launches[name],
-            "max_abs_err": max(err, replay_err), "tolerance": 0,
+            "bisect_launches": bisect_launches[name],
+            "max_abs_err": max(err, replay_err, bisect_err), "tolerance": 0,
             "ms": graph_ms(f), "call_ms": cuda_ms(f, 20),
             "plain_ms": cuda_ms(plain, 2, warm=0), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
@@ -1134,6 +1397,10 @@ def main(argv) -> int:
             "replay_ms": graph_ms(replay_calls[n_wide][name][0]),
             "replay_plain_ms": cuda_ms(replay_calls[n_wide][name][1], 2, warm=0),
             "replay_bound_ms": br_ms, "replay_bound_by": br_by,
+            "bisect_lanes": list(x_bisect), "bisect_max_abs_err": bisect_err,
+            "bisect_ms": graph_ms(bisect_calls[b_wide][name][0]),
+            "bisect_plain_ms": cuda_ms(bisect_calls[b_wide][name][1], 2, warm=0),
+            "bisect_bound_ms": bs_ms, "bisect_bound_by": bs_by,
             "bulk_lanes": N_BULK, "bulk_ms": bulk_ms[name], "bulk_call_ms": bulk_call_ms[name],
             "bulk_bound_ms": bb_ms, "bulk_bound_by": bb_by,
             "bulk_max_abs_err": max(bulk_errs[k] for k in parts),

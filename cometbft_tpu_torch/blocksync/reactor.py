@@ -17,8 +17,12 @@ dropped on any refetch, ban or valset change.
 Every verify runs on the reactor's ``device`` (None = the GPU, which
 raises without one). The adaptive-sync ingestor of the JAX package
 needs consensus and is not ported: passing one raises. Departure: the
-pool routine still catches every exception and retries, but records
-each one in ``loop_errors``, so a caller can see that it happened.
+pool routine still catches every exception and retries, but counts
+each one in ``loop_errors`` (``LoopErrors``: the count, the first and
+the last few errors), so a caller can see that it happened. It logs
+the traceback of each distinct error once, and while one error repeats
+it backs off its retry from 10 ms to 1 s; a window that applies resets
+the wait. A failing card is not replaced by the host plane.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from __future__ import annotations
 import asyncio
 import time
 import traceback
+from collections import deque
 from typing import Callable, Optional
 
 from ..device import resolve
@@ -50,12 +55,61 @@ SWITCH_TO_CONSENSUS_INTERVAL_S = 1.0
 # the height came back without one (liveness: no reachable peer may
 # hold it, see _check_extended_commit).
 EC_MISS_TOLERANCE = 2
+# the pool routine's retry after a pass that applied nothing; doubled
+# while the same error repeats, up to the cap
+RETRY_MIN_S = 0.01
+RETRY_MAX_S = 1.0
 
 
 class MissingExtendedCommit(ValueError):
     """A peer served a block without its extended commit at an
     extension-enabled height: maybe an honest gap, never a failed
     verification."""
+
+
+class LoopErrors:
+    """What the pool routine caught: ``count`` errors in all, the first
+    ``KEEP`` and the last ``KEEP`` kept (their tracebacks dropped once
+    logged, so a kept error holds no frame), and the kinds already
+    logged. A card that fails every window costs a counter, not memory."""
+
+    KEEP = 4
+    MAX_KINDS = 256
+
+    def __init__(self) -> None:
+        self.count = 0
+        self.first: list = []
+        self.last: deque = deque(maxlen=self.KEEP)
+        self._kinds: set = set()
+
+    @staticmethod
+    def kind(e: BaseException) -> tuple:
+        return (type(e).__name__, str(e))
+
+    def add(self, e: BaseException) -> bool:
+        """Count ``e``; True when its kind is new (log its traceback)."""
+        self.count += 1
+        (self.first if len(self.first) < self.KEEP else self.last).append(e)
+        k = self.kind(e)
+        if k in self._kinds or len(self._kinds) >= self.MAX_KINDS:
+            return False
+        self._kinds.add(k)
+        return True
+
+    @staticmethod
+    def drop_frames(e: BaseException) -> None:
+        """Drop the tracebacks of ``e`` and of the errors it chains."""
+        for _ in range(8):
+            if e is None:
+                return
+            e.__traceback__ = None
+            e = e.__cause__ or e.__context__
+
+    def kept(self) -> list:
+        return self.first + list(self.last)
+
+    def __repr__(self) -> str:
+        return f"LoopErrors(count={self.count}, kept={self.kept()!r})"
 
 
 class _PrefixErrors:
@@ -130,8 +184,9 @@ class BlockSyncReactor:
             "predispatched": 0,  # lookahead dispatches issued
             "discarded": 0,  # handles dropped (redo, valset, reshuffle)
         }
-        # every exception the pool routine caught (it retries after each)
-        self.loop_errors: list = []
+        # what the pool routine caught (it retries after each)
+        self.loop_errors = LoopErrors()
+        self.retry_s = RETRY_MIN_S
         self._task: Optional[asyncio.Task] = None
         self._stopped = False
         self.tracer = TRACE_NOOP
@@ -163,6 +218,7 @@ class BlockSyncReactor:
 
     async def _pool_routine(self) -> None:
         last_switch_check = time.monotonic()
+        last_kind = None
         while not self._stopped:
             if time.monotonic() - last_switch_check > SWITCH_TO_CONSENSUS_INTERVAL_S:
                 last_switch_check = time.monotonic()
@@ -190,11 +246,19 @@ class BlockSyncReactor:
             except asyncio.CancelledError:
                 raise
             except Exception as e:
-                traceback.print_exc()
-                self.loop_errors.append(e)
-                applied = 0
-            if applied == 0:
-                await asyncio.sleep(0.01)
+                if self.loop_errors.add(e):
+                    traceback.print_exc()
+                LoopErrors.drop_frames(e)
+                kind = LoopErrors.kind(e)
+                # back off while the same error repeats
+                self.retry_s = min(2 * self.retry_s, RETRY_MAX_S) if kind == last_kind else RETRY_MIN_S
+                last_kind = kind
+                await asyncio.sleep(self.retry_s)
+                continue
+            if applied:
+                self.retry_s, last_kind = RETRY_MIN_S, None
+            else:
+                await asyncio.sleep(RETRY_MIN_S)
             await asyncio.sleep(0)  # yield
 
     def _process_window(self, window) -> int:

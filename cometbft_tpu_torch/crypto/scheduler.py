@@ -28,8 +28,12 @@ Departure from the JAX package: there, a failed device route is hidden
 behind host verification (the dispatch's ``except``, the watcher's
 per-item fallback and the dispatcher's serial fallback). Here a
 failure anywhere on a ticket's route — the device dispatch, its
-readiness or its verdicts — resolves the ticket with that exception:
-``result()`` re-raises it and ``degraded`` counts it. No ticket is
+readiness or its verdicts — resolves the ticket with a
+``DeviceRouteError`` chained to that exception: ``result()`` raises it
+and ``degraded`` counts it. Whatever the cause (a CUDA error, a
+``ValueError`` of a kernel's shape checks, an ``OSError`` loading a
+kernel library), a caller tells a failed route from a verdict on the
+signatures by that one type. No ticket is
 resolved with host verdicts in place of the device's. A failing host
 chunk still falls back to per-item host verification, as in the JAX
 package.
@@ -70,6 +74,11 @@ DEFAULT_PROMOTE_EVERY = 4
 _ROUTED_BACKENDS = ("cuda", "cpu", "cpu-parallel")
 
 
+class DeviceRouteError(RuntimeError):
+    """A ticket's verify route failed; ``__cause__`` holds the error.
+    No verdict on any lane: the signatures were not checked."""
+
+
 def _clamp_priority(priority) -> int:
     try:
         p = int(priority)
@@ -81,7 +90,7 @@ def _clamp_priority(priority) -> int:
 class VerifyTicket:
     """One submitted batch: ``result()`` blocks for the merged
     verdicts and returns ``(all_ok, oks)`` like the BatchVerifier
-    handles, or raises the exception that failed its device route."""
+    handles, or raises ``DeviceRouteError`` if its route failed."""
 
     __slots__ = (
         "items", "priority", "label", "device", "t_submit", "t_done", "oks",
@@ -319,7 +328,7 @@ class VerifyScheduler:
         calibration with the wall from just before the dispatch
         (host packing included) when the route was not forced and the
         device is a CUDA one, and resolves the ticket; any failure
-        there resolves the ticket with the exception. A failure of the
+        there resolves the ticket with a DeviceRouteError. A failure of the
         dispatch itself propagates to the dispatcher loop, which does
         the same."""
         from ..ops import ed25519 as _ed
@@ -441,6 +450,10 @@ class VerifyScheduler:
             self._finish(ticket)
 
     def _fail(self, ticket: VerifyTicket, exc: BaseException) -> None:
+        if not isinstance(exc, DeviceRouteError):
+            err = DeviceRouteError(f"verify route failed ({len(ticket.items)} lanes): {exc!r}")
+            err.__cause__ = exc
+            exc = err
         with self._cv:
             self.degraded += 1
             if ticket._error is None:

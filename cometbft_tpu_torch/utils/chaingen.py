@@ -6,6 +6,9 @@ over the canonical sign bytes) and applied through the executor, so
 the product is a valid chain that replay can take. ``StorePeerClient``
 serves a node's stored blocks as a blocksync peer;
 ``TamperingPeerClient`` adds a tx to one height's block.
+``RotatingLightProvider`` mints light blocks on demand over validator
+sets that rotate by epoch, the shape of BASELINE config 4's bisection
+(the JAX package's ``bench.py::bench_bisect``).
 """
 
 from __future__ import annotations
@@ -14,9 +17,12 @@ import asyncio
 import time
 from typing import Optional
 
+from ..light.provider import Provider
+from ..light.types import LightBlock
 from ..node.inprocess import NodeParts, build_node
-from ..types.block import BLOCK_ID_FLAG_COMMIT, BlockID, Commit, CommitSig
+from ..types.block import BLOCK_ID_FLAG_COMMIT, BlockID, Commit, CommitSig, Header, PartSetHeader
 from ..types.genesis import GenesisDoc
+from ..types.validator_set import Validator, ValidatorSet
 from ..types.vote import PRECOMMIT, Vote
 
 
@@ -122,3 +128,75 @@ class TamperingPeerClient(StorePeerClient):
             if hasattr(blk, "_raw_bytes"):  # decoded objects are immutable
                 del blk._raw_bytes
         return blk
+
+
+class RotatingLightProvider(Provider):
+    """Mints a signed light block at any height on demand (the
+    reference's light bench shape, light/client_benchmark_test.go:
+    bisection checks commits and validator-set hashes between hops,
+    not the hash chain). The set signing height h is the ``n_vals``
+    keys ``keys[e * shift : e * shift + n_vals]`` of epoch ``e = h //
+    epoch``, each of power 10; header h's time is ``t0_ns + h`` s.
+
+    Adversaries for refusal checks: ``forge_at`` heights carry one
+    signature (the first lane) with a byte flipped; ``app_hash`` set
+    makes a fork that is valid in itself (the same signers over other
+    headers). ``fetched`` lists the heights served, in order."""
+
+    def __init__(self, chain_id, keys, n_vals, epoch, shift, t0_ns, forge_at=(), app_hash=b""):
+        self.chain_id = chain_id
+        self.keys = list(keys)
+        self.n_vals, self.epoch, self.shift = n_vals, epoch, shift
+        self.t0_ns = t0_ns
+        self.forge_at = set(forge_at)
+        self.app_hash = app_hash
+        self.fetched: list = []
+        self.reported: list = []
+        self._sets: dict = {}
+        self._by_addr = {k.pub_key().address(): k for k in self.keys}
+
+    def vals_at(self, height: int) -> ValidatorSet:
+        e = height // self.epoch
+        if e not in self._sets:
+            window = self.keys[e * self.shift : e * self.shift + self.n_vals]
+            self._sets[e] = ValidatorSet([Validator(k.pub_key(), 10) for k in window])
+        return self._sets[e]
+
+    def light_block(self, height: int) -> LightBlock:
+        self.fetched.append(height)
+        vals = self.vals_at(height)
+        header = Header(
+            chain_id=self.chain_id,
+            height=height,
+            time_ns=self.t0_ns + height * 1_000_000_000,
+            validators_hash=vals.hash(),
+            next_validators_hash=self.vals_at(height + 1).hash(),
+            app_hash=self.app_hash,
+        )
+        bid = BlockID(header.hash(), PartSetHeader(1, header.hash()))
+        sigs = []
+        for i, val in enumerate(vals.validators):
+            vote = Vote(
+                type_=PRECOMMIT,
+                height=height,
+                round=0,
+                block_id=bid,
+                timestamp_ns=header.time_ns,
+                validator_address=val.address,
+                validator_index=i,
+            )
+            sig = self._by_addr[val.address].sign(vote.sign_bytes(self.chain_id))
+            if i == 0 and height in self.forge_at:
+                sig = bytes([sig[0] ^ 1]) + sig[1:]
+            sigs.append(
+                CommitSig(
+                    block_id_flag=BLOCK_ID_FLAG_COMMIT,
+                    validator_address=val.address,
+                    timestamp_ns=header.time_ns,
+                    signature=sig,
+                )
+            )
+        return LightBlock(header, Commit(height=height, round=0, block_id=bid, signatures=sigs), vals)
+
+    def report_evidence(self, ev) -> None:
+        self.reported.append(ev)

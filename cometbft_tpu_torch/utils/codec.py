@@ -1,11 +1,12 @@
 """Encode and decode of consensus artifacts (storage and wire).
 
 A copy of the portable paths of the JAX package's ``utils/codec.py``:
-block ID, header, commit sig, commit, extended commit, block,
+block ID, header, commit sig, commit, extended commit, block, vote,
 validator and validator set, in the same proto wire format and field
 numbers, so bytes written by one package decode in the other. The
-native wirecodec is not loaded, and votes, proposals and evidence are
-not ported: ``decode_block`` refuses a block that carries evidence.
+native wirecodec is not loaded and proposals are not ported. Evidence
+has its own encoding (``evidence/types.py``), but blocks that carry
+it wait for the evidence pool: ``decode_block`` refuses them.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from ..types.block import (
     PartSetHeader,
 )
 from ..types.validator_set import Validator, ValidatorSet
+from ..types.vote import Vote
 from . import proto
 
 # --- pubkeys ------------------------------------------------------------
@@ -344,6 +346,42 @@ def decode_block(b: bytes) -> Block:
     if blk.last_commit is not None:
         blk.last_commit._raw_bytes = lc
     return blk
+
+
+# --- vote ---------------------------------------------------------------
+
+
+def encode_vote(v: Vote) -> bytes:
+    return b"".join(
+        [
+            proto.field_varint(1, v.type_),
+            proto.field_varint(2, v.height),
+            proto.field_varint(3, v.round),
+            proto.field_message(4, v.block_id.encode()),
+            proto.field_message(5, proto.timestamp(v.timestamp_ns)),
+            proto.field_bytes(6, v.validator_address),
+            proto.field_varint(7, v.validator_index + 1),  # +1: 0 realizable
+            proto.field_bytes(8, v.signature),
+            proto.field_bytes(9, v.extension),
+            proto.field_bytes(10, v.extension_signature),
+        ]
+    )
+
+
+def decode_vote(b: bytes) -> Vote:
+    m = proto.parse(b)
+    return Vote(
+        type_=proto.get1(m, 1, 0),
+        height=proto.get1(m, 2, 0),
+        round=proto.get1(m, 3, 0),
+        block_id=decode_block_id(proto.get1(m, 4, b"")),
+        timestamp_ns=proto.parse_timestamp(proto.get1(m, 5, b"")),
+        validator_address=proto.get1(m, 6, b""),
+        validator_index=proto.get1(m, 7, 0) - 1,
+        signature=proto.get1(m, 8, b""),
+        extension=proto.get1(m, 9, b""),
+        extension_signature=proto.get1(m, 10, b""),
+    )
 
 
 # --- validators ---------------------------------------------------------

@@ -90,7 +90,7 @@ def _sync(gen, src, window=8, prefill=0):
         await reactor.start()
         await asyncio.wait_for(caught.wait(), 90)
         await reactor.stop()
-        assert reactor.loop_errors == []
+        assert reactor.loop_errors.count == 0, reactor.loop_errors
         return fresh, reactor
 
     return run(main())
@@ -202,7 +202,7 @@ def test_blocksync_interrupt_and_resume(tmp_path):
         stats = dict(r.pipeline_stats)
         await r.stop()  # abrupt: the lookahead handle dies with it
         assert stats["predispatched"] >= 1, stats
-        assert r.loop_errors == []
+        assert r.loop_errors.count == 0, r.loop_errors
 
     run(phase1())
     h1 = fresh.block_store.height()

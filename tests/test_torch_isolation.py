@@ -6,9 +6,11 @@
   ``device="cpu"`` raises instead of falling back to the CPU: the
   kernels' entry, the batch factories ("cuda" and "cpu-parallel"), the
   verify scheduler's ``submit``, the vote coalescer, every validation
-  entry point, and the replay's: ``build_node`` (and ``make_chain``,
+  entry point, the replay's: ``build_node`` (and ``make_chain``,
   which builds one), ``BlockExecutor.validate_block`` and
-  ``BlockSyncReactor``.
+  ``BlockSyncReactor``, and the light client's: ``Client``,
+  ``verifier.verify_adjacent``, ``verifier.verify_non_adjacent`` and
+  ``detector.check_against_witnesses``.
 """
 
 import subprocess
@@ -52,7 +54,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 40, proc.stdout
+    assert n_modules >= 67, proc.stdout
 
 
 def test_entry_points_raise_without_a_gpu():
@@ -158,3 +160,33 @@ def test_replay_entry_points_raise_without_a_gpu(no_gpu):
         node.block_exec.validate_block(node.state, block2)
     r = BlockSyncReactor(node.state, node.block_exec, node.block_store, device="cpu")
     assert r.device == torch.device("cpu")
+
+
+def test_light_entry_points_raise_without_a_gpu(no_gpu):
+    from cometbft_tpu_torch.light import Client, StoreBackedProvider, TrustOptions, verifier
+    from cometbft_tpu_torch.light.detector import check_against_witnesses
+    from cometbft_tpu_torch.node.inprocess import make_genesis
+    from cometbft_tpu_torch.utils.chaingen import make_chain
+
+    gen, privs = make_genesis(2, chain_id="iso-light")
+    src = make_chain(gen, privs, 4, device="cpu")
+    provider = StoreBackedProvider(gen.chain_id, src.block_store, src.state_store)
+    lb1, lb2, lb4 = (provider.light_block(h) for h in (1, 2, 4))
+    opts = TrustOptions(period_ns=10**18, height=1, hash=lb1.hash())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Client(gen.chain_id, opts, provider)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        verifier.verify_adjacent(gen.chain_id, lb1, lb2, lb2.validator_set, 10**18)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        verifier.verify_non_adjacent(gen.chain_id, lb1, lb1.validator_set, lb4,
+                                     lb4.validator_set, 10**18)
+    client = Client(gen.chain_id, opts, provider, witnesses=[provider], device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        check_against_witnesses(client, lb4)
+    # on the CPU they run
+    verifier.verify_adjacent(gen.chain_id, lb1, lb2, lb2.validator_set, 10**18, device="cpu")
+    verifier.verify_non_adjacent(gen.chain_id, lb1, lb1.validator_set, lb4, lb4.validator_set,
+                                 10**18, device="cpu")
+    check_against_witnesses(client, lb4, device="cpu")
+    assert client.verify_light_block_at_height(4).hash() == lb4.hash()
+    assert client.witnesses == [provider]

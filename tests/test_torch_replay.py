@@ -226,7 +226,7 @@ def test_replay_of_jax_chain_matches_jax_replay(chains):
     ported = _port_store_from_jax(gen, jsrc)
     fresh, reactor, rows, redos, banned = _replay(PORT, gen, ported)
     jfresh, jreactor, jrows, jredos, jbanned = _replay(JAX, jgen, jsrc)
-    assert reactor.loop_errors == []
+    assert reactor.loop_errors.count == 0, reactor.loop_errors
     _same_rows(rows, jrows)
     assert fresh.block_store.height() >= N_BLOCKS - 2
     assert jfresh.block_store.height() >= N_BLOCKS - 2
@@ -245,7 +245,7 @@ def test_refusals_match_jax(chains):
     gen, jgen, src, jsrc = chains
     fresh, reactor, rows, redos, banned = _replay(PORT, gen, src, tamper_at=BAD_HEIGHT)
     jfresh, jreactor, jrows, jredos, jbanned = _replay(JAX, jgen, jsrc, tamper_at=BAD_HEIGHT)
-    assert reactor.loop_errors == []
+    assert reactor.loop_errors.count == 0, reactor.loop_errors
     assert redos == jredos == [(BAD_HEIGHT, "evil")]
     assert banned == jbanned == ["evil"]
     _same_rows(rows, jrows)

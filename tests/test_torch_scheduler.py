@@ -301,8 +301,10 @@ def test_device_failure_raises_and_fills_no_host_verdict(
     monkeypatch.setattr(ops_ed, "verify_batch_async", fake_async)
     items = make_items(8)
     t = sched.submit(items, priority=PRIORITY_LIVE, device=CPU)
-    with pytest.raises(RuntimeError, match="CUDA error"):
+    with pytest.raises(sched_mod.DeviceRouteError, match="CUDA error") as e:
         t.result(timeout=30)
+    assert isinstance(e.value.__cause__, RuntimeError)
+    assert str(e.value.__cause__).startswith("CUDA error")
     assert t.done()
     assert t.oks == [False] * 8
     assert host_calls == []
