@@ -92,6 +92,33 @@ Phases, each printing one JSON line:
    kernel against its plain version on the bisection's 101- and 30-lane
    dispatches, with its device time and bound at 101 lanes.
 
+10. consensus, on phase 8's corpus: (a) adaptive sync: a fresh full
+   node (no signer, WAL on disk, vote_batch_window_ms 2) with its
+   ConsensusState started and a BlockSyncReactor feeding it as the
+   block ingestor, device route pinned; every block must enter through
+   ingest_verified_block, every height's state and block ID equal the
+   source's, and each window's dispatch launch K1-K3 once (counters
+   zeroed just before, read just after); blocks/s and the span split
+   (window prepare / verify_wait / apply and the state machine's
+   finalize persist / wal / apply) beside phase 8's; (b) the handoff:
+   the last blocks as CommitBlockMessages, the last one's commit a
+   150-lane PRIORITY_LIVE ticket on the card, consensus at 1,026; (c)
+   eight live heights played by utils.chaingen.ValidatorStubs (the
+   proposer's proposal and parts, then 150 prevotes, then 150
+   precommits) with skip_timeout_commit, the device route pinned: each
+   height stores the stubs' block with the shadow chain's state, each
+   vote wave is one 150-lane PRIORITY_LIVE ticket on the card, and the
+   fourth height's forged precommit is dropped (absent from the vote
+   set and the seen commit) while the height commits; per-height walls
+   from the proposal's delivery to the stored block, every ticket's
+   label, width, route and wall; (d) eight more heights unforced, with
+   the route of each ticket. The kernels line adds ingest_launches and
+   live_launches, and each kernel against its plain version on the
+   first live height's prevote wave, the forged height's precommit wave
+   (its forged lane included) and the handoff's commit, each found by
+   its ticket's label (live_max_abs_err, one entry each), with its
+   device time and bound at the prevote wave's width.
+
 The line before last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result line. Needs no network; exits non-zero without a GPU or
@@ -142,6 +169,12 @@ BISECT_HOPS = 20
 BISECT_DISPATCHES = 49
 BISECT_CACHE = 2199
 BISECT_FORGE_PIVOT = 2816
+# phase 10: phase 8's corpus ingested through consensus, then live
+# heights played by 150 validator stubs, one with a forged precommit
+LIVE_HEIGHTS = 8
+N_VALS_LIVE = REPLAY_VALS
+LIVE_FORGE_AT = 3  # the fourth live height
+LIVE_FORGE_LANE = 17
 
 # card peaks: HBM bytes/s from the H100 SXM data sheet; 32-bit integer
 # results per clock per SM on sm_90 (IMAD, IADD, LOP, shifts: 64, the
@@ -618,6 +651,69 @@ def phase_dispatch(dev, window, window_lanes, commit_lanes, window_want, pinned_
     return launches
 
 
+# --- recording the verify path ------------------------------------------------
+
+
+class Recorder:
+    """Records, while active, every verify ticket (label, priority,
+    lanes, the route the scheduler took, submit-to-resolve wall) and
+    every device dispatch (its ``dispatch`` dict, the kernel items of
+    the first dispatch of each width in ``kept``, and of every dispatch
+    by its ticket's label in ``labelled``)."""
+
+    def __init__(self, sched):
+        self.sched = sched
+        self.tickets, self.routes, self.dispatches, self.kept = [], [], [], {}
+        self.labelled = {}
+
+    def __enter__(self):
+        from cometbft_tpu_torch.crypto import batch
+        from cometbft_tpu_torch.ops import ed25519 as ed
+
+        self._real = (self.sched.submit, batch.route_to_device, ed.verify_batch_async)
+        real_submit, real_route, real_async = self._real
+        real_dispatch = self.sched._dispatch_device
+
+        def submit(items, **kw):
+            t = real_submit(items, **kw)
+            self.tickets.append(t)
+            return t
+
+        def route(n, device):
+            r = real_route(n, device)
+            self.routes.append("device" if r else "host")
+            return r
+
+        def recording(items, device=None, precomp=None):
+            h = real_async(items, device=device, precomp=precomp)
+            self.dispatches.append(h.dispatch)
+            self.kept.setdefault(len(items), list(items))
+            return h
+
+        def dispatch(ticket, ed_idx, ed_items):
+            self.labelled.setdefault(ticket.label, []).append(list(ed_items))
+            return real_dispatch(ticket, ed_idx, ed_items)
+
+        self.sched.submit, batch.route_to_device, ed.verify_batch_async = submit, route, recording
+        self.sched._dispatch_device = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        from cometbft_tpu_torch.crypto import batch
+        from cometbft_tpu_torch.ops import ed25519 as ed
+
+        check(self.sched.drain(60) or exc[0] is not None, "the verify scheduler did not drain")
+        _, batch.route_to_device, ed.verify_batch_async = self._real
+        del self.sched.submit, self.sched._dispatch_device
+        return False
+
+    def rows(self, start=0):
+        """(label, priority, lanes, route, wall) of each ticket from
+        ``start``, in submission order."""
+        return [(t.label, t.priority, len(t.items), r, t.wall())
+                for t, r in zip(self.tickets[start:], self.routes[start:])]
+
+
 # --- phase 8: replay -----------------------------------------------------------
 
 
@@ -683,10 +779,8 @@ def replay(gen, src, dev, top, bad_peers=False):
     from collections import defaultdict
 
     from cometbft_tpu_torch.blocksync.reactor import BlockSyncReactor
-    from cometbft_tpu_torch.crypto import batch
     from cometbft_tpu_torch.crypto import scheduler as S
     from cometbft_tpu_torch.node.inprocess import build_node
-    from cometbft_tpu_torch.ops import ed25519 as ed
     from cometbft_tpu_torch.trace import Tracer
     from cometbft_tpu_torch.utils.chaingen import StorePeerClient, TamperingPeerClient
 
@@ -702,32 +796,6 @@ def replay(gen, src, dev, top, bad_peers=False):
 
     tracer = Tracer(name="replay")
     tracer.add_observer(observe)
-    dispatches = []
-    kept: dict = {}
-    real_async = ed.verify_batch_async
-
-    def recording(items, device=None, precomp=None):
-        h = real_async(items, device=device, precomp=precomp)
-        dispatches.append(h.dispatch)
-        kept.setdefault(len(items), list(items))
-        return h
-
-    # one dispatcher thread routes the catch-up class in submission
-    # order, so the i-th routing decision is the i-th ticket's
-    sched = S.scheduler()
-    submitted, routes = [], []
-    real_submit, real_route = sched.submit, batch.route_to_device
-
-    def submit(items, **kw):
-        t = real_submit(items, **kw)
-        submitted.append(t)
-        return t
-
-    def route(n, device):
-        r = real_route(n, device)
-        routes.append("device" if r else "host")
-        return r
-
     async def main():
         caught = asyncio.Event()
         reactor = BlockSyncReactor(fresh.state, fresh.block_exec, fresh.block_store,
@@ -759,18 +827,15 @@ def replay(gen, src, dev, top, bad_peers=False):
             await reactor.stop()
         return reactor, redos, t0, time.perf_counter() - t0
 
-    ed.verify_batch_async, sched.submit, batch.route_to_device = recording, submit, route
-    try:
+    # one dispatcher thread routes the catch-up class in submission
+    # order, so the i-th routing decision is the i-th ticket's; the
+    # stopped reactor's lookahead may still be queued: the recorder's
+    # drain lets it resolve, so its dispatch counts in this replay
+    with Recorder(S.scheduler()) as rec:
         reactor, redos, t0, wall = asyncio.run(main())
-        # the stopped reactor's lookahead may still be queued: let it
-        # resolve here, so its dispatch counts in this replay
-        check(sched.drain(60), "the verify scheduler did not drain")
-    finally:
-        ed.verify_batch_async, batch.route_to_device = real_async, real_route
-        del sched.submit
-    tickets = [(len(t.items), r, t.wall()) for t, r in zip(submitted, routes)]
-    return (fresh, reactor, rows, redos, {k: v for k, v in spans.items()}, dispatches,
-            tickets, wall, stamp["last"] - t0, kept)
+    tickets = [(n, r, w) for _, _, n, r, w in rec.rows()]
+    return (fresh, reactor, rows, redos, {k: v for k, v in spans.items()}, rec.dispatches,
+            tickets, wall, stamp["last"] - t0, rec.kept)
 
 
 def ticket_walls(tickets) -> dict:
@@ -922,8 +987,8 @@ def phase_replay(dev):
         S.set_scheduler(None)
         sched.close()
     # the kernel items of the widest window dispatch and of the narrowest
-    # (the one-height tail), for phase 6
-    return launches, {n: kept[n] for n in {max(kept), min(kept)}}
+    # (the one-height tail), for phase 6; the corpus, for phase 10
+    return launches, {n: kept[n] for n in {max(kept), min(kept)}}, (gen, privs, src, src_rows)
 
 
 # --- phase 9: light bisection ----------------------------------------------------
@@ -950,10 +1015,8 @@ def bisect(dev, keys, t0_ns, forge_at=(), fork=False):
     kernel items of the first dispatch of each width, the cache size,
     the trusted hash or the error and the height of the last block a
     hop checked, and the walls with and without fetching and signing."""
-    from cometbft_tpu_torch.crypto import batch
     from cometbft_tpu_torch.crypto import scheduler as S
     from cometbft_tpu_torch.light import Client, TrustOptions, verifier
-    from cometbft_tpu_torch.ops import ed25519 as ed
     from cometbft_tpu_torch.utils.chaingen import RotatingLightProvider
 
     fetch = {"s": 0.0}
@@ -970,24 +1033,8 @@ def bisect(dev, keys, t0_ns, forge_at=(), fork=False):
 
     primary = provider(forge_at=forge_at)
     witnesses = [provider(app_hash=b"\x0f" * 32)] if fork else []
-    sched = S.scheduler()
-    submitted, routes, kept, checked = [], [], {}, []
-    real_submit, real_route, real_async = sched.submit, batch.route_to_device, ed.verify_batch_async
+    checked = []
     hops = {name: getattr(verifier, name) for name in ("verify_adjacent", "verify_non_adjacent")}
-
-    def submit(items, **kw):
-        t = real_submit(items, **kw)
-        submitted.append(t)
-        return t
-
-    def route(n, device):
-        r = real_route(n, device)
-        routes.append("device" if r else "host")
-        return r
-
-    def recording(items, device=None, precomp=None):
-        kept.setdefault(len(items), list(items))
-        return real_async(items, device=device, precomp=precomp)
 
     def hop(fn, untrusted_at):
         def checked_hop(*args, **kw):
@@ -996,30 +1043,27 @@ def bisect(dev, keys, t0_ns, forge_at=(), fork=False):
         return checked_hop
 
     out = {"error": None}
-    sched.submit, batch.route_to_device, ed.verify_batch_async = submit, route, recording
     verifier.verify_adjacent = hop(hops["verify_adjacent"], 2)
     verifier.verify_non_adjacent = hop(hops["verify_non_adjacent"], 3)
     try:
-        root = primary.light_block(1)
-        t0 = time.perf_counter()
-        fetch["s"] = 0.0
-        client = Client("bench-chain", TrustOptions(10 * 365 * 86400 * 10**9, 1, root.hash()),
-                        primary, witnesses=witnesses, device=dev)
-        try:
-            out["hash"] = client.verify_light_block_at_height(BISECT_TARGET).hash().hex()
-        except Exception as e:  # the refusal runs: which error, where
-            out["error"] = e
-        wall = time.perf_counter() - t0
-        check(sched.drain(60), "the verify scheduler did not drain")
+        with Recorder(S.scheduler()) as rec:
+            root = primary.light_block(1)
+            t0 = time.perf_counter()
+            fetch["s"] = 0.0
+            client = Client("bench-chain", TrustOptions(10 * 365 * 86400 * 10**9, 1, root.hash()),
+                            primary, witnesses=witnesses, device=dev)
+            try:
+                out["hash"] = client.verify_light_block_at_height(BISECT_TARGET).hash().hex()
+            except Exception as e:  # the refusal runs: which error, where
+                out["error"] = e
+            wall = time.perf_counter() - t0
     finally:
-        ed.verify_batch_async, batch.route_to_device = real_async, real_route
-        del sched.submit
         for name, fn in hops.items():
             setattr(verifier, name, fn)
     out.update(
         fetched=list(primary.fetched), hops=client.hops, cache=len(client.cache),
-        at=checked[-1] if checked else None, client=client, kept=kept,
-        tickets=[(t.label, len(t.items), r, t.wall()) for t, r in zip(submitted, routes)],
+        at=checked[-1] if checked else None, client=client, kept=rec.kept,
+        tickets=[(lb, n, r, w) for lb, _, n, r, w in rec.rows()],
         wall_s=wall, fetch_s=fetch["s"], verify_s=wall - fetch["s"],
     )
     return out
@@ -1143,6 +1187,283 @@ def phase_bisect(dev):
         sched.close()
     kept = pinned["kept"]
     return launches, {n: kept[n] for n in {max(kept), min(kept)}}
+
+
+# --- phase 10: consensus --------------------------------------------------------
+
+
+def phase_consensus(dev, gen, privs, src, src_rows):
+    """Phase 10 on phase 8's corpus: (a) adaptive sync into a started
+    ConsensusState, (b) the handoff by a CommitBlockMessage, (c) eight
+    live heights played by the validator stubs with the device route
+    pinned, one with a forged precommit, (d) eight more unforced.
+    Returns the launches of (a) and (c) and, for phase 6, the kernel
+    items of the first live height's prevote wave, of the forged
+    height's precommit wave and of the handoff's commit."""
+    import asyncio
+    import shutil
+    from collections import defaultdict
+
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.blocksync.reactor import VERIFY_WINDOW, BlockSyncReactor
+    from cometbft_tpu_torch.config.config import test_config
+    from cometbft_tpu_torch.consensus.reactor import CommitBlockMessage
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.node.inprocess import build_node
+    from cometbft_tpu_torch.trace import NOOP as TRACE_NOOP
+    from cometbft_tpu_torch.trace import Tracer
+    from cometbft_tpu_torch.utils import log
+    from cometbft_tpu_torch.utils.chaingen import StorePeerClient, ValidatorStubs
+
+    top = src.block_store.height()
+    home = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "consensus")
+    shutil.rmtree(home, ignore_errors=True)
+    cfg = test_config(home)
+    cfg.consensus.vote_batch_window_ms = 2.0
+    cfg.consensus.skip_timeout_commit = True
+    # no propose timeout fires while a stub height is played
+    cfg.consensus.timeout_propose_s = 30.0
+    node = build_node(gen, device=dev, config=cfg, home=home, wal=True)
+    cs = node.cs
+    rows: dict = {}
+    stamp: dict = {}
+    _record_states(node, rows, stamp)
+    ingested = []
+    real_ingest = cs.ingest_verified_block
+
+    def ingest(block, parts, commit):
+        ingested.append(block.height)
+        return real_ingest(block, parts, commit)
+
+    cs.ingest_verified_block = ingest
+    spans = defaultdict(lambda: [0, 0.0])
+
+    def observe(name, dur_ns, args):
+        spans[name][0] += 1
+        spans[name][1] += dur_ns / 1e6
+        if name == "consensus.finalize":
+            for k in ("persist_ms", "wal_ms", "apply_ms"):
+                spans[f"consensus.finalize.{k[:-3]}"][0] += 1
+                spans[f"consensus.finalize.{k[:-3]}"][1] += args[k]
+
+    tracer = Tracer(name="consensus")
+    tracer.add_observer(observe)
+    cs.tracer = tracer
+    floor = batch._MIN_DEVICE_BATCH
+    sched = S.VerifyScheduler()
+    S.set_scheduler(sched)
+    # one line a finalized block would bury the smoke's own output
+    log.set_level("consensus:error,*:info")
+    out = {}
+    # the steps share one event loop: the state machine's tasks live on it
+    loop = asyncio.new_event_loop()
+
+    def same_rows(upto, what):
+        bad = [h for h in range(1, upto + 1) if rows.get(h) != src_rows.get(h)]
+        check(not bad, f"{what}: state differs from the source at heights {bad[:5]}")
+        bad = [h for h in range(1, upto + 1)
+               if node.block_store.load_block_meta(h).block_id != src.block_store.load_block_meta(h).block_id]
+        check(not bad, f"{what}: block IDs differ at heights {bad[:5]}")
+
+    async def adaptive():
+        await cs.start()
+        caught = asyncio.Event()
+        reactor = BlockSyncReactor(node.state, node.block_exec, node.block_store,
+                                   on_caught_up=lambda st: caught.set(), block_ingestor=cs,
+                                   device=dev)
+        reactor.tracer = tracer
+        t0 = time.perf_counter()
+        reactor.pool.set_peer_range("good", StorePeerClient(src), 1, top)
+        await reactor.start()
+        try:
+            await asyncio.wait_for(caught.wait(), REPLAY_DEADLINE_S)
+        finally:
+            await reactor.stop()
+        return reactor, t0, time.perf_counter() - t0
+
+    async def wait_height(h, what, timeout=120):
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + timeout
+        while cs.rs.height < h:
+            check(loop.time() < deadline, f"{what}: consensus at {cs.rs.height}")
+            await asyncio.sleep(0.001)
+
+    async def handoff():
+        t = {}
+        for h in range(cs.rs.height, top + 1):
+            t0 = time.perf_counter()
+            cs.enqueue_nowait("commit_block", CommitBlockMessage(
+                src.block_store.load_block(h), src.block_store.load_seen_commit(h),
+                src.block_store.load_extended_commit(h)), "src")
+            await wait_height(h + 1, "handoff")
+            t[h] = time.perf_counter() - t0
+        return t
+
+    sent = {}  # height -> (prevote sign bytes, precommit sign bytes, forged signatures)
+
+    async def live(heights, forge_at=None):
+        stubs = ValidatorStubs(src, privs)
+        res = []
+        for h in heights:
+            src.mempool.check_tx(b"live%d=v%d" % (h, h))
+            m = stubs.messages(h, forge=(LIVE_FORGE_LANE,) if h == forge_at else ())
+            sent[h] = (m.prevotes[0].sign_bytes(gen.chain_id), m.precommits[0].sign_bytes(gen.chain_id),
+                       [m.precommits[i].signature for i in m.forged])
+            walls = await stubs.play_height(cs, m)
+            stubs.finish(m)
+            # the wave's last callbacks land after the commit
+            deadline = asyncio.get_running_loop().time() + 30
+            while sum(v is not None for v in cs.rs.last_commit.votes) < N_VALS_LIVE - len(m.forged):
+                check(asyncio.get_running_loop().time() < deadline, f"height {h}: late precommits")
+                await asyncio.sleep(0.001)
+            check(node.block_store.load_block_meta(h).block_id == src.block_store.load_block_meta(h).block_id,
+                  f"height {h}: the stored block is not the stubs'")
+            check(rows[h] == _state_row(src.state), f"height {h}: state differs from the shadow chain")
+            seen = node.block_store.load_seen_commit(h)
+            res.append({"height": h, "walls_s": walls,
+                        "breakdown_ms": cs.last_commit_breakdown["phases"],
+                        "precommits_in": sum(v is not None for v in cs.rs.last_commit.votes),
+                        "seen_commit_signatures": sum(not c.is_absent() for c in seen.signatures),
+                        "forged": list(m.forged)})
+            if m.forged:
+                i = m.forged[0]
+                check(cs.rs.last_commit.votes[i] is None, f"height {h}: the forged precommit was added")
+                check(seen.signatures[i].signature != m.precommits[i].signature,
+                      f"height {h}: the forged signature is in the seen commit")
+        return res
+
+    try:
+        # 10a: adaptive sync, the device route pinned (floor 1)
+        batch.set_min_device_batch(1)
+        kernels.reset_counts()
+        with Recorder(sched) as rec:
+            reactor, t0, wall = loop.run_until_complete(adaptive())
+        launches_a = dict(kernels.LAUNCHES)
+        applied = len(ingested)
+        to_last = stamp["last"] - t0
+        tickets = rec.rows()
+        check(reactor.loop_errors.count == 0, f"adaptive: the pool routine caught {reactor.loop_errors!r}")
+        check(ingested == list(range(1, applied + 1)) and applied >= top - 2,
+              f"adaptive: ingested {ingested[:3]}...{ingested[-3:]} ({applied})")
+        check(sorted(rows) == ingested, "adaptive: a block was applied outside ingest_verified_block")
+        same_rows(applied, "adaptive")
+        check(all(r == "device" for _, _, _, r, _ in tickets), "adaptive: a window left the device route")
+        check(all(d["device"] == str(dev) and all(d["launches"][k] == 1 for k in SOURCES)
+                  for d in rec.dispatches), "adaptive: a window's dispatch did not launch each kernel once")
+        check(all(launches_a[k] == len(rec.dispatches) == len(tickets) for k in SOURCES),
+              f"adaptive: launches {launches_a} against {len(rec.dispatches)} dispatches")
+        out["adaptive"] = {
+            "validators": REPLAY_VALS, "blocks": top, "ingested": applied, "window": VERIFY_WINDOW,
+            "route": "device (pinned)", "to_last_ingest_s": to_last,
+            "blocks_per_s": applied / to_last, "wall_s": wall,
+            "signatures_per_s": sum(d["lanes"] for d in rec.dispatches) / to_last,
+            "tickets": len(tickets), "dispatch_lanes": [d["lanes"] for d in rec.dispatches],
+            "ticket_walls": ticket_walls([(n, r, w) for _, _, n, r, w in tickets]),
+            "pipeline_stats": reactor.pipeline_stats, "launches": launches_a,
+            "spans_ms": {k: v[1] for k, v in spans.items() if not k.startswith("consensus.step")},
+            "span_counts": {k: v[0] for k, v in spans.items() if not k.startswith("consensus.step")},
+            "loop_errors": reactor.loop_errors.count,
+            "wal_bytes": sum(os.path.getsize(p) for p in _wal_files(cs._wal_path)),
+        }
+        emit("consensus_adaptive", **out["adaptive"])
+
+        # 10b: the handoff, the device route still pinned
+        kernels.reset_counts()
+        with Recorder(sched) as rec:
+            walls = loop.run_until_complete(handoff())
+        launches_b = dict(kernels.LAUNCHES)
+        tickets = rec.rows()
+        check(cs.rs.height == top + 1 and cs.loop_errors.count == 0,
+              f"handoff: consensus at {cs.rs.height}, {cs.loop_errors!r}")
+        same_rows(top, "handoff")
+        last = tickets[-1]
+        check(last[0] == "commit" and last[1] == S.PRIORITY_LIVE and last[2] == REPLAY_VALS
+              and last[3] == "device", f"handoff ticket {last}")
+        check(all(launches_b[k] == len(tickets) for k in SOURCES), f"handoff launches {launches_b}")
+        handoff_items = rec.labelled["commit"][-1]
+        check(len(handoff_items) == REPLAY_VALS, f"handoff: {len(handoff_items)} lanes")
+        out["handoff"] = {"heights": list(walls), "wall_s": walls, "tickets": tickets,
+                          "launches": launches_b, "consensus_height": cs.rs.height}
+        emit("consensus_handoff", **out["handoff"])
+
+        # 10c: live rounds, the device route pinned; no tracer, as a
+        # node runs (the state machine's own breakdown is per height)
+        cs.tracer = TRACE_NOOP
+        heights = list(range(top + 1, top + 1 + LIVE_HEIGHTS))
+        kernels.reset_counts()
+        with Recorder(sched) as rec:
+            res = loop.run_until_complete(live(heights, forge_at=heights[LIVE_FORGE_AT]))
+        launches_c = dict(kernels.LAUNCHES)
+        tickets = rec.rows()
+        check(cs.loop_errors.count == 0, f"live: {cs.loop_errors!r}")
+        check(node.app.app_hash == src.state.app_hash, "live: final app hash != the shadow chain's")
+        waves = [t for t in tickets if t[0] == "vote-wave"]
+        check(len(waves) == 2 * LIVE_HEIGHTS and all(
+            p == S.PRIORITY_LIVE and n == N_VALS_LIVE and r == "device" for _, p, n, r, _ in waves),
+            f"live: vote waves {[(lb, p, n, r) for lb, p, n, r, _ in waves]}")
+        check(all(r == "device" and p == S.PRIORITY_LIVE for _, p, _, r, _ in tickets),
+              "live: a ticket left the device route or the live class")
+        check(all(launches_c[k] == len(tickets) == len(rec.dispatches) for k in SOURCES),
+              f"live: launches {launches_c} against {len(tickets)} tickets")
+        # a wave's lanes all sign one message (a canonical vote holds no
+        # validator): the first height's prevotes, the forged height's
+        # precommits, each found among the recorded vote waves
+        def wave_of(sb):
+            found = [w for w in rec.labelled["vote-wave"] if {m for m, _, _ in w} == {sb}]
+            check(len(found) == 1, f"live: {len(found)} vote waves sign the message")
+            return found[0]
+
+        fh = heights[LIVE_FORGE_AT]
+        live_items = {"prevote": wave_of(sent[heights[0]][0]), "precommit": wave_of(sent[fh][1])}
+        check(set(sent[fh][2]) <= {sig for _, _, sig in live_items["precommit"]},
+              "live: the forged precommit is not in its height's wave")
+        out["live"] = {
+            "heights": heights, "route": "device (pinned)", "per_height": res,
+            "commit_wall_s": [r["walls_s"]["stored"] for r in res],
+            "commit_wall_median_s": statistics.median(r["walls_s"]["stored"] for r in res),
+            "tickets": [(lb, n, r, w) for lb, _, n, r, w in tickets],
+            "ticket_walls": {lb: ticket_walls([(n, r, w) for l2, _, n, r, w in tickets if l2 == lb])
+                             for lb in sorted({t[0] for t in tickets})},
+            "launches": launches_c, "app_hash": node.app.app_hash.hex(),
+        }
+        emit("consensus_live", **out["live"])
+
+        # 10d: eight more heights, unforced, routed by the calibration
+        batch.set_min_device_batch(floor)
+        batch.calibration = batch._Calibration()
+        heights = list(range(heights[-1] + 1, heights[-1] + 1 + LIVE_HEIGHTS))
+        with Recorder(sched) as rec:
+            res = loop.run_until_complete(live(heights))
+        tickets = rec.rows()
+        check(cs.loop_errors.count == 0 and node.app.app_hash == src.state.app_hash,
+              "unforced live: errors or app hash")
+        out["live_unforced"] = {
+            "heights": heights,
+            "ticket_routes": "".join(r[0] for _, _, _, r, _ in tickets),
+            "ticket_labels": [lb for lb, _, _, _, _ in tickets],
+            "commit_wall_s": [r["walls_s"]["stored"] for r in res],
+            "ticket_walls": {lb: ticket_walls([(n, r, w) for l2, _, n, r, w in tickets if l2 == lb])
+                             for lb in sorted({t[0] for t in tickets})},
+            "learned": batch.calibration.snapshot(),
+        }
+        emit("consensus_live_unforced", **out["live_unforced"])
+    finally:
+        batch.set_min_device_batch(floor)
+        log.set_level("info")
+        loop.run_until_complete(cs.stop())
+        loop.close()
+        S.set_scheduler(None)
+        sched.close()
+        node.close_stores()
+        shutil.rmtree(home, ignore_errors=True)
+    return launches_a, launches_c, live_items, handoff_items
+
+
+def _wal_files(path):
+    from cometbft_tpu_torch.consensus.wal import _group_files
+
+    return _group_files(path)
 
 
 # --- timing and bounds --------------------------------------------------------
@@ -1342,8 +1663,9 @@ def main(argv) -> int:
     swap = lambda its: [(pk, m, s) for m, pk, s in its]  # noqa: E731
     launches = phase_dispatch(dev, window, swap(window_lanes), swap(commit_lanes), window_want,
                               pinned)
-    replay_launches, replay_items = phase_replay(dev)
+    replay_launches, replay_items, corpus = phase_replay(dev)
     bisect_launches, bisect_items = phase_bisect(dev)
+    ingest_launches, live_launches, live_items, handoff_items = phase_consensus(dev, *corpus)
 
     # phase 6: each kernel against its plain version on the main paths'
     # own inputs (the window's lanes and the commit's; the replay's and
@@ -1363,10 +1685,17 @@ def main(argv) -> int:
     bisect_calls = {n: stage_calls(xb) for n, xb in x_bisect.items()}
     bisect_errs = {n: compare(c) for n, c in bisect_calls.items()}
     b_wide = max(x_bisect)
+    # phase 10's own inputs: a live prevote wave, the forged height's
+    # precommit wave and the handoff's commit; timed at the prevote wave
+    x_waves = {k: kernel_inputs(its, dev) for k, its in (*live_items.items(), ("handoff", handoff_items))}
+    wave_calls = {k: stage_calls(xw) for k, xw in x_waves.items()}
+    live_errs = {k: compare(c) for k, c in wave_calls.items()}
+    x_live, live_calls = x_waves["prevote"], wave_calls["prevote"]
     emit("main_path_vs_plain", lanes=x["n"], commit_lanes=x_commit["n"],
-         replay_lanes=list(x_replay), bisect_lanes=list(x_bisect), equal=True, max_abs_err=errs,
+         replay_lanes=list(x_replay), bisect_lanes=list(x_bisect),
+         live_lanes={k: xw["n"] for k, xw in x_waves.items()}, equal=True, max_abs_err=errs,
          commit_max_abs_err=commit_errs, replay_max_abs_err=replay_errs,
-         bisect_max_abs_err=bisect_errs)
+         bisect_max_abs_err=bisect_errs, live_max_abs_err=live_errs)
     rows = []
     for name in ("ladder", "decompress", "hash_digits"):
         f, plain = calls[name]
@@ -1374,18 +1703,21 @@ def main(argv) -> int:
         parts = (name, "straus") if name == "ladder" else (name,)
         replay_err = max(e[k] for e in replay_errs.values() for k in parts)
         bisect_err = max(e[k] for e in bisect_errs.values() for k in parts)
+        live_err = {w: max(e[k] for k in parts) for w, e in live_errs.items()}
         err = max(max(errs[k], commit_errs[k]) for k in parts)
         b_ms, b_by = bound(name, x, int_rate)
         bc_ms, bc_by = bound(name, x_commit, int_rate)
         br_ms, br_by = bound(name, x_replay[n_wide], int_rate)
         bs_ms, bs_by = bound(name, x_bisect[b_wide], int_rate)
+        bl_ms, bl_by = bound(name, x_live, int_rate)
         bb_ms, bb_by = bound(name, x_bulk, int_rate)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "pinned_launches": pinned[name], "replay_launches": replay_launches[name],
             "bisect_launches": bisect_launches[name],
-            "max_abs_err": max(err, replay_err, bisect_err), "tolerance": 0,
+            "ingest_launches": ingest_launches[name], "live_launches": live_launches[name],
+            "max_abs_err": max(err, replay_err, bisect_err, *live_err.values()), "tolerance": 0,
             "ms": graph_ms(f), "call_ms": cuda_ms(f, 20),
             "plain_ms": cuda_ms(plain, 2, warm=0), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
@@ -1401,6 +1733,12 @@ def main(argv) -> int:
             "bisect_ms": graph_ms(bisect_calls[b_wide][name][0]),
             "bisect_plain_ms": cuda_ms(bisect_calls[b_wide][name][1], 2, warm=0),
             "bisect_bound_ms": bs_ms, "bisect_bound_by": bs_by,
+            "live_lanes": {w: xw["n"] for w, xw in x_waves.items()},
+            "live_max_abs_err": live_err,
+            "live_ms": graph_ms(live_calls[name][0]),
+            "live_call_ms": cuda_ms(live_calls[name][0], 20),
+            "live_plain_ms": cuda_ms(live_calls[name][1], 2, warm=0),
+            "live_bound_ms": bl_ms, "live_bound_by": bl_by,
             "bulk_lanes": N_BULK, "bulk_ms": bulk_ms[name], "bulk_call_ms": bulk_call_ms[name],
             "bulk_bound_ms": bb_ms, "bulk_bound_by": bb_by,
             "bulk_max_abs_err": max(bulk_errs[k] for k in parts),

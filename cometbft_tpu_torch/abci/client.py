@@ -30,6 +30,18 @@ class LocalClient:
         with self._lock:
             return self.app.prepare_proposal(req)
 
+    def process_proposal(self, req):
+        with self._lock:
+            return self.app.process_proposal(req)
+
+    def extend_vote(self, req):
+        with self._lock:
+            return self.app.extend_vote(req)
+
+    def verify_vote_extension(self, req):
+        with self._lock:
+            return self.app.verify_vote_extension(req)
+
     def finalize_block(self, req):
         with self._lock:
             return self.app.finalize_block(req)
@@ -47,6 +59,10 @@ class LocalClient:
     def info(self, req):
         with self._lock:
             return self.app.info(req)
+
+    def query(self, req):
+        with self._lock:
+            return self.app.query(req)
 
 
 class AppConns:

@@ -1,11 +1,13 @@
 """ABCI requests, responses and the Application interface (subset).
 
-The part of the JAX package's ``abci/types.py`` that block execution
-and the handshake send (reference abci/types/application.go): Info,
-InitChain, CheckTx, PrepareProposal, FinalizeBlock (with
-``ExecTxResult``, ``Event``, ``CommitInfo`` and validator updates) and
-Commit. ProcessProposal, vote extensions, queries, snapshots and the
-app-side mempool wait for the slices that need them.
+The part of the JAX package's ``abci/types.py`` that block execution,
+the handshake and the consensus round send (reference
+abci/types/application.go): Info, Query, InitChain, CheckTx,
+PrepareProposal (with ``ExtendedCommitInfo`` when vote extensions are
+on), ProcessProposal, ExtendVote, VerifyVoteExtension, FinalizeBlock
+(with ``ExecTxResult``, ``Event``, ``CommitInfo`` and validator
+updates) and Commit. Misbehavior, snapshots and the app-side mempool
+wait for the slices that need them.
 """
 
 from __future__ import annotations
@@ -98,6 +100,25 @@ class CommitInfo:
 
 
 @dataclass
+class ExtendedVoteInfo:
+    """VoteInfo plus the validator's vote extension (reference
+    abci/types.proto ExtendedVoteInfo — PrepareProposal's
+    local_last_commit when ABCI vote extensions are enabled)."""
+
+    validator_address: bytes = b""
+    power: int = 0
+    block_id_flag: int = 0
+    vote_extension: bytes = b""
+    extension_signature: bytes = b""
+
+
+@dataclass
+class ExtendedCommitInfo:
+    round: int = 0
+    votes: List[ExtendedVoteInfo] = field(default_factory=list)
+
+
+@dataclass
 class RequestInfo:
     version: str = ""
     block_version: int = 0
@@ -154,6 +175,24 @@ class ResponseCheckTx:
 
 
 @dataclass
+class RequestQuery:
+    data: bytes = b""
+    path: str = ""
+    height: int = 0
+    prove: bool = False
+
+
+@dataclass
+class ResponseQuery:
+    code: int = CODE_TYPE_OK
+    log: str = ""
+    key: bytes = b""
+    value: bytes = b""
+    height: int = 0
+    proof_ops: bytes = b""
+
+
+@dataclass
 class RequestPrepareProposal:
     max_tx_bytes: int = 0
     txs: List[bytes] = field(default_factory=list)
@@ -168,6 +207,63 @@ class RequestPrepareProposal:
 @dataclass
 class ResponsePrepareProposal:
     txs: List[bytes] = field(default_factory=list)
+
+
+PROCESS_PROPOSAL_ACCEPT = 1
+PROCESS_PROPOSAL_REJECT = 2
+
+
+@dataclass
+class RequestProcessProposal:
+    txs: List[bytes] = field(default_factory=list)
+    proposed_last_commit: Optional[object] = None
+    misbehavior: list = field(default_factory=list)
+    hash: bytes = b""
+    height: int = 0
+    time_ns: int = 0
+    next_validators_hash: bytes = b""
+    proposer_address: bytes = b""
+
+
+@dataclass
+class ResponseProcessProposal:
+    status: int = PROCESS_PROPOSAL_ACCEPT
+
+    def is_accepted(self) -> bool:
+        return self.status == PROCESS_PROPOSAL_ACCEPT
+
+
+@dataclass
+class RequestExtendVote:
+    hash: bytes = b""
+    height: int = 0
+    round: int = 0
+    time_ns: int = 0
+
+
+@dataclass
+class ResponseExtendVote:
+    vote_extension: bytes = b""
+
+
+VERIFY_VOTE_EXT_ACCEPT = 1
+VERIFY_VOTE_EXT_REJECT = 2
+
+
+@dataclass
+class RequestVerifyVoteExtension:
+    hash: bytes = b""
+    validator_address: bytes = b""
+    height: int = 0
+    vote_extension: bytes = b""
+
+
+@dataclass
+class ResponseVerifyVoteExtension:
+    status: int = VERIFY_VOTE_EXT_ACCEPT
+
+    def is_accepted(self) -> bool:
+        return self.status == VERIFY_VOTE_EXT_ACCEPT
 
 
 @dataclass
@@ -203,6 +299,9 @@ class Application:
     def info(self, req: RequestInfo) -> ResponseInfo:
         return ResponseInfo()
 
+    def query(self, req: RequestQuery) -> ResponseQuery:
+        return ResponseQuery()
+
     def check_tx(self, req: RequestCheckTx) -> ResponseCheckTx:
         return ResponseCheckTx()
 
@@ -218,6 +317,17 @@ class Application:
             out.append(tx)
             total += len(tx)
         return ResponsePrepareProposal(txs=out)
+
+    def process_proposal(self, req: RequestProcessProposal) -> ResponseProcessProposal:
+        return ResponseProcessProposal()
+
+    def extend_vote(self, req: RequestExtendVote) -> ResponseExtendVote:
+        return ResponseExtendVote()
+
+    def verify_vote_extension(
+        self, req: RequestVerifyVoteExtension
+    ) -> ResponseVerifyVoteExtension:
+        return ResponseVerifyVoteExtension()
 
     def finalize_block(self, req: RequestFinalizeBlock) -> ResponseFinalizeBlock:
         return ResponseFinalizeBlock(tx_results=[ExecTxResult() for _ in req.txs])

@@ -15,14 +15,21 @@ the next window by content (the valset hash and every block hash), and
 dropped on any refetch, ban or valset change.
 
 Every verify runs on the reactor's ``device`` (None = the GPU, which
-raises without one). The adaptive-sync ingestor of the JAX package
-needs consensus and is not ported: passing one raises. Departure: the
-pool routine still catches every exception and retries, but counts
-each one in ``loop_errors`` (``LoopErrors``: the count, the first and
-the last few errors), so a caller can see that it happened. It logs
-the traceback of each distinct error once, and while one error repeats
-it backs off its retry from 10 ms to 1 s; a window that applies resets
-the wait. A failing card is not replaced by the host plane.
+raises without one). Adaptive sync (the fork's feature): given a
+``block_ingestor`` (a started ``consensus.state.ConsensusState``), each
+verified block goes into the consensus state machine through
+``ingest_verified_block``, which persists and applies it, instead of
+being applied here; the window pass then runs on the event loop it
+shares with consensus, and drops the heights consensus committed
+itself. Departure: the pool routine still catches every exception and
+retries, but counts each one in ``loop_errors`` (``LoopErrors``: the
+count, the first and the last few errors), so a caller can see that it
+happened. It logs the traceback of each distinct error once, and while
+one error repeats it backs off its retry from 10 ms to 1 s; a window
+that applies resets the wait. A failing card is not replaced by the
+host plane, and a failed route in the extended-commit check is no
+verdict on the peer (ROADMAP C7): it reaches the pool routine as it
+is, with no refetch and no ban.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import traceback
 from collections import deque
 from typing import Callable, Optional
 
+from ..crypto.scheduler import DeviceRouteError
 from ..device import resolve
 from ..trace import NOOP as TRACE_NOOP
 from ..types.block import BlockID
@@ -156,10 +164,6 @@ class BlockSyncReactor:
         local_blocks_chain=None,  # fn(state) -> bool, reactor.go:448
         device=None,
     ):
-        if block_ingestor is not None:
-            raise NotImplementedError(
-                "the adaptive-sync block ingestor needs consensus, which is not ported"
-            )
         self.device = resolve(device)
         self.state = state
         self.block_exec = block_exec
@@ -171,6 +175,7 @@ class BlockSyncReactor:
         self.pool.max_pending = max(self.pool.max_pending, 2 * verify_window + 2)
         self.sig_cache = signature_cache or SignatureCache()
         self.on_caught_up = on_caught_up
+        self.ingestor = block_ingestor
         self.window = verify_window
         self.local_blocks_chain = local_blocks_chain
         self.blocks_applied = 0
@@ -242,7 +247,14 @@ class BlockSyncReactor:
                 await self.pool.wait_for_block()
                 continue
             try:
-                applied = await self._process_window_overlapped(window)
+                if self.ingestor is None:
+                    applied = await self._process_window_overlapped(window)
+                else:
+                    # adaptive mode: consensus shares this loop, and
+                    # the blocking pass serializes against it — an
+                    # await inside the pass would let consensus commit
+                    # mid-window against the pass's state view
+                    applied = self._process_window(window)
             except asyncio.CancelledError:
                 raise
             except Exception as e:
@@ -310,6 +322,18 @@ class BlockSyncReactor:
         (a valset change mid-window): those heights verify on a later
         pass. The hash only LIMITS the batch; each block is still
         validated against the locally derived valset when applied."""
+        if self.ingestor is not None:
+            # adaptive mode: consensus may also be committing heights
+            # (its own rounds, commit_block catch-up). Track its state
+            # and drop the heights it already owns, else the window
+            # would verify against a stale valset and ban honest peers.
+            self.state = self.ingestor.state
+            while window and window[0][0] < self.ingestor.rs.height:
+                self.pool.pop_request()
+                self.blocks_applied += 1
+                window = window[1:]
+            if len(window) < 2:
+                return None
         # take (and clear) the pre-dispatched handle first: every exit
         # from this pass either consumes it or drops it
         inflight, self._inflight = self._inflight, None
@@ -406,10 +430,12 @@ class BlockSyncReactor:
         # body does not match its header (validate_basic: data and
         # last-commit hashes), which the JAX package stores and then
         # refuses to apply, leaving the peer's txs in the store.
+        # The ingestor path owns its own persistence (consensus saves
+        # each block it ingests).
         parts_by_idx = {}
         ec_by_idx = {}
         entries = []
-        for i in range(len(jobs)):
+        for i in range(len(jobs) if self.ingestor is None else 0):
             if errors[i] is not None:
                 break
             h, blk, peer_i = window[i]
@@ -425,6 +451,8 @@ class BlockSyncReactor:
             enabled = self.state.consensus_params.vote_extensions_enabled(h)
             try:
                 ec_bytes = self._check_extended_commit(h, blk, peer_i)
+            except DeviceRouteError:
+                raise  # no verdict on the peer (C7): nothing staged
             except Exception:
                 # the apply loop below re-runs the check at this height
                 # and owns the tolerance and redo logic
@@ -502,6 +530,10 @@ class BlockSyncReactor:
                     distinct_peers=len(served),
                 )
                 ec_bytes = None
+            except DeviceRouteError:
+                # the card failed, not the peer (C7): no refetch, no
+                # ban; the pool routine counts it and retries
+                raise
             except Exception as e:
                 _log.error("extended commit check failed, refetching", height=h, err=repr(e))
                 self.pool.redo_request(h, peer)
@@ -512,11 +544,30 @@ class BlockSyncReactor:
             parts = parts_by_idx.get(i)
             if parts is None:
                 parts = self._canonical_parts(blk, nxt)
-            # usually saved by the window flush above; a block behind
-            # an EC decision made in this loop was not staged
-            if self.block_store.height() < h:
-                self.block_store.save_block(blk, parts, nxt.last_commit)
-            self.state = self.block_exec.apply_verified_block(self.state, bid, blk)
+            if self.ingestor is not None:
+                # adaptive sync: the verified block goes straight into
+                # the consensus state machine, which applies it and
+                # returns the post-apply state (so the rest of the
+                # window validates against it)
+                if blk.height < self.ingestor.rs.height:
+                    # consensus ingested it concurrently (catch-up)
+                    self.state = self.ingestor.state
+                    self.pool.pop_request()
+                    self.blocks_applied += 1
+                    applied += 1
+                    continue
+                try:
+                    self.state = self.ingestor.ingest_verified_block(blk, parts, nxt.last_commit)
+                except ValueError:
+                    # consensus is mid-commit at this height; let it
+                    # finish and resume on the next pass
+                    break
+            else:
+                # usually saved by the window flush above; a block
+                # behind an EC decision made in this loop was not staged
+                if self.block_store.height() < h:
+                    self.block_store.save_block(blk, parts, nxt.last_commit)
+                self.state = self.block_exec.apply_verified_block(self.state, bid, blk)
             if h in self._ec_misses:
                 del self._ec_misses[h]
                 self.pool.clear_exclusions(h)

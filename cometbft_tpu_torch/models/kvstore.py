@@ -4,8 +4,11 @@ The part of the JAX package's ``models/kvstore.py`` that block replay
 drives: transactions are ``key=value`` bytes, or ``val:<hex pubkey>!<power>``
 validator updates; the app hash is SHA-256 over the height and every
 committed pair in key order, kept incremental by a sorted chunk cache
-so a block costs its own writes, not the whole state. The provable
-hash, snapshots and the persistence file are not ported.
+so a block costs its own writes, not the whole state. Queries read
+the committed state; ProcessProposal refuses a block with a malformed
+tx; vote extensions are bound to (height, block hash), as in the
+reference's e2e app. The provable hash (and so query proofs),
+snapshots and the persistence file are not ported.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ class KVStoreApplication(abci.Application):
         self.staged: Dict[bytes, bytes] = {}
         self.val_updates: List[abci.ValidatorUpdate] = []
         self._pending = None
+        self.extensions_verified = 0  # accepted VerifyVoteExtension calls
 
     # --- hashing ------------------------------------------------------
 
@@ -79,6 +83,17 @@ class KVStoreApplication(abci.Application):
             last_block_app_hash=self.app_hash,
         )
 
+    def query(self, req):
+        if req.path == "/store" or req.path == "":
+            v = self.state.get(req.data)
+            return abci.ResponseQuery(
+                code=abci.CODE_TYPE_OK if v is not None else 1,
+                key=req.data,
+                value=v or b"",
+                height=self.height,
+            )
+        return abci.ResponseQuery(code=1, log=f"unknown path {req.path}")
+
     # --- mempool ------------------------------------------------------
 
     @staticmethod
@@ -107,6 +122,25 @@ class KVStoreApplication(abci.Application):
             self.state = {bytes.fromhex(k): bytes.fromhex(v) for k, v in st.items()}
         self.app_hash = self._hash_state(self.height, self.state)
         return abci.ResponseInitChain(app_hash=self.app_hash)
+
+    def process_proposal(self, req):
+        for tx in req.txs:
+            if not self._valid_tx(tx):
+                return abci.ResponseProcessProposal(status=abci.PROCESS_PROPOSAL_REJECT)
+        return abci.ResponseProcessProposal()
+
+    # --- vote extensions (reference test/e2e/app shape) ---------------
+
+    def extend_vote(self, req):
+        """Deterministic extension content bound to (height, hash)."""
+        return abci.ResponseExtendVote(vote_extension=b"ext|%d|" % req.height + req.hash[:8])
+
+    def verify_vote_extension(self, req):
+        ok = req.vote_extension.startswith(b"ext|%d|" % req.height)
+        self.extensions_verified += 1 if ok else 0
+        return abci.ResponseVerifyVoteExtension(
+            status=abci.VERIFY_VOTE_EXT_ACCEPT if ok else abci.VERIFY_VOTE_EXT_REJECT
+        )
 
     def _exec_tx(self, tx: bytes) -> abci.ExecTxResult:
         if not self._valid_tx(tx):

@@ -1,36 +1,49 @@
-"""In-process node assembly: what a node that replays blocks is made of.
+"""In-process node construction and local test networks.
 
-The part of the JAX package's ``node/inprocess.py`` that block replay
-needs: ``build_node`` wires the kv stores, the kvstore app behind a
-local ABCI client, the mempool, the block executor and the ABCI
-handshake; ``make_genesis`` makes a genesis whose keys come from a
-seeded ``np.random.default_rng``, as ``bench.py``'s replay corpus does.
-Consensus, p2p, the private validator, the evidence pool, the indexer,
-retention and snapshots are not ported.
+The part of the JAX package's ``node/inprocess.py`` that replay and
+in-process consensus need (reference consensus/common_test.go
+randConsensusNet): ``build_node`` wires the kv stores, the kvstore app
+behind a local ABCI client, the mempool, the block executor, the ABCI
+handshake, the event bus and the consensus state machine (``cs``, with
+a WAL on disk when ``wal=True``); ``LocalNet`` connects N nodes' state
+machines by in-memory delivery; ``make_genesis`` makes a genesis whose
+keys come from a seeded ``np.random.default_rng``, as ``bench.py``'s
+replay corpus does, and ``make_privvals`` file-backed signers over
+them. p2p, the evidence pool, the indexer, retention, snapshots and
+tracing are not ported.
 
-``device`` is where the node's commit checks run: None is the GPU and
-raises without one; ``device="cpu"`` runs them on the host plane.
+``device`` is where the node's signature checks run: None is the GPU
+and raises without one; ``device="cpu"`` runs them on the host plane.
 """
 
 from __future__ import annotations
 
+import asyncio
 import os
+import tempfile
 import time
+import traceback
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
 from ..abci.client import AppConns
+from ..config import Config
+from ..config.config import test_config
+from ..consensus.reactor import CommitBlockMessage
 from ..consensus.replay import Handshaker
+from ..consensus.state import ConsensusState
 from ..crypto.keys import Ed25519PrivKey
 from ..device import resolve
 from ..mempool.mempool import CListMempool
 from ..models.kvstore import KVStoreApplication
+from ..privval import FilePV
 from ..state.execution import BlockExecutor
 from ..state.state_types import State
 from ..state.store import Store as StateStore
 from ..store.block_store import BlockStore
+from ..types import events as ev
 from ..types.genesis import GenesisDoc
 from ..types.validator_set import Validator
 from ..utils import kv
@@ -49,6 +62,10 @@ class NodeParts:
     mempool: CListMempool
     block_exec: BlockExecutor
     device: object
+    config: Optional[Config] = None
+    privval: Optional[FilePV] = None
+    event_bus: Optional[ev.EventBus] = None
+    cs: Optional[ConsensusState] = None
 
     def close_stores(self) -> None:
         """Release the store handles. Idempotent."""
@@ -62,11 +79,23 @@ def build_node(
     db_backend: str = "memdb",
     home: Optional[str] = None,
     device=None,
+    privval: Optional[FilePV] = None,
+    config: Optional[Config] = None,
+    wal: bool = False,
 ) -> NodeParts:
-    """Stores (``"memdb"``, or ``"sqlite"`` under ``home``), the app (a
-    fresh kvstore unless given), mempool and executor, then the
-    handshake, which runs InitChain or replays stored blocks."""
+    """Stores (``"memdb"``, or ``"sqlite"`` under ``home``; a ``config``
+    names its own backend), the app (a fresh kvstore unless given),
+    mempool and executor, then the handshake, which runs InitChain or
+    replays stored blocks; then the consensus state machine, signing
+    with ``privval`` (None: a full node that votes on nothing), with
+    ``config.consensus`` (``test_config``'s short timeouts by default)
+    and a WAL at ``<home>/cs.wal`` (a fresh directory without ``home``)
+    when ``wal`` is set. It is built, not started."""
     device = resolve(device)
+    if config is None:
+        config = test_config(home or ".")
+        config.base.db_backend = db_backend
+    db_backend = config.base.db_backend
     app = app if app is not None else KVStoreApplication()
     proxy = AppConns.local(app)
     if db_backend == "memdb":
@@ -86,7 +115,27 @@ def build_node(
     state = Handshaker(state_store, state, block_store, genesis).handshake(proxy)
     mempool = CListMempool(proxy.mempool)
     block_exec = BlockExecutor(
-        state_store, proxy.consensus, mempool, block_store=block_store, device=device
+        state_store,
+        proxy.consensus,
+        mempool,
+        block_store=block_store,
+        block_time_tolerance_ns=config.consensus.block_time_tolerance_ns,
+        device=device,
+    )
+    event_bus = ev.EventBus()
+    wal_path = None
+    if wal:
+        wal_path = os.path.join(home or tempfile.mkdtemp(), "cs.wal")
+    cs = ConsensusState(
+        config.consensus,
+        state,
+        block_exec,
+        block_store,
+        mempool,
+        priv_validator=privval,
+        event_bus=event_bus,
+        wal_path=wal_path,
+        device=device,
     )
     return NodeParts(
         genesis=genesis,
@@ -100,6 +149,10 @@ def build_node(
         mempool=mempool,
         block_exec=block_exec,
         device=device,
+        config=config,
+        privval=privval,
+        event_bus=event_bus,
+        cs=cs,
     )
 
 
@@ -124,3 +177,117 @@ def make_genesis(
     order = {v.address: i for i, v in enumerate(gen.validator_set().validators)}
     privs.sort(key=lambda p: order[p.pub_key().address()])
     return gen, privs
+
+
+def make_privvals(privs, root: Optional[str] = None) -> List[FilePV]:
+    """File-backed signers over raw keys (the JAX package's
+    ``make_genesis`` returns these): key and state files in a fresh
+    directory each, under ``root`` when given."""
+    pvs = []
+    for p in privs:
+        d = tempfile.mkdtemp(prefix="pv_", dir=root)
+        pv = FilePV(p, os.path.join(d, "key.json"), os.path.join(d, "state.json"))
+        pv.save_key()
+        pv.save_state()
+        pvs.append(pv)
+    return pvs
+
+
+class LocalNet:
+    """Fully-connected in-memory delivery between consensus states.
+
+    Delivery is flood-with-dedup plus a CATCH-UP healer (the reactor's
+    gossipDataForCatchup analog): a node whose round state trails a
+    peer's committed height is periodically re-fed that block + commit
+    through the normal commit_block path. The flood alone has no
+    retransmission, so any delivery skew (batched vote windows, WAL
+    group-commit broadcast deferral, loop contention) could strand a
+    node in COMMIT waiting for parts nobody will ever resend — the
+    real p2p reactor heals this with per-peer gossip routines, and the
+    harness must match that delivery contract."""
+
+    def __init__(
+        self,
+        nodes: List[NodeParts],
+        drop: Optional[Callable] = None,
+        heal_interval_s: float = 0.05,
+    ):
+        self.nodes = nodes
+        self.drop = drop  # (src_idx, dst_idx, kind, payload) -> bool
+        self.heal_interval_s = heal_interval_s
+        self._healer: Optional[asyncio.Task] = None
+        for i, n in enumerate(nodes):
+            n.cs.add_broadcast_hook(self._make_hook(i))
+
+    def _make_hook(self, src: int):
+        def hook(kind, payload):
+            for j, other in enumerate(self.nodes):
+                if j == src:
+                    continue
+                if self.drop and self.drop(src, j, kind, payload):
+                    continue
+                try:
+                    other.cs.enqueue_nowait(kind, payload, f"node{src}")
+                except asyncio.QueueFull:
+                    pass
+
+        return hook
+
+    async def start(self):
+        for n in self.nodes:
+            await n.cs.start()
+        if self.heal_interval_s > 0 and len(self.nodes) > 1:
+            self._healer = asyncio.create_task(self._heal_loop())
+
+    async def _heal_loop(self):
+        """Re-feed committed blocks to lagging nodes (reference
+        consensus/reactor.go gossipDataForCatchup, harness-sized)."""
+        while True:
+            await asyncio.sleep(self.heal_interval_s)
+            try:
+                stores = [n.block_store.height() for n in self.nodes]
+                for j, n in enumerate(self.nodes):
+                    h = n.cs.rs.height
+                    for i, m in enumerate(self.nodes):
+                        if i == j or stores[i] < h:
+                            continue
+                        if self.drop and self.drop(i, j, "commit_block", None):
+                            continue
+                        block = m.block_store.load_block(h)
+                        commit = m.block_store.load_seen_commit(h) or m.block_store.load_block_commit(h)
+                        if block is None or commit is None:
+                            continue
+                        try:
+                            n.cs.enqueue_nowait(
+                                "commit_block",
+                                CommitBlockMessage(block, commit, m.block_store.load_extended_commit(h)),
+                                f"node{i}",
+                            )
+                        except asyncio.QueueFull:
+                            pass
+                        break
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                traceback.print_exc()
+
+    async def stop(self):
+        if self._healer is not None:
+            self._healer.cancel()
+            self._healer = None
+        for n in self.nodes:
+            # bounded: one wedged state machine must not hang the
+            # whole test net's teardown
+            try:
+                await asyncio.wait_for(n.cs.stop(), 15.0)
+            except asyncio.TimeoutError:
+                pass
+
+    async def wait_for_height(self, height: int, timeout: float = 30.0):
+        async def waiter():
+            while True:
+                if all(n.block_store.height() >= height for n in self.nodes):
+                    return
+                await asyncio.sleep(0.02)
+
+        await asyncio.wait_for(waiter(), timeout)

@@ -1,15 +1,18 @@
 """BlockExecutor: create, validate and execute blocks against the app.
 
-The part of the JAX package's ``state/execution.py`` that block replay
-and the chain generator run (reference state/execution.go):
-``create_proposal_block`` (:114) and ``_make_block``, ``validate_block``
+The part of the JAX package's ``state/execution.py`` that block replay,
+the chain generator and the consensus round run (reference
+state/execution.go): ``create_proposal_block`` (:114, with the
+extended commit's ``ExtendedCommitInfo`` when vote extensions are on)
+and ``_make_block``, ``process_proposal`` (:177), ``extend_vote`` and
+``verify_vote_extension`` (the ABCI 2.0 round calls), ``validate_block``
 (:205) with the fork's last-validated-block cache and block-time
 tolerance, ``apply_block`` / ``apply_verified_block`` (:246-258) as the
 three phases ``apply_finalize``, ``apply_hash_persist`` and
 ``apply_complete``, ``_commit`` with the mempool update (:446-509) and
 ``_update_state`` (:694). Commit checks run on the executor's
-``device``. The evidence pool, the event bus, pruning and vote
-extensions are not ported: blocks carry no evidence here.
+``device``. The evidence pool, the event bus and pruning are not
+ported: blocks carry no evidence here.
 """
 
 from __future__ import annotations
@@ -134,6 +137,34 @@ def build_last_commit_info(lc, last_vals) -> Optional[abci.CommitInfo]:
     return abci.CommitInfo(round=lc.round, votes=votes)
 
 
+def build_extended_commit_info(ec, last_vals):
+    """ExtendedCommitInfo for PrepareProposal when vote extensions are
+    enabled (reference state/execution.go buildExtendedCommitInfo)."""
+    if ec is None or last_vals is None:
+        return None
+    votes = []
+    for i, v in enumerate(last_vals.validators):
+        flag = abci.BLOCK_ID_FLAG_ABSENT
+        ext = ext_sig = b""
+        if i < len(ec.extended_signatures):
+            s = ec.extended_signatures[i]
+            flag = s.block_id_flag
+            if flag == abci.BLOCK_ID_FLAG_COMMIT:
+                # extension payloads only ride COMMIT lanes (ABCI
+                # contract; defensive against a non-conforming EC)
+                ext, ext_sig = s.extension, s.extension_signature
+        votes.append(
+            abci.ExtendedVoteInfo(
+                validator_address=v.address,
+                power=v.voting_power,
+                block_id_flag=flag,
+                vote_extension=ext,
+                extension_signature=ext_sig,
+            )
+        )
+    return abci.ExtendedCommitInfo(round=ec.round, votes=votes)
+
+
 class BlockExecutor:
     def __init__(
         self,
@@ -159,6 +190,30 @@ class BlockExecutor:
 
     # --- proposal creation (reference :114) ---------------------------
 
+    def extend_vote(self, block_hash: bytes, height: int, round_: int, time_ns: int) -> bytes:
+        """App-provided vote extension for our own precommit
+        (reference state/execution.go ExtendVote -> ABCI ExtendVote)."""
+        resp = self.proxy.extend_vote(
+            abci.RequestExtendVote(hash=block_hash, height=height, round=round_, time_ns=time_ns)
+        )
+        return resp.vote_extension or b""
+
+    def verify_vote_extension(self, vote) -> bool:
+        """App acceptance of a peer's vote extension (reference
+        VerifyVoteExtension; rejection rejects the whole precommit)."""
+        try:
+            resp = self.proxy.verify_vote_extension(
+                abci.RequestVerifyVoteExtension(
+                    hash=vote.block_id.hash or b"",
+                    validator_address=vote.validator_address,
+                    height=vote.height,
+                    vote_extension=vote.extension,
+                )
+            )
+        except Exception:
+            return False
+        return resp.status == abci.VERIFY_VOTE_EXT_ACCEPT
+
     def create_proposal_block(
         self,
         height: int,
@@ -166,15 +221,22 @@ class BlockExecutor:
         last_commit: Optional[Commit],
         proposer_addr: bytes,
         time_ns: Optional[int] = None,
+        extended_commit=None,
     ) -> Tuple[Block, PartSet]:
         max_bytes = state.consensus_params.block.max_bytes
         max_gas = state.consensus_params.block.max_gas
         txs = self.mempool.reap_max_bytes_max_gas(max_bytes - 2048, max_gas)
         t = time_ns or time.time_ns()
+        if extended_commit is not None:
+            # extensions enabled at height-1: the app sees the
+            # extension payloads (reference buildExtendedCommitInfo)
+            lci = build_extended_commit_info(extended_commit, state.last_validators)
+        else:
+            lci = build_last_commit_info(last_commit, state.last_validators)
         req = abci.RequestPrepareProposal(
             max_tx_bytes=max_bytes - 2048,
             txs=txs,
-            local_last_commit=build_last_commit_info(last_commit, state.last_validators),
+            local_last_commit=lci,
             height=height,
             time_ns=t,
             next_validators_hash=state.next_validators.hash(),
@@ -203,6 +265,20 @@ class BlockExecutor:
             proposer_address=proposer_addr,
         )
         return Block(header=header, data=data, last_commit=last_commit)
+
+    # --- proposal processing (reference :177) -------------------------
+
+    def process_proposal(self, block: Block, state: State) -> bool:
+        req = abci.RequestProcessProposal(
+            txs=block.data.txs,
+            proposed_last_commit=build_last_commit_info(block.last_commit, state.last_validators),
+            hash=block.hash(),
+            height=block.height,
+            time_ns=block.header.time_ns,
+            next_validators_hash=block.header.next_validators_hash,
+            proposer_address=block.header.proposer_address,
+        )
+        return self.proxy.process_proposal(req).is_accepted()
 
     # --- validation (reference :205) ----------------------------------
 

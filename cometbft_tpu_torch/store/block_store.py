@@ -163,6 +163,10 @@ class BlockStore:
             self.db.write_batch(sets)
             self._height = expect
 
+    def save_seen_commit(self, height: int, commit: Commit) -> None:
+        # canonical re-encode, same reasoning as save_block's SC record
+        self.db.set(_hkey(b"SC:", height), codec.encode_commit(commit))
+
     def save_extended_commit(self, height: int, ec_bytes: bytes) -> None:
         self.db.set(_hkey(b"EC:", height), ec_bytes)
 

@@ -1,11 +1,13 @@
 """Span tracer: the part of the JAX package's ``trace/tracer.py`` that
-the verify dispatch layer records onto.
+the verify dispatch layer and the consensus state machine record onto.
 
 A ``Tracer`` hands each completed span, as ``fn(name, dur_ns, args)``,
-to the observers added with ``add_observer``. Disabled, ``span()``
-returns a shared do-nothing span and ``complete()`` returns at once, so
-call sites never branch. Timestamps are ``time.monotonic_ns``. The JAX
-package's ring buffer, snapshot and export are not ported yet.
+to the observers added with ``add_observer``; an instant is a span of
+length 0. A span ends when its ``with`` block exits or at ``end()``,
+whichever comes first. Disabled, ``span()`` returns a shared
+do-nothing span and ``complete()`` and ``instant()`` return at once,
+so call sites never branch. Timestamps are ``time.monotonic_ns``. The
+JAX package's ring buffer, snapshot and export are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,13 +25,16 @@ class _NoopSpan:
     def __exit__(self, *exc) -> bool:
         return False
 
+    def end(self) -> None:
+        pass
+
 
 NOOP_SPAN = _NoopSpan()
 
 
 class _Span:
     """In-flight span; records one complete span when the ``with``
-    block exits."""
+    block exits or ``end()`` is called, once."""
 
     __slots__ = ("_tracer", "_name", "_tid", "_args", "_t0")
 
@@ -44,9 +49,13 @@ class _Span:
         return self
 
     def __exit__(self, *exc) -> bool:
-        t0 = self._t0
-        self._tracer.complete(self._name, t0, time.monotonic_ns() - t0, self._tid, **self._args)
+        self.end()
         return False
+
+    def end(self) -> None:
+        t0, self._t0 = self._t0, None
+        if t0 is not None:
+            self._tracer.complete(self._name, t0, time.monotonic_ns() - t0, self._tid, **self._args)
 
 
 class Tracer:
@@ -76,6 +85,11 @@ class Tracer:
                 # a broken observer must never take down the path it
                 # observes: drop it
                 self.remove_observer(fn)
+
+    def instant(self, name: str, tid: Optional[str] = None, **args) -> None:
+        """Record a point event (a span of length 0)."""
+        if self.enabled:
+            self.complete(name, time.monotonic_ns(), 0, tid, **args)
 
     def add_observer(self, fn: Callable) -> None:
         """fn(name, dur_ns, args) on every completed span."""

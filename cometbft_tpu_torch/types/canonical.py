@@ -1,7 +1,8 @@
-"""Canonical vote sign bytes (reference types/canonical.go).
+"""Canonical sign bytes (reference types/canonical.go).
 
-The encoding every precommit signature covers, and so the bytes the
-GPU hashes per lane (and the vote-extension encoding beside it): protobuf CanonicalVote, varint-length-delimited
+The encoding every vote and proposal signature covers, and so the
+bytes the GPU hashes per lane (and the vote-extension encoding beside
+it): protobuf CanonicalVote / CanonicalProposal, varint-length-delimited
 (libs/protoio), sfixed64 height/round, the chain id last. Byte
 identical to the JAX package's ``types/canonical.py``.
 """
@@ -13,6 +14,7 @@ from .block import BlockID
 
 PREVOTE_TYPE = 1
 PRECOMMIT_TYPE = 2
+PROPOSAL_TYPE = 32
 
 
 def canonical_block_id(bid: BlockID):
@@ -55,6 +57,27 @@ def vote_sign_bytes(
     """CanonicalVote encoding, length-delimited (types/vote.go:152)."""
     prefix, suffix = vote_sign_bytes_parts(chain_id, type_, height, round_, block_id)
     return finish_vote_sign_bytes(prefix, suffix, timestamp_ns)
+
+
+def proposal_sign_bytes(
+    chain_id: str,
+    height: int,
+    round_: int,
+    pol_round: int,
+    block_id: BlockID,
+    timestamp_ns: int,
+) -> bytes:
+    """CanonicalProposal encoding, length-delimited (types/proposal.go)."""
+    body = proto.field_varint(1, PROPOSAL_TYPE)
+    body += proto.field_sfixed64(2, height)
+    body += proto.field_sfixed64(3, round_)
+    body += proto.field_sfixed64(4, pol_round)
+    cbid = canonical_block_id(block_id)
+    if cbid is not None:
+        body += proto.field_message(5, cbid)
+    body += proto.field_message(6, proto.timestamp(timestamp_ns))
+    body += proto.field_string(7, chain_id)
+    return proto.delimited(body)
 
 
 def vote_extension_sign_bytes(

@@ -8,14 +8,18 @@ serves a node's stored blocks as a blocksync peer;
 ``TamperingPeerClient`` adds a tx to one height's block.
 ``RotatingLightProvider`` mints light blocks on demand over validator
 sets that rotate by epoch, the shape of BASELINE config 4's bisection
-(the JAX package's ``bench.py::bench_bisect``).
+(the JAX package's ``bench.py::bench_bisect``). ``ValidatorStubs``
+plays a chain's validators against a node's consensus state machine
+(reference consensus/common_test.go ``validatorStub`` and
+``signAddVotes``): a test harness, not a feature of the node.
 """
 
 from __future__ import annotations
 
 import asyncio
 import time
-from typing import Optional
+from dataclasses import dataclass
+from typing import Callable, List, Optional
 
 from ..light.provider import Provider
 from ..light.types import LightBlock
@@ -23,7 +27,16 @@ from ..node.inprocess import NodeParts, build_node
 from ..types.block import BLOCK_ID_FLAG_COMMIT, BlockID, Commit, CommitSig, Header, PartSetHeader
 from ..types.genesis import GenesisDoc
 from ..types.validator_set import Validator, ValidatorSet
-from ..types.vote import PRECOMMIT, Vote
+from ..types.part_set import Part, PartSet
+from ..types.vote import PRECOMMIT, PREVOTE, Proposal, Vote
+from ..types.vote_set import VoteSet
+from ..utils import codec
+
+# the stubs' blocks are this far apart in time, as make_chain's
+STUB_STEP_NS = 1_000_000_000
+# play_height's deadline for one height, and how often it looks
+PLAY_TIMEOUT_S = 60.0
+PLAY_POLL_S = 0.0005
 
 
 def make_chain(
@@ -200,3 +213,181 @@ class RotatingLightProvider(Provider):
 
     def report_evidence(self, ev) -> None:
         self.reported.append(ev)
+
+
+@dataclass
+class StubHeight:
+    """What the stubs send for one height: the proposal (signed by the
+    round's proposer), its block parts, a prevote and a precommit from
+    every validator (``forged`` lanes of the precommits carry a
+    corrupted signature), and the block the proposal names."""
+
+    height: int
+    round: int
+    proposal: Proposal
+    parts: List[Part]
+    prevotes: List[Vote]
+    precommits: List[Vote]
+    block: object
+    part_set: PartSet
+    forged: tuple = ()
+
+
+class ValidatorStubs:
+    """Every validator of ``shadow``'s chain, with their keys: the
+    stubs extend the shadow chain one height at a time. ``messages(h)``
+    makes height h's block on the shadow node's executor from its
+    state (its mempool's txs included), the proposal and its parts,
+    and the votes, each validator signing with its own key (vote
+    extensions, the kvstore's ``ext|h|`` content, when the chain has
+    them on); ``finish(m)`` commits the block on the shadow with the
+    commit the stubs' own valid precommits make (a forged lane is
+    absent), so the next height's LastCommit is the stubs' view.
+    ``play_height`` feeds one height to a node's state machine and
+    waits for it to store the block."""
+
+    def __init__(self, shadow: NodeParts, privs):
+        self.shadow = shadow
+        self.by_addr = {p.pub_key().address(): p for p in privs}
+
+    @property
+    def chain_id(self) -> str:
+        return self.shadow.state.chain_id
+
+    def messages(self, height: int, round_: int = 0, forge=()) -> StubHeight:
+        state = self.shadow.state
+        if height != state.last_block_height + 1:
+            raise ValueError(f"the shadow chain is at {state.last_block_height}, not {height - 1}")
+        vals = state.validators.copy()
+        if round_:
+            vals.increment_proposer_priority(round_)
+        proposer = vals.get_proposer()
+        last_commit = (
+            self.shadow.block_store.load_seen_commit(height - 1)
+            if height > state.initial_height
+            else None
+        )
+        ec = None
+        if height > state.initial_height and state.consensus_params.vote_extensions_enabled(height - 1):
+            raw = self.shadow.block_store.load_extended_commit(height - 1)
+            ec = codec.decode_extended_commit(raw) if raw else None
+        t = (state.last_block_time_ns or time.time_ns()) + STUB_STEP_NS
+        block, parts = self.shadow.block_exec.create_proposal_block(
+            height, state, last_commit, proposer.address, time_ns=t, extended_commit=ec
+        )
+        bid = BlockID(block.hash(), parts.header)
+        prop = Proposal(height=height, round=round_, pol_round=-1, block_id=bid, timestamp_ns=t)
+        prop.signature = self.by_addr[proposer.address].sign(prop.sign_bytes(self.chain_id))
+        ext_on = state.consensus_params.vote_extensions_enabled(height)
+        prevotes = self._votes(PREVOTE, height, round_, bid, t, False, ())
+        precommits = self._votes(PRECOMMIT, height, round_, bid, t, ext_on, forge)
+        return StubHeight(
+            height=height,
+            round=round_,
+            proposal=prop,
+            parts=[parts.get_part(i) for i in range(parts.header.total)],
+            prevotes=prevotes,
+            precommits=precommits,
+            block=block,
+            part_set=parts,
+            forged=tuple(forge),
+        )
+
+    def _votes(self, type_, height, round_, bid, t, ext_on, forge) -> List[Vote]:
+        out = []
+        for i, val in enumerate(self.shadow.state.validators.validators):
+            key = self.by_addr[val.address]
+            v = Vote(
+                type_=type_,
+                height=height,
+                round=round_,
+                block_id=bid,
+                timestamp_ns=t,
+                validator_address=val.address,
+                validator_index=i,
+            )
+            v.signature = key.sign(v.sign_bytes(self.chain_id))
+            if ext_on:
+                v.extension = b"ext|%d|" % height + bid.hash[:8]
+                v.extension_signature = key.sign(v.extension_sign_bytes(self.chain_id))
+            if i in forge:
+                v.signature = bytes([v.signature[0] ^ 1]) + v.signature[1:]
+            out.append(v)
+        return out
+
+    def finish(self, m: StubHeight):
+        """Commit ``m``'s block on the shadow chain; returns the commit."""
+        state = self.shadow.state
+        vs = VoteSet(self.chain_id, m.height, m.round, PRECOMMIT, state.validators, verify_signatures=False)
+        for i, v in enumerate(m.precommits):
+            if i not in m.forged:
+                vs.add_vote(v)
+        commit = vs.make_commit()
+        if state.consensus_params.vote_extensions_enabled(m.height):
+            self.shadow.block_store.save_extended_commit(
+                m.height, codec.encode_extended_commit(vs.make_extended_commit())
+            )
+        self.shadow.block_store.save_block(m.block, m.part_set, commit)
+        self.shadow.state = self.shadow.block_exec.apply_verified_block(
+            state, commit.block_id, m.block
+        )
+        return commit
+
+    async def play_height(
+        self,
+        cs,
+        m: StubHeight,
+        deliver: Optional[Callable] = None,
+    ) -> dict:
+        """Feed ``m`` to the state machine ``cs`` (started, at height
+        ``m.height``) as peer messages: the proposal and its parts, then
+        the prevotes once the block is complete, then the precommits
+        once every prevote is in; wait until ``cs`` stores the block.
+        ``deliver(kind, obj)`` enqueues one message (default: the
+        port's message types, from peer ``"stubs"``). Returns walls in
+        seconds, from the proposal's delivery: ``prevotes_in``,
+        ``stored``; and ``queued`` before it."""
+        from ..consensus.state import BlockPartMessage, ProposalMessage, VoteMessage
+
+        if deliver is None:
+
+            def deliver(kind, obj):
+                payload = {
+                    "proposal": lambda: ProposalMessage(obj),
+                    "block_part": lambda: BlockPartMessage(m.height, m.round, obj),
+                    "vote": lambda: VoteMessage(obj),
+                }[kind]()
+                cs.enqueue_nowait(kind, payload, "stubs")
+
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + PLAY_TIMEOUT_S
+
+        async def until(cond, what):
+            while not cond():
+                if loop.time() > deadline:
+                    raise TimeoutError(f"height {m.height}: {what}")
+                await asyncio.sleep(PLAY_POLL_S)
+
+        t_q = time.perf_counter()
+        await until(lambda: cs.rs.height == m.height and int(cs.rs.step) >= 3, "propose step")
+        t0 = time.perf_counter()
+        deliver("proposal", m.proposal)
+        for part in m.parts:
+            deliver("block_part", part)
+        await until(lambda: cs.rs.proposal_block is not None, "the proposal's block")
+        for v in m.prevotes:
+            deliver("vote", v)
+        n = len(m.prevotes)
+
+        def prevotes_in():
+            if cs.rs.height != m.height:
+                return True
+            return sum(v is not None for v in cs.rs.votes.prevotes(m.round).votes) == n
+
+        await until(prevotes_in, "the prevote wave")
+        t1 = time.perf_counter()
+        for v in m.precommits:
+            deliver("vote", v)
+        await until(lambda: cs.block_store.height() >= m.height, "the block stored")
+        t2 = time.perf_counter()
+        return {"queued": t0 - t_q, "prevotes_in": t1 - t0, "stored": t2 - t0}

@@ -2,9 +2,9 @@
 
 A copy of the portable paths of the JAX package's ``utils/codec.py``:
 block ID, header, commit sig, commit, extended commit, block, vote,
-validator and validator set, in the same proto wire format and field
-numbers, so bytes written by one package decode in the other. The
-native wirecodec is not loaded and proposals are not ported. Evidence
+validator and validator set, and proposal, in the same proto wire
+format and field numbers, so bytes written by one package decode in
+the other. The native wirecodec is not loaded. Evidence
 has its own encoding (``evidence/types.py``), but blocks that carry
 it wait for the evidence pool: ``decode_block`` refuses them.
 """
@@ -31,7 +31,7 @@ from ..types.block import (
     PartSetHeader,
 )
 from ..types.validator_set import Validator, ValidatorSet
-from ..types.vote import Vote
+from ..types.vote import Proposal, Vote
 from . import proto
 
 # --- pubkeys ------------------------------------------------------------
@@ -381,6 +381,31 @@ def decode_vote(b: bytes) -> Vote:
         signature=proto.get1(m, 8, b""),
         extension=proto.get1(m, 9, b""),
         extension_signature=proto.get1(m, 10, b""),
+    )
+
+
+def encode_proposal(p: Proposal) -> bytes:
+    return b"".join(
+        [
+            proto.field_varint(1, p.height),
+            proto.field_varint(2, p.round),
+            proto.field_varint(3, p.pol_round + 2),  # offset: -1 realizable
+            proto.field_message(4, p.block_id.encode()),
+            proto.field_message(5, proto.timestamp(p.timestamp_ns)),
+            proto.field_bytes(6, p.signature),
+        ]
+    )
+
+
+def decode_proposal(b: bytes) -> Proposal:
+    m = proto.parse(b)
+    return Proposal(
+        height=proto.get1(m, 1, 0),
+        round=proto.get1(m, 2, 0),
+        pol_round=proto.get1(m, 3, 2) - 2,
+        block_id=decode_block_id(proto.get1(m, 4, b"")),
+        timestamp_ns=proto.parse_timestamp(proto.get1(m, 5, b"")),
+        signature=proto.get1(m, 6, b""),
     )
 
 

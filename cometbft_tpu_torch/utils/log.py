@@ -1,22 +1,74 @@
-"""Module-scoped logfmt error records.
+"""Module-scoped logfmt records with levels and lazy values.
 
-The part of the JAX package's ``utils/log.py`` that the port uses: the
-verify scheduler and the vote coalescer report a failed dispatch, and
-the blocksync reactor a refused block, as one logfmt line on stderr
-(``ts=... level=error module=crypto.sched msg="..." lanes=150``).
+The part of the JAX package's ``utils/log.py`` that the port uses: one
+logfmt line on stderr per record (``ts=... level=error
+module=crypto.sched msg="..." lanes=150``), a level chosen globally and
+per module (``set_level("consensus:debug,*:info")``, or the
+``CMT_LOG_LEVEL`` environment variable; default ``info``), and
+:class:`Lazy` values rendered only when a record is written. Bound
+fields and a pluggable writer are not ported.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import threading
 import time
-from typing import Any
+from typing import Any, Callable, Dict
+
+DEBUG, INFO, ERROR, NONE = 10, 20, 40, 100
+_LEVEL_NAMES = {DEBUG: "debug", INFO: "info", ERROR: "error"}
+_NAME_LEVELS = {"debug": DEBUG, "info": INFO, "error": ERROR, "none": NONE}
 
 _lock = threading.Lock()
+_global_level = _NAME_LEVELS.get(os.environ.get("CMT_LOG_LEVEL", "info").lower(), INFO)
+_module_levels: Dict[str, int] = {}
+
+
+class Lazy:
+    """Defers a value until (and unless) the record is written."""
+
+    __slots__ = ("_fn",)
+
+    def __init__(self, fn: Callable[[], Any]):
+        self._fn = fn
+
+    def render(self) -> Any:
+        try:
+            return self._fn()
+        except Exception as e:  # a log value must never raise
+            return f"<lazy error: {e}>"
+
+
+def set_level(spec: str) -> None:
+    """``"info"`` or ``"consensus:debug,blocksync:error,*:info"``.
+    Unknown names raise ValueError."""
+    global _global_level
+    mods: Dict[str, int] = {}
+    glob = None
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        mod, name = part.rsplit(":", 1) if ":" in part else ("*", part)
+        name = name.strip().lower()
+        if name not in _NAME_LEVELS:
+            raise ValueError(f"unknown log level {name!r}")
+        if mod.strip() in ("*", ""):
+            glob = _NAME_LEVELS[name]
+        else:
+            mods[mod.strip()] = _NAME_LEVELS[name]
+    with _lock:
+        _module_levels.clear()
+        _module_levels.update(mods)
+        if glob is not None:
+            _global_level = glob
 
 
 def _quote(v: Any) -> str:
+    if isinstance(v, Lazy):
+        v = v.render()
     s = f"{v:.6g}" if isinstance(v, float) else str(v)
     if any(c in s for c in ' "=\n'):
         s = '"' + s.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n") + '"'
@@ -30,16 +82,21 @@ class Logger:
         self.module = module
 
     def error(self, msg: str, **fields: Any) -> None:
-        self._write("error", msg, fields)
+        self._write(ERROR, msg, fields)
 
     def info(self, msg: str, **fields: Any) -> None:
-        self._write("info", msg, fields)
+        self._write(INFO, msg, fields)
 
-    def _write(self, level: str, msg: str, fields) -> None:
+    def debug(self, msg: str, **fields: Any) -> None:
+        self._write(DEBUG, msg, fields)
+
+    def _write(self, level: int, msg: str, fields) -> None:
+        if level < _module_levels.get(self.module, _global_level):
+            return
         now = time.time()
         line = (
             f"ts={time.strftime('%Y-%m-%dT%H:%M:%S', time.gmtime(now))}"
-            f".{int(now * 1000) % 1000:03d}Z level={level} module={self.module}"
+            f".{int(now * 1000) % 1000:03d}Z level={_LEVEL_NAMES[level]} module={self.module}"
             f" msg={_quote(msg)}"
             + "".join(f" {k}={_quote(v)}" for k, v in fields.items())
             + "\n"

@@ -106,6 +106,14 @@ def read_varint(buf: bytes, pos: int):
     return out, pos
 
 
+def read_delimited(buf: bytes, pos: int = 0):
+    """Inverse of delimited(): returns (payload, new_pos)."""
+    ln, pos = read_varint(buf, pos)
+    if ln < 0 or pos + ln > len(buf):
+        raise ValueError("truncated delimited message")
+    return bytes(buf[pos : pos + ln]), pos + ln
+
+
 def parse(buf: bytes):
     """Parse a message into {field: [value, ...]} in wire order:
     varint and fixed fields as int, length-delimited ones as bytes."""

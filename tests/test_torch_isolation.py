@@ -10,7 +10,12 @@
   which builds one), ``BlockExecutor.validate_block`` and
   ``BlockSyncReactor``, and the light client's: ``Client``,
   ``verifier.verify_adjacent``, ``verifier.verify_non_adjacent`` and
-  ``detector.check_against_witnesses``.
+  ``detector.check_against_witnesses``, and consensus's:
+  ``ConsensusState``, ``build_node`` with a signer, a config and a WAL,
+  and the adaptive-sync ingestor path (``BlockSyncReactor`` with a
+  ``block_ingestor``), which on ``device="cpu"`` ingests a chain into
+  a started state machine. ``LocalNet`` takes built nodes, so it runs
+  where they were built.
 """
 
 import subprocess
@@ -54,7 +59,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 67, proc.stdout
+    assert n_modules >= 80, proc.stdout
 
 
 def test_entry_points_raise_without_a_gpu():
@@ -146,9 +151,6 @@ def test_replay_entry_points_raise_without_a_gpu(no_gpu):
     node = build_node(gen, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BlockSyncReactor(node.state, node.block_exec, node.block_store)
-    with pytest.raises(NotImplementedError, match="ingestor"):
-        BlockSyncReactor(node.state, node.block_exec, node.block_store,
-                         block_ingestor=object(), device="cpu")
     gpu_exec = BlockExecutor(node.state_store, node.proxy.consensus, node.mempool)
     block2 = src.block_store.load_block(2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -190,3 +192,48 @@ def test_light_entry_points_raise_without_a_gpu(no_gpu):
     check_against_witnesses(client, lb4, device="cpu")
     assert client.verify_light_block_at_height(4).hash() == lb4.hash()
     assert client.witnesses == [provider]
+
+
+def test_consensus_entry_points_raise_without_a_gpu(no_gpu, tmp_path):
+    import asyncio
+
+    from cometbft_tpu_torch.blocksync.reactor import BlockSyncReactor
+    from cometbft_tpu_torch.config.config import test_config as make_test_cfg
+    from cometbft_tpu_torch.consensus.state import ConsensusState
+    from cometbft_tpu_torch.node.inprocess import build_node, make_genesis, make_privvals
+    from cometbft_tpu_torch.utils.chaingen import StorePeerClient, make_chain
+
+    gen, privs = make_genesis(2, chain_id="iso-cs")
+    pvs = make_privvals(privs, root=str(tmp_path))
+    cfg = make_test_cfg(str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_node(gen, privval=pvs[0], config=cfg, home=str(tmp_path), wal=True)
+    node = build_node(gen, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ConsensusState(cfg.consensus, node.state, node.block_exec, node.block_store, node.mempool)
+    assert node.cs.device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BlockSyncReactor(node.state, node.block_exec, node.block_store, block_ingestor=node.cs)
+    # on the CPU the ingestor path runs: every block through consensus
+    src = make_chain(gen, privs, 6, device="cpu")
+
+    async def main():
+        await node.cs.start()
+        ingested = []
+        real = node.cs.ingest_verified_block
+        node.cs.ingest_verified_block = lambda b, p, c: (ingested.append(b.height), real(b, p, c))[1]
+        caught = asyncio.Event()
+        r = BlockSyncReactor(node.state, node.block_exec, node.block_store,
+                             on_caught_up=lambda st: caught.set(), block_ingestor=node.cs,
+                             device="cpu")
+        r.pool.set_peer_range("src", StorePeerClient(src), 1, 6)
+        await r.start()
+        await asyncio.wait_for(caught.wait(), 60)
+        await r.stop()
+        await node.cs.stop()
+        return ingested, r
+
+    ingested, r = asyncio.run(asyncio.wait_for(main(), 90))
+    assert ingested == list(range(1, len(ingested) + 1)) and len(ingested) >= 4
+    assert node.cs.rs.height == ingested[-1] + 1 and r.loop_errors.count == 0
+    assert node.block_store.load_block_meta(4).block_id == src.block_store.load_block_meta(4).block_id

@@ -135,3 +135,105 @@ def test_failing_card_backs_off_and_recovers(monkeypatch, capsys):
     assert capsys.readouterr().err.count("DeviceRouteError: verify route failed") == 1
     # the failing route raised; no window went to the host plane instead
     assert stats["degraded"] == N_FAILS and stats["host_chunks"] == 0
+
+
+def _extension_chain():
+    """A chain with vote extensions on from height 1, made by the
+    port's 4-node ``LocalNet`` on the CPU: every height's extended
+    commit signed by the validators' own consensus rounds."""
+    from cometbft_tpu_torch.node.inprocess import LocalNet, make_privvals
+
+    async def main():
+        gen, privs = make_genesis(4, chain_id="c7-ext", seed=5)
+        gen.consensus_params.abci.vote_extensions_enable_height = 1
+        nodes = [build_node(gen, privval=p, device=CPU) for p in make_privvals(privs)]
+        net = LocalNet(nodes)
+        await net.start()
+        await net.wait_for_height(EXT_HEIGHTS, timeout=60)
+        await net.stop()
+        return gen, nodes[0]
+
+    return asyncio.run(asyncio.wait_for(main(), 120))
+
+
+EXT_HEIGHTS = 8
+
+
+def test_failed_route_in_the_extended_commit_check_is_no_verdict(monkeypatch):
+    """C7: a stand-in card that fails every dispatch carrying extension
+    lanes (the commits' own lanes pass) makes ``_check_extended_commit``
+    raise a ``DeviceRouteError``. It reaches the pool routine as it is:
+    counted, with no refetch, no ban and nothing stored. With the card
+    working, the same replay applies every height and stores every
+    extended commit."""
+    gen, src = _extension_chain()
+    top = src.block_store.height()
+    assert all(src.block_store.load_extended_commit(h) for h in range(1, top + 1))
+    real_async = ops_ed.verify_batch_async
+    card = {"fail": True, "failed": 0}
+
+    def dispatch(items, device=None, precomp=None):
+        if card["fail"] and any(b"ext|" in it[0] for it in items):
+            card["failed"] += 1
+            raise RuntimeError(CUDA_ERROR)
+        return real_async(items, device=device, precomp=precomp)
+
+    monkeypatch.setattr(ops_ed, "verify_batch_async", dispatch)
+    crypto_batch.set_min_device_batch(1)
+    sched = sched_mod.VerifyScheduler()
+    sched_mod.set_scheduler(sched)
+
+    async def replay(wait_errors):
+        fresh = build_node(gen, device=CPU)
+        caught = asyncio.Event()
+        reactor = BlockSyncReactor(
+            fresh.state,
+            fresh.block_exec,
+            fresh.block_store,
+            on_caught_up=lambda st: caught.set(),
+            verify_window=4,
+            device=CPU,
+        )
+        pool = reactor.pool
+        redos = []
+        real_redo = pool.redo_request
+
+        def redo(height, ban_peer):
+            redos.append((height, ban_peer))
+            real_redo(height, ban_peer)
+
+        pool.redo_request = redo
+        pool.set_peer_range("src", StorePeerClient(src), 1, top)
+        await reactor.start()
+        loop = asyncio.get_running_loop()
+        if wait_errors:
+            deadline = loop.time() + 60
+            while reactor.loop_errors.count < wait_errors:
+                assert loop.time() < deadline, reactor.loop_errors
+                await asyncio.sleep(0.01)
+        else:
+            await asyncio.wait_for(caught.wait(), 60)
+        banned = sorted(pool.banned_peers())
+        await reactor.stop()
+        return fresh, reactor, redos, banned
+
+    try:
+        fresh, reactor, redos, banned = asyncio.run(replay(3))
+        assert card["failed"] >= 3
+        kept = reactor.loop_errors.kept()
+        assert kept and all(
+            isinstance(e, DeviceRouteError) and isinstance(e.__cause__, RuntimeError) for e in kept
+        )
+        assert redos == [] and banned == []
+        assert fresh.block_store.height() == 0 and reactor.blocks_applied == 0
+        assert all(fresh.block_store.load_extended_commit(h) is None for h in range(1, top + 1))
+
+        card["fail"] = False
+        fresh, reactor, redos, banned = asyncio.run(replay(0))
+        assert reactor.loop_errors.count == 0 and redos == [] and banned == []
+        assert fresh.block_store.height() >= top - 2
+        for h in range(1, fresh.block_store.height() + 1):
+            assert fresh.block_store.load_extended_commit(h) == src.block_store.load_extended_commit(h), h
+            assert fresh.block_store.load_block_meta(h).block_id == src.block_store.load_block_meta(h).block_id
+    finally:
+        sched.close()
