@@ -119,6 +119,44 @@ Phases, each printing one JSON line:
    its ticket's label (live_max_abs_err, one entry each), with its
    device time and bound at the prevote wave's width.
 
+11. network, on phase 8's corpus, over TCP loopback with secret
+   connections and MConnection at their default rates (the X25519 and
+   AEAD tiers in use on the network line): (a) four validator Nodes on
+   the card (test_config timeouts, device route pinned), each dialing
+   the others; 256 txs in at one node's mempool; the net runs to height
+   12; every node must store the same block at every height, every tx
+   be committed exactly once, and every vote wave a node's consensus
+   reactor receives go through its coalescer to the card (every
+   dispatch launching each kernel once); the median height wall and
+   the bytes each node sent and received; (b) a full-width join: a
+   serving Node with no signer whose sqlite stores hold the corpus as
+   phase 8 built it (150 validators x 1,025 blocks, copied before phase
+   10 extends it), and a fresh joiner Node (no signer, blocksync and
+   adaptive_sync on, device route pinned) that dials it and pulls the
+   blocks through its BlockSyncNetReactor's NetPeerClient; every block
+   must enter the joiner's started ConsensusState through
+   ingest_verified_block, block 1,025 from the serving node's consensus
+   reactor as a CommitBlock catch-up (a 150-lane PRIORITY_LIVE ticket),
+   every state row and block ID equal the source's; blocks/s to the
+   last ingest (beside phases 8 and 10a of the run:
+   beside_blocks_per_s), bytes on the wire per block and the span
+   split; (c) the serving node stopped, a StubPeer
+   (utils.chaingen) dials the joiner and plays the 150 validators for
+   eight heights over the wire (skip_timeout_commit; the reactor's
+   default wave rule: a wave goes once all its votes are in, or a
+   grace after +2/3): each prevote and precommit wave must arrive
+   through ConsensusReactor.receive and be one 150-lane PRIORITY_LIVE
+   ticket on the card, dispatched by the reactor's coalescer (its
+   wave_log says how each closed), each height store
+   the stubs' block with the shadow chain's state, and the fourth
+   height's forged precommit be dropped while the height commits on
+   149; per-height walls from the proposal's send to the stored block,
+   beside phase 10c's median (beside_commit_wall_median_s); (d) eight more heights unforced, with the route
+   of each ticket. The kernels line adds net_launches (11a / 11b / 11c)
+   and each kernel against its plain version on 11c's first prevote
+   wave and the forged height's precommit wave (net_max_abs_err), with
+   its device time and bound at the prevote wave's width.
+
 The line before last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result line. Needs no network; exits non-zero without a GPU or
@@ -175,6 +213,16 @@ LIVE_HEIGHTS = 8
 N_VALS_LIVE = REPLAY_VALS
 LIVE_FORGE_AT = 3  # the fourth live height
 LIVE_FORGE_LANE = 17
+# phase 11: the network. (a) four validators to height 12 with 256 txs;
+# (b) the join over TCP of phase 8's corpus; (c) live heights from the
+# stub peer over the wire, one with a forged precommit, at the node's
+# default configuration
+NET_VALS = 4
+NET_TXS = 256
+NET_HEIGHTS = 12
+NET_LIVE_HEIGHTS = 8
+NET_FORGE_AT = 3  # the fourth live height
+NET_DEADLINE_S = 300
 
 # card peaks: HBM bytes/s from the H100 SXM data sheet; 32-bit integer
 # results per clock per SM on sm_90 (IMAD, IADD, LOP, shifts: 64, the
@@ -215,7 +263,13 @@ SOURCES = {
 }
 
 
+# every phase line printed so far, by phase: later phases report
+# theirs beside earlier ones of the same run
+EMITTED: dict = {}
+
+
 def emit(phase: str, **kw) -> None:
+    EMITTED[phase] = kw
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
@@ -1460,6 +1514,395 @@ def phase_consensus(dev, gen, privs, src, src_rows):
     return launches_a, launches_c, live_items, handoff_items
 
 
+# --- phase 11: network ----------------------------------------------------------
+
+
+def corpus_snapshot(src) -> tuple:
+    """The corpus node's store contents (block store, state store), for
+    phase 11's serving node: phase 10 extends the corpus."""
+    return list(src.block_db.iter_prefix(b"")), list(src.state_db.iter_prefix(b""))
+
+
+def _sqlite_home(home, snapshot) -> None:
+    """A node home whose sqlite stores hold ``snapshot``."""
+    import shutil
+
+    from cometbft_tpu_torch.utils import kv
+
+    shutil.rmtree(home, ignore_errors=True)
+    os.makedirs(home)
+    for name, items in zip(("blockstore.db", "state.db"), snapshot):
+        db = kv.open_kv("sqlite", os.path.join(home, name))
+        db.write_batch(items)
+        db.close()
+
+
+def _peer_bytes(node) -> dict:
+    """What a node's peers carried: "sent" counts sealed frames on the
+    wire (1,040 bytes each), "received" the frames' payloads plus their
+    16-byte tags, as MConnection's rate limiters count them."""
+    peers = list(node.switch.peers.values())
+    return {"sent": sum(p.send_total for p in peers), "received": sum(p.recv_total for p in peers),
+            "peers": len(peers)}
+
+
+def phase_network(dev, gen, privs, snapshot, top, src_rows):
+    """Phase 11: (a) a four-validator net of Nodes over TCP, (b) the
+    join of phase 8's corpus over TCP into an adaptive-sync Node, (c)
+    eight live heights played over the wire by the stub peer with the
+    device route pinned, one with a forged precommit, (d) eight more
+    unforced. Returns the launches of (a), (b) and (c) and, for phase
+    6, the kernel items of (c)'s first prevote wave and of the forged
+    height's precommit wave."""
+    import asyncio
+    import shutil
+    from collections import defaultdict
+
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.blocksync.reactor import VERIFY_WINDOW
+    from cometbft_tpu_torch.config.config import test_config
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import chacha20poly1305 as aead
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.crypto import x25519
+    from cometbft_tpu_torch.node.inprocess import build_node, make_genesis, make_privvals
+    from cometbft_tpu_torch.node.node import Node
+    from cometbft_tpu_torch.trace import Tracer
+    from cometbft_tpu_torch.utils import log
+    from cometbft_tpu_torch.utils.chaingen import StubPeer, ValidatorStubs
+
+    n_vals = len(privs)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "network")
+    shutil.rmtree(root, ignore_errors=True)
+    floor = batch._MIN_DEVICE_BATCH
+    sched = S.VerifyScheduler()
+    S.set_scheduler(sched)
+    log.set_level("consensus:error,p2p:error,blocksync:error,*:info")
+    loop = asyncio.new_event_loop()
+    nodes = []  # every Node started here, stopped in the finally
+    out = {}
+    tiers = {"x25519": x25519.TIER, "aead": aead.TIER}
+
+    async def until(cond, what, timeout=NET_DEADLINE_S, poll=0.005):
+        deadline = asyncio.get_running_loop().time() + timeout
+        while not cond():
+            check(asyncio.get_running_loop().time() < deadline, f"timed out: {what}")
+            await asyncio.sleep(poll)
+
+    def config(home, moniker, **kw):
+        cfg = test_config(home)
+        cfg.base.moniker = moniker
+        cfg.blocksync.enable = False
+        for k, v in kw.items():
+            sec, _, name = k.partition("__")
+            setattr(getattr(cfg, sec), name, v)
+        return cfg
+
+    async def net4():
+        g4, k4 = make_genesis(NET_VALS, chain_id="smoke-net", seed=SEED)
+        pv_root = os.path.join(root, "pv")
+        os.makedirs(pv_root)
+        pvs = make_privvals(k4, root=pv_root)
+        net = [Node(config(".", f"net{i}"), g4, privval=pv, device=dev) for i, pv in enumerate(pvs)]
+        nodes.extend(net)
+        for n in net:
+            await n.start()
+        for i, a in enumerate(net):
+            for b in net[i + 1:]:
+                await a.dial(b.listen_addr)
+        await until(lambda: all(n.switch.num_peers() == NET_VALS - 1 for n in net), "the full mesh")
+        txs = [b"net%03d=v%03d" % (i, i) for i in range(NET_TXS)]
+        check(all(net[0].parts.mempool.check_tx(tx).is_ok() for tx in txs), "a tx was refused")
+        seen = {}  # height -> first time node 0 stored it
+        t0 = time.perf_counter()
+
+        def progressed():
+            h = net[0].height
+            if h and h not in seen:
+                seen[h] = time.perf_counter()
+            return all(n.height >= NET_HEIGHTS for n in net)
+
+        await until(progressed, f"height {NET_HEIGHTS}")
+        wall = time.perf_counter() - t0
+        committed = [tx for h in range(1, net[0].height + 1) for tx in net[0].parts.block_store.load_block(h).data.txs]
+        bytes_ = {n.config.base.moniker: _peer_bytes(n) for n in net}
+        for h in range(1, NET_HEIGHTS + 1):
+            check(len({n.block_id_hash_at(h) for n in net}) == 1, f"net: nodes differ at height {h}")
+        for n in net:
+            await n.stop()
+            nodes.remove(n)
+        waves = {n.config.base.moniker: n.consensus_reactor.vote_verifier.dispatches for n in net}
+        closes = {n.config.base.moniker: [e[3] for e in n.consensus_reactor.wave_log] for n in net}
+        errors = sum(n.parts.cs.loop_errors.count for n in net)
+        hs = sorted(seen)
+        walls = [seen[b] - seen[a] for a, b in zip(hs, hs[1:]) if b == a + 1]
+        return {"committed": committed, "txs": txs, "wall_s": wall, "height_walls_s": walls,
+                "bytes": bytes_, "reactor_waves": waves, "wave_closes": closes, "loop_errors": errors,
+                "heights": net[0].height}
+
+    spans = defaultdict(lambda: [0, 0.0])
+
+    def observe(name, dur_ns, args):
+        spans[name][0] += 1
+        spans[name][1] += dur_ns / 1e6
+        if name == "consensus.finalize":
+            for k in ("persist_ms", "wal_ms", "apply_ms"):
+                spans[f"consensus.finalize.{k[:-3]}"][0] += 1
+                spans[f"consensus.finalize.{k[:-3]}"][1] += args[k]
+
+    serve_home = os.path.join(root, "serve")
+    serve_cfg = config(serve_home, "serve", base__db_backend="sqlite")
+    join_cfg = config(os.path.join(root, "join"), "join", blocksync__enable=True,
+                      blocksync__adaptive_sync=True, consensus__skip_timeout_commit=True,
+                      consensus__timeout_propose_s=30.0)
+    rows: dict = {}
+    stamp: dict = {}
+    ingested = []  # (height, through a CommitBlock)
+    joiner = {}
+
+    async def join():
+        _sqlite_home(serve_home, snapshot)
+        serving = Node(serve_cfg, gen, home=serve_home, device=dev)
+        check(serving.height == top, f"serving node at {serving.height}")
+        nodes.append(serving)
+        await serving.start()
+        node = Node(join_cfg, gen, home=join_cfg.root_dir, device=dev)
+        nodes.append(node)
+        joiner["node"] = node
+        cs = node.parts.cs
+        _record_states(node.parts, rows, stamp)
+        real_ingest, real_cb = cs.ingest_verified_block, cs._handle_commit_block
+        in_cb = []
+
+        def ingest(block, parts, commit):
+            ingested.append((block.height, bool(in_cb)))
+            return real_ingest(block, parts, commit)
+
+        def commit_block(payload, peer_id):
+            in_cb.append(1)
+            try:
+                return real_cb(payload, peer_id)
+            finally:
+                in_cb.pop()
+
+        cs.ingest_verified_block, cs._handle_commit_block = ingest, commit_block
+        tracer = Tracer(name="join")
+        tracer.add_observer(observe)
+        cs.tracer = tracer
+        node.blocksync_reactor.inner.tracer = tracer
+        await node.start()
+        t0 = time.perf_counter()
+        await node.dial(serving.listen_addr)
+        await until(lambda: cs.rs.height > top, f"the joiner at {top + 1}")
+        wall = time.perf_counter() - t0
+        await asyncio.sleep(0.2)  # the last acknowledgements
+        got, served = _peer_bytes(node), _peer_bytes(serving)
+        await serving.stop()
+        nodes.remove(serving)
+        return t0, wall, got, served
+
+    sent = {}  # height -> (prevote sign bytes, precommit sign bytes, forged signatures)
+
+    async def live(stubs, stub, heights, forge_at=None):
+        node = joiner["node"]
+        cs = node.parts.cs
+        res = []
+        for h in heights:
+            stubs.shadow.mempool.check_tx(b"net%d=v%d" % (h, h))
+            m = stubs.messages(h, forge=(LIVE_FORGE_LANE,) if h == forge_at else ())
+            sent[h] = (m.prevotes[0].sign_bytes(gen.chain_id), m.precommits[0].sign_bytes(gen.chain_id),
+                       [m.precommits[i].signature for i in m.forged])
+            walls = await stubs.play_height(cs, m, deliver=stub.deliver_for(m))
+            stubs.finish(m)
+            await until(lambda: sum(v is not None for v in cs.rs.last_commit.votes) >= n_vals - len(m.forged),
+                        f"height {h}: late precommits", timeout=30)
+            check(node.parts.block_store.load_block_meta(h).block_id
+                  == stubs.shadow.block_store.load_block_meta(h).block_id,
+                  f"height {h}: the stored block is not the stubs'")
+            check(rows[h] == _state_row(stubs.shadow.state), f"height {h}: state differs from the shadow chain")
+            seen = node.parts.block_store.load_seen_commit(h)
+            res.append({"height": h, "walls_s": walls,
+                        "precommits_in": sum(v is not None for v in cs.rs.last_commit.votes),
+                        "seen_commit_signatures": sum(not c.is_absent() for c in seen.signatures),
+                        "forged": list(m.forged)})
+            if m.forged:
+                i = m.forged[0]
+                check(cs.rs.last_commit.votes[i] is None, f"height {h}: the forged precommit was added")
+                check(seen.signatures[i].signature != m.precommits[i].signature,
+                      f"height {h}: the forged signature is in the seen commit")
+        return res
+
+    stub = None
+    shadow = None
+    try:
+        batch.set_min_device_batch(1)
+        # 11a: four validators over TCP, the device route pinned
+        kernels.reset_counts()
+        with Recorder(sched) as rec:
+            a = loop.run_until_complete(net4())
+        launches_a = dict(kernels.LAUNCHES)
+        tickets = rec.rows()
+        counts = {tx: a["committed"].count(tx) for tx in a["txs"]}
+        check(all(c == 1 for c in counts.values()),
+              f"net: txs committed {sorted(set(counts.values()))} times, not once")
+        check(len(a["committed"]) == NET_TXS, f"net: {len(a['committed'])} txs committed")
+        check(a["loop_errors"] == 0, f"net: {a['loop_errors']} loop errors")
+        waves = [t for t in tickets if t[0] == "vote-wave"]
+        check(len(waves) == sum(a["reactor_waves"].values()) > 0, f"net: {len(waves)} wave tickets")
+        check(all(r == "device" and p == S.PRIORITY_LIVE for _, p, _, r, _ in waves), "net: a wave left the card")
+        check(all(r == "device" for _, _, _, r, _ in tickets), "net: a ticket left the device route")
+        check(all(d["device"] == str(dev) and all(d["launches"][k] == 1 for k in SOURCES)
+                  for d in rec.dispatches), "net: a dispatch did not launch each kernel once")
+        check(all(launches_a[k] == len(rec.dispatches) == len(tickets) for k in SOURCES),
+              f"net: launches {launches_a} against {len(tickets)} tickets")
+        out["net"] = {
+            "validators": NET_VALS, "heights": a["heights"], "txs": NET_TXS,
+            "txs_committed_once": True, "wall_s": a["wall_s"],
+            "height_wall_median_s": statistics.median(a["height_walls_s"]),
+            "height_walls_s": a["height_walls_s"], "bytes": a["bytes"], "tiers": tiers,
+            "send_rate": test_config().p2p.send_rate,
+            "tickets": len(tickets), "wave_tickets": len(waves),
+            "wave_lanes": [n for _, _, n, _, _ in waves],
+            "wave_closes": {m: {how: c.count(how) for how in ("whole", "grace")}
+                            for m, c in a["wave_closes"].items()},
+            "ticket_walls": {lb: ticket_walls([(n, r, w) for l2, _, n, r, w in tickets if l2 == lb])
+                             for lb in sorted({t[0] for t in tickets})},
+            "launches": launches_a,
+        }
+        emit("network_net", **out["net"])
+
+        # 11b: the join over TCP, the device route pinned
+        kernels.reset_counts()
+        with Recorder(sched) as rec:
+            t0, wall, got, served = loop.run_until_complete(join())
+        launches_b = dict(kernels.LAUNCHES)
+        tickets = rec.rows()
+        node = joiner["node"]
+        cs = node.parts.cs
+        heights = [h for h, _ in ingested]
+        check(heights == list(range(1, top + 1)), f"join: ingested {heights[:3]}...{heights[-3:]} ({len(heights)})")
+        check(sorted(rows) == heights, "join: a block was applied outside ingest_verified_block")
+        check(ingested[-1] == (top, True), f"join: block {top} did not come as a CommitBlock")
+        bad = [h for h in range(1, top + 1) if rows[h] != src_rows[h]]
+        check(not bad, f"join: state differs from the source at heights {bad[:5]}")
+        check(node.blocksync_reactor.inner.loop_errors.count == 0 and cs.loop_errors.count == 0,
+              f"join: {node.blocksync_reactor.inner.loop_errors!r} {cs.loop_errors!r}")
+        windows = [t for t in tickets if t[0] != "commit"]
+        commits = [t for t in tickets if t[0] == "commit"]
+        check(commits and commits[-1][1:4] == (S.PRIORITY_LIVE, n_vals, "device"),
+              f"join: the catch-up commit ticket {commits[-1:] }")
+        check(all(r == "device" for _, _, _, r, _ in tickets), "join: a ticket left the device route")
+        check(all(d["device"] == str(dev) and all(d["launches"][k] == 1 for k in SOURCES)
+                  for d in rec.dispatches), "join: a dispatch did not launch each kernel once")
+        check(all(launches_b[k] == len(rec.dispatches) == len(tickets) for k in SOURCES),
+              f"join: launches {launches_b} against {len(tickets)} tickets")
+        to_last = stamp["last"] - t0
+        out["join"] = {
+            "validators": n_vals, "blocks": top, "window": VERIFY_WINDOW, "route": "device (pinned)",
+            "to_last_ingest_s": to_last, "blocks_per_s": top / to_last, "wall_s": wall,
+            "beside_blocks_per_s": {ph: EMITTED.get(ph, {}).get("blocks_per_s")
+                                    for ph in ("replay", "consensus_adaptive")},
+            "through_commit_block": [h for h, cb in ingested if cb],
+            "wire_bytes_served": served["sent"], "wire_bytes_per_block": served["sent"] / top,
+            "payload_bytes_received": got["received"], "wire_bytes_sent": got["sent"],
+            "window_tickets": len(windows), "commit_tickets": len(commits),
+            "ticket_walls": {lb: ticket_walls([(n, r, w) for l2, _, n, r, w in tickets if l2 == lb])
+                             for lb in sorted({t[0] for t in tickets})},
+            "dispatch_lanes": [d["lanes"] for d in rec.dispatches],
+            "pipeline_stats": node.blocksync_reactor.inner.pipeline_stats,
+            "spans_ms": {k: v[1] for k, v in spans.items() if not k.startswith("consensus.step")},
+            "span_counts": {k: v[0] for k, v in spans.items() if not k.startswith("consensus.step")},
+            "launches": launches_b, "tiers": tiers,
+        }
+        emit("network_join", **out["join"])
+
+        # 11c: live heights over the wire, the device route pinned
+        cs.tracer = Tracer(name="join", enabled=False)
+        shadow = build_node(gen, config=serve_cfg, home=serve_home, device=dev)
+        stubs = ValidatorStubs(shadow, privs)
+        stub = StubPeer(gen.chain_id)
+        loop.run_until_complete(stub.connect(node.listen_addr))
+        loop.run_until_complete(until(lambda: node.switch.num_peers() == 1, "the stub peer"))
+        heights = list(range(top + 1, top + 1 + NET_LIVE_HEIGHTS))
+        reactor = node.consensus_reactor
+        reactor.wave_log.clear()
+        dispatched = reactor.vote_verifier.dispatches
+        kernels.reset_counts()
+        with Recorder(sched) as rec:
+            res = loop.run_until_complete(live(stubs, stub, heights, forge_at=heights[NET_FORGE_AT]))
+        launches_c = dict(kernels.LAUNCHES)
+        tickets = rec.rows()
+        closes = [e[2:] for e in reactor.wave_log]  # type, how, votes, to +2/3 s, to dispatch s
+        check(cs.loop_errors.count == 0, f"live: {cs.loop_errors!r}")
+        check(node.parts.app.app_hash == shadow.state.app_hash, "live: app hash != the shadow chain's")
+        waves = [t for t in tickets if t[0] == "vote-wave"]
+        check(len(waves) == 2 * NET_LIVE_HEIGHTS and all(
+            p == S.PRIORITY_LIVE and n == n_vals and r == "device" for _, p, n, r, _ in waves),
+            f"live: vote waves {[(lb, p, n, r) for lb, p, n, r, _ in waves]}, closed {closes}")
+        check(reactor.vote_verifier.dispatches - dispatched == len(waves),
+              f"live: {reactor.vote_verifier.dispatches - dispatched} reactor dispatches, {len(waves)} waves")
+        check(all(r == "device" and p == S.PRIORITY_LIVE for _, p, _, r, _ in tickets),
+              "live: a ticket left the device route or the live class")
+        check(all(launches_c[k] == len(tickets) == len(rec.dispatches) for k in SOURCES),
+              f"live: launches {launches_c} against {len(tickets)} tickets")
+
+        def wave_of(sb):
+            found = [w for w in rec.labelled["vote-wave"] if {m for m, _, _ in w} == {sb}]
+            check(len(found) == 1, f"live: {len(found)} vote waves sign the message")
+            return found[0]
+
+        fh = heights[NET_FORGE_AT]
+        net_items = {"prevote": wave_of(sent[heights[0]][0]), "precommit": wave_of(sent[fh][1])}
+        check(set(sent[fh][2]) <= {sig for _, _, sig in net_items["precommit"]},
+              "live: the forged precommit is not in its height's wave")
+        out["live"] = {
+            "heights": heights, "route": "device (pinned)", "per_height": res,
+            "commit_wall_s": [r["walls_s"]["stored"] for r in res],
+            "commit_wall_median_s": statistics.median(r["walls_s"]["stored"] for r in res),
+            "beside_commit_wall_median_s": EMITTED.get("consensus_live", {}).get("commit_wall_median_s"),
+            "tickets": [(lb, n, r, w) for lb, _, n, r, w in tickets],
+            "ticket_walls": {lb: ticket_walls([(n, r, w) for l2, _, n, r, w in tickets if l2 == lb])
+                             for lb in sorted({t[0] for t in tickets})},
+            "wave_closes": closes,
+            "stub_bytes_sent": stub.bytes_sent, "launches": launches_c,
+        }
+        emit("network_live", **out["live"])
+
+        # 11d: eight more heights, unforced, routed by the calibration
+        batch.set_min_device_batch(floor)
+        batch.calibration = batch._Calibration()
+        heights = list(range(heights[-1] + 1, heights[-1] + 1 + NET_LIVE_HEIGHTS))
+        reactor.wave_log.clear()
+        with Recorder(sched) as rec:
+            res = loop.run_until_complete(live(stubs, stub, heights))
+        tickets = rec.rows()
+        check(cs.loop_errors.count == 0 and node.parts.app.app_hash == shadow.state.app_hash,
+              "unforced live: errors or app hash")
+        out["live_unforced"] = {
+            "heights": heights,
+            "ticket_routes": "".join(r[0] for _, _, _, r, _ in tickets),
+            "ticket_labels": [lb for lb, _, _, _, _ in tickets],
+            "commit_wall_s": [r["walls_s"]["stored"] for r in res],
+            "wave_closes": [e[2:] for e in reactor.wave_log],
+            "learned": batch.calibration.snapshot(),
+        }
+        emit("network_live_unforced", **out["live_unforced"])
+    finally:
+        batch.set_min_device_batch(floor)
+        log.set_level("info")
+        if stub is not None:
+            loop.run_until_complete(stub.stop())
+        for n in nodes:
+            loop.run_until_complete(n.stop())
+        loop.close()
+        S.set_scheduler(None)
+        sched.close()
+        if shadow is not None:
+            shadow.close_stores()
+        shutil.rmtree(root, ignore_errors=True)
+    return {"11a": launches_a, "11b": launches_b, "11c": launches_c}, net_items
+
+
 def _wal_files(path):
     from cometbft_tpu_torch.consensus.wal import _group_files
 
@@ -1665,7 +2108,11 @@ def main(argv) -> int:
                               pinned)
     replay_launches, replay_items, corpus = phase_replay(dev)
     bisect_launches, bisect_items = phase_bisect(dev)
+    # phase 11 serves the corpus as phase 8 built it: phase 10 extends it
+    gen, privs, src, src_rows = corpus
+    net_corpus = (corpus_snapshot(src), src.block_store.height(), dict(src_rows))
     ingest_launches, live_launches, live_items, handoff_items = phase_consensus(dev, *corpus)
+    net_launches, net_items = phase_network(dev, gen, privs, *net_corpus)
 
     # phase 6: each kernel against its plain version on the main paths'
     # own inputs (the window's lanes and the commit's; the replay's and
@@ -1691,11 +2138,18 @@ def main(argv) -> int:
     wave_calls = {k: stage_calls(xw) for k, xw in x_waves.items()}
     live_errs = {k: compare(c) for k, c in wave_calls.items()}
     x_live, live_calls = x_waves["prevote"], wave_calls["prevote"]
+    # phase 11's own inputs: the first prevote wave received over the
+    # wire and the forged height's precommit wave; timed at the prevote
+    x_net = {k: kernel_inputs(its, dev) for k, its in net_items.items()}
+    net_calls = {k: stage_calls(xn) for k, xn in x_net.items()}
+    net_errs = {k: compare(c) for k, c in net_calls.items()}
+    x_netp, netp_calls = x_net["prevote"], net_calls["prevote"]
     emit("main_path_vs_plain", lanes=x["n"], commit_lanes=x_commit["n"],
          replay_lanes=list(x_replay), bisect_lanes=list(x_bisect),
-         live_lanes={k: xw["n"] for k, xw in x_waves.items()}, equal=True, max_abs_err=errs,
+         live_lanes={k: xw["n"] for k, xw in x_waves.items()},
+         net_lanes={k: xn["n"] for k, xn in x_net.items()}, equal=True, max_abs_err=errs,
          commit_max_abs_err=commit_errs, replay_max_abs_err=replay_errs,
-         bisect_max_abs_err=bisect_errs, live_max_abs_err=live_errs)
+         bisect_max_abs_err=bisect_errs, live_max_abs_err=live_errs, net_max_abs_err=net_errs)
     rows = []
     for name in ("ladder", "decompress", "hash_digits"):
         f, plain = calls[name]
@@ -1704,12 +2158,14 @@ def main(argv) -> int:
         replay_err = max(e[k] for e in replay_errs.values() for k in parts)
         bisect_err = max(e[k] for e in bisect_errs.values() for k in parts)
         live_err = {w: max(e[k] for k in parts) for w, e in live_errs.items()}
+        net_err = {w: max(e[k] for k in parts) for w, e in net_errs.items()}
         err = max(max(errs[k], commit_errs[k]) for k in parts)
         b_ms, b_by = bound(name, x, int_rate)
         bc_ms, bc_by = bound(name, x_commit, int_rate)
         br_ms, br_by = bound(name, x_replay[n_wide], int_rate)
         bs_ms, bs_by = bound(name, x_bisect[b_wide], int_rate)
         bl_ms, bl_by = bound(name, x_live, int_rate)
+        bn_ms, bn_by = bound(name, x_netp, int_rate)
         bb_ms, bb_by = bound(name, x_bulk, int_rate)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -1717,7 +2173,9 @@ def main(argv) -> int:
             "pinned_launches": pinned[name], "replay_launches": replay_launches[name],
             "bisect_launches": bisect_launches[name],
             "ingest_launches": ingest_launches[name], "live_launches": live_launches[name],
-            "max_abs_err": max(err, replay_err, bisect_err, *live_err.values()), "tolerance": 0,
+            "net_launches": {ph: ls[name] for ph, ls in net_launches.items()},
+            "max_abs_err": max(err, replay_err, bisect_err, *live_err.values(), *net_err.values()),
+            "tolerance": 0,
             "ms": graph_ms(f), "call_ms": cuda_ms(f, 20),
             "plain_ms": cuda_ms(plain, 2, warm=0), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
@@ -1739,6 +2197,12 @@ def main(argv) -> int:
             "live_call_ms": cuda_ms(live_calls[name][0], 20),
             "live_plain_ms": cuda_ms(live_calls[name][1], 2, warm=0),
             "live_bound_ms": bl_ms, "live_bound_by": bl_by,
+            "net_lanes": {w: xn["n"] for w, xn in x_net.items()},
+            "net_max_abs_err": net_err,
+            "net_ms": graph_ms(netp_calls[name][0]),
+            "net_call_ms": cuda_ms(netp_calls[name][0], 20),
+            "net_plain_ms": cuda_ms(netp_calls[name][1], 2, warm=0),
+            "net_bound_ms": bn_ms, "net_bound_by": bn_by,
             "bulk_lanes": N_BULK, "bulk_ms": bulk_ms[name], "bulk_call_ms": bulk_call_ms[name],
             "bulk_bound_ms": bb_ms, "bulk_bound_by": bb_by,
             "bulk_max_abs_err": max(bulk_errs[k] for k in parts),

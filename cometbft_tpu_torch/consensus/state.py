@@ -29,7 +29,7 @@ a verdict — the coalescer's callback drops the vote as forged,
 ``_enter_precommit`` vote nil — a ``crypto.scheduler.DeviceRouteError``
 (a verify route that failed, with no verdict on any lane) is raised
 instead, with the round step put back as it was; the receive routine
-counts it in ``loop_errors`` (the blocksync reactor's ``LoopErrors``)
+counts it in ``loop_errors`` (``utils.loop_errors.LoopErrors``)
 and goes on, as does the coalescer's callback when the vote it adds
 leads to a failed check. It never falls back to the host. A propose
 timeout or a re-sent part retries the prevote's check, the
@@ -46,7 +46,6 @@ import traceback
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
-from ..blocksync.reactor import LoopErrors
 from ..config import ConsensusConfig
 from ..crypto.scheduler import DeviceRouteError
 from ..device import resolve
@@ -63,6 +62,7 @@ from ..types.vote_set import ErrVoteConflictingVotes
 from ..utils import codec
 from ..utils.fail import fail_point
 from ..utils.log import Lazy, get_logger
+from ..utils.loop_errors import LoopErrors
 from ..utils.tasks import spawn
 from . import wal as walmod
 from .types import HeightVoteSet, RoundState, Step

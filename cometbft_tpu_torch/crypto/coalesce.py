@@ -9,7 +9,10 @@ validator, arriving in a burst) as one lane batch: requests arriving
 within ``window_s`` (or until ``max_pending``) go to the verify
 scheduler as ONE ``PRIORITY_LIVE`` ticket, each submitter getting its
 own future. Verified signatures land in the shared SignatureCache, so
-the state machine's inline re-verify is a cache hit.
+the state machine's inline re-verify is a cache hit. A signature
+submitted again while its first submission is still unresolved (a
+flood relay, a peer's gossip re-send) joins that submission's verdict
+instead of taking another lane.
 
 Departure from the JAX package (the scheduler's, see
 ``crypto/scheduler.py``): when the dispatch fails, every future of the
@@ -34,6 +37,17 @@ DEFAULT_WINDOW_S = 0.002
 DEFAULT_MAX_PENDING = 8192
 
 
+def _copy_outcome(src: asyncio.Future, dst: asyncio.Future) -> None:
+    if dst.done():
+        return
+    if src.cancelled():
+        dst.cancel()
+    elif src.exception() is not None:
+        dst.set_exception(src.exception())
+    else:
+        dst.set_result(src.result())
+
+
 class CoalescingVerifier:
     """Window-batched async verifier with per-request futures, on
     ``device`` (``None`` is the GPU and raises without one)."""
@@ -55,9 +69,12 @@ class CoalescingVerifier:
         self._pending: List[Tuple] = []
         self._timer: Optional[asyncio.Task] = None
         self._inflight: set = set()
+        # (sign_bytes, sig, pubkey) -> the first unresolved future
+        self._unresolved: dict = {}
         self.submitted = 0
         self.dispatches = 0
         self.cache_hits = 0
+        self.joined = 0
 
     def submit(self, pub_key, sign_bytes: bytes, sig: bytes) -> asyncio.Future:
         """Queue one (pubkey, sign_bytes, sig) for verification; returns
@@ -72,6 +89,15 @@ class CoalescingVerifier:
             self.cache_hits += 1
             fut.set_result(True)
             return fut
+        key = (sign_bytes, sig, pub_key.key_bytes)
+        first = self._unresolved.get(key)
+        if first is not None:
+            # already in a wave: share its verdict, or its failure
+            self.joined += 1
+            first.add_done_callback(lambda f: _copy_outcome(f, fut))
+            return fut
+        self._unresolved[key] = fut
+        fut.add_done_callback(lambda f: self._unresolved.pop(key, None))
         self._pending.append((pub_key, sign_bytes, sig, fut))
         if len(self._pending) >= self.max_pending:
             self._flush_now()
@@ -79,11 +105,19 @@ class CoalescingVerifier:
             self._timer = loop.create_task(self._window())
         return fut
 
+    def pending_count(self) -> int:
+        """Requests waiting for the next dispatch."""
+        return len(self._pending)
+
+    def _take(self) -> List[Tuple]:
+        items, self._pending = self._pending, []
+        return items
+
     def _flush_now(self) -> None:
         if self._timer is not None:
             self._timer.cancel()
             self._timer = None
-        t = asyncio.ensure_future(self._dispatch())
+        t = asyncio.ensure_future(self._dispatch(self._take()))
         self._inflight.add(t)
         t.add_done_callback(self._inflight.discard)
 
@@ -100,10 +134,9 @@ class CoalescingVerifier:
         except asyncio.CancelledError:
             return
         self._timer = None
-        await self._dispatch()
+        await self._dispatch(self._take())
 
-    async def _dispatch(self) -> None:
-        items, self._pending = self._pending, []
+    async def _dispatch(self, items: List[Tuple]) -> None:
         if not items:
             return
         self.dispatches += 1
@@ -136,6 +169,6 @@ class CoalescingVerifier:
         if self._timer is not None:
             self._timer.cancel()
             self._timer = None
-        await self._dispatch()
+        await self._dispatch(self._take())
         while self._inflight:
             await asyncio.gather(*list(self._inflight), return_exceptions=True)

@@ -58,6 +58,9 @@ class PubKey:
     def verify(self, msg: bytes, sig: bytes) -> bool:
         raise NotImplementedError
 
+    def __bytes__(self) -> bytes:
+        return self.key_bytes
+
 
 @dataclass(frozen=True)
 class Ed25519PubKey(PubKey):

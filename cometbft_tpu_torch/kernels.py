@@ -277,8 +277,12 @@ def require(t, dtype, shape) -> None:
 
 
 def require_rows(t, ld: int) -> None:
-    """Raise unless ``t`` is rows of contiguous lanes, ``ld`` apart."""
-    if t.stride(-1) != 1 or (t.dim() > 1 and t.stride(-2) != ld):
+    """Raise unless ``t`` is rows of contiguous lanes, ``ld`` apart. A
+    dimension of size 1 has no stride to check: one lane's rows, the
+    transpose of a (1, rows) array, keep the stride of its rows."""
+    if (t.size(-1) > 1 and t.stride(-1) != 1) or (
+        t.dim() > 1 and t.size(-2) > 1 and t.stride(-2) != ld
+    ):
         raise ValueError(
             f"kernel input strides {t.stride()}: want lanes contiguous, "
             f"rows {ld} apart"

@@ -9,7 +9,8 @@ a WAL on disk when ``wal=True``); ``LocalNet`` connects N nodes' state
 machines by in-memory delivery; ``make_genesis`` makes a genesis whose
 keys come from a seeded ``np.random.default_rng``, as ``bench.py``'s
 replay corpus does, and ``make_privvals`` file-backed signers over
-them. p2p, the evidence pool, the indexer, retention, snapshots and
+them. The networked node over these parts is ``node/node.py``'s
+``Node``; the evidence pool, the indexer, retention, snapshots and
 tracing are not ported.
 
 ``device`` is where the node's signature checks run: None is the GPU
@@ -113,7 +114,13 @@ def build_node(
         state = genesis.make_genesis_state()
         state_store.save(state)
     state = Handshaker(state_store, state, block_store, genesis).handshake(proxy)
-    mempool = CListMempool(proxy.mempool)
+    mempool = CListMempool(
+        proxy.mempool,
+        cache_size=config.mempool.cache_size,
+        max_tx_bytes=config.mempool.max_tx_bytes,
+        max_txs=config.mempool.size,
+        recheck=config.mempool.recheck,
+    )
     block_exec = BlockExecutor(
         state_store,
         proxy.consensus,

@@ -6,8 +6,11 @@ to the observers added with ``add_observer``; an instant is a span of
 length 0. A span ends when its ``with`` block exits or at ``end()``,
 whichever comes first. Disabled, ``span()`` returns a shared
 do-nothing span and ``complete()`` and ``instant()`` return at once,
-so call sites never branch. Timestamps are ``time.monotonic_ns``. The
-JAX package's ring buffer, snapshot and export are not ported yet.
+so call sites never branch. ``set()`` adds arguments to an open span;
+``counter()`` records a value as an instant with a ``value`` argument
+(the p2p plane's peer and reconnect counts). Timestamps are
+``time.monotonic_ns``. The JAX package's ring buffer, snapshot and
+export are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ class _NoopSpan:
 
     def __exit__(self, *exc) -> bool:
         return False
+
+    def set(self, **args) -> None:
+        pass
 
     def end(self) -> None:
         pass
@@ -51,6 +57,10 @@ class _Span:
     def __exit__(self, *exc) -> bool:
         self.end()
         return False
+
+    def set(self, **args) -> None:
+        """Add arguments to the span before it ends."""
+        self._args.update(args)
 
     def end(self) -> None:
         t0, self._t0 = self._t0, None
@@ -90,6 +100,11 @@ class Tracer:
         """Record a point event (a span of length 0)."""
         if self.enabled:
             self.complete(name, time.monotonic_ns(), 0, tid, **args)
+
+    def counter(self, name: str, value, tid: Optional[str] = None) -> None:
+        """Record a counter's value (an instant with ``value``)."""
+        if self.enabled:
+            self.complete(name, time.monotonic_ns(), 0, tid, value=value)
 
     def add_observer(self, fn: Callable) -> None:
         """fn(name, dur_ns, args) on every completed span."""

@@ -12,18 +12,33 @@ sets that rotate by epoch, the shape of BASELINE config 4's bisection
 plays a chain's validators against a node's consensus state machine
 (reference consensus/common_test.go ``validatorStub`` and
 ``signAddVotes``): a test harness, not a feature of the node.
+``StubPeer`` carries the stubs' messages to a node over the wire: a
+p2p switch with a harness reactor on the consensus channels, which
+sends each message encoded by the consensus reactor's own codec.
 """
 
 from __future__ import annotations
 
 import asyncio
+import struct
 import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
+from ..config.config import P2PConfig
+from ..consensus.reactor import (
+    DATA_CHANNEL,
+    MSG_HAS_VOTE,
+    VOTE_CHANNEL,
+    ConsensusReactor,
+    encode_block_part_msg,
+    encode_proposal_msg,
+    encode_vote_msg,
+)
 from ..light.provider import Provider
 from ..light.types import LightBlock
 from ..node.inprocess import NodeParts, build_node
+from ..p2p import NodeInfo, NodeKey, Reactor, Switch, TCPTransport
 from ..types.block import BLOCK_ID_FLAG_COMMIT, BlockID, Commit, CommitSig, Header, PartSetHeader
 from ..types.genesis import GenesisDoc
 from ..types.validator_set import Validator, ValidatorSet
@@ -391,3 +406,93 @@ class ValidatorStubs:
         await until(lambda: cs.block_store.height() >= m.height, "the block stored")
         t2 = time.perf_counter()
         return {"queued": t0 - t_q, "prevotes_in": t1 - t0, "stored": t2 - t0}
+
+
+class StubConsensusReactor(Reactor):
+    """The harness side of the consensus channels (0x20-0x22): claims
+    them with the consensus reactor's descriptors, counts what the
+    node sends back (its round steps, HasVote acknowledgements and vote
+    relays) and answers nothing."""
+
+    name = "consensus"
+    get_channels = ConsensusReactor.get_channels
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.received: dict = {}  # message type byte -> count
+        self.has_votes: set = set()  # (height, round, type, index) acknowledged
+
+    def receive(self, chan_id: int, peer, msg: bytes) -> None:
+        if not msg:
+            return
+        self.received[msg[0]] = self.received.get(msg[0], 0) + 1
+        if msg[0] == MSG_HAS_VOTE:
+            self.has_votes.add(struct.unpack(">qiBi", msg[1:]))
+
+
+class StubPeer:
+    """The validator stubs as a peer on the wire (reference
+    consensus/common_test.go ``validatorStub``, over p2p instead of
+    straight into the state machine): a ``Switch`` on a TCP transport
+    whose only reactor is a ``StubConsensusReactor``. ``connect(addr)``
+    dials the node; ``deliver_for(m)`` is a ``play_height`` deliverer
+    that sends height ``m``'s proposal and parts on the data channel
+    and its votes on the vote channel, encoded by the consensus
+    reactor's ``encode_proposal_msg``, ``encode_block_part_msg`` and
+    ``encode_vote_msg``; ``send_votes`` re-sends votes, as a real
+    peer's gossip routine re-sends the ones the node has not
+    acknowledged."""
+
+    def __init__(self, chain_id: str):
+        self.node_key = NodeKey.generate()
+        self.node_info = NodeInfo(node_id=self.node_key.node_id, network=chain_id, moniker="stubs")
+        # a node's MConnection rates ([p2p] send_rate / recv_rate): the
+        # connection's own defaults are ten times lower, and the node's
+        # vote relays back to the stub would pace the stub at them
+        p2p = P2PConfig()
+        self.switch = Switch(
+            TCPTransport(self.node_key, self.node_info),
+            self.node_info,
+            mconn_config={
+                "send_rate": p2p.send_rate,
+                "recv_rate": p2p.recv_rate,
+                "flush_throttle_s": p2p.flush_throttle_ms / 1000.0,
+            },
+        )
+        self.reactor = StubConsensusReactor()
+        self.switch.add_reactor("consensus", self.reactor)
+        self.peer = None
+
+    async def connect(self, addr: str) -> None:
+        await self.switch.start()
+        self.peer = await self.switch.dial_peer(addr)
+
+    def _send(self, chan_id: int, msg: bytes) -> None:
+        if self.peer is None or not self.peer.try_send(chan_id, msg):
+            raise ConnectionError("stub peer: the node's connection refused a message")
+
+    def deliver_for(self, m: StubHeight) -> Callable:
+        def deliver(kind, obj):
+            if kind == "proposal":
+                self._send(DATA_CHANNEL, encode_proposal_msg(obj))
+            elif kind == "block_part":
+                self._send(DATA_CHANNEL, encode_block_part_msg(m.height, m.round, obj))
+            else:
+                self._send(VOTE_CHANNEL, encode_vote_msg(obj))
+
+        return deliver
+
+    def send_votes(self, votes) -> None:
+        for v in votes:
+            self._send(VOTE_CHANNEL, encode_vote_msg(v))
+
+    def acknowledged(self, v: Vote) -> bool:
+        """Whether the node sent a HasVote for ``v``."""
+        return (v.height, v.round, v.type_, v.validator_index) in self.reactor.has_votes
+
+    @property
+    def bytes_sent(self) -> int:
+        return self.peer.send_total if self.peer is not None else 0
+
+    async def stop(self) -> None:
+        await self.switch.stop()

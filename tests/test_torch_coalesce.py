@@ -4,8 +4,11 @@ One vote wave (20 votes, one corrupted) submitted within the window
 becomes ONE ``PRIORITY_LIVE`` ticket on the scheduler, and its
 per-vote verdicts equal the serial ones and the JAX package's
 ``CoalescingVerifier`` on the same wave. A cached signature resolves
-without a dispatch. When the dispatch fails, every future of the wave
-gets the exception (the port does not re-verify the wave on the host).
+without a dispatch. A signature submitted again while its first
+submission is unresolved takes no second lane and gets the first's
+verdict, or its failure. When the dispatch fails, every future of the
+wave gets the exception (the port does not re-verify the wave on the
+host).
 """
 
 import asyncio
@@ -119,6 +122,47 @@ def test_cache_short_circuits_resubmit(plane):
 
     v = run(main())
     assert v.dispatches == 1 and v.cache_hits == 1 and len(plane) == 1
+
+
+@pytest.mark.parametrize("fail", [False, True], ids=["verdict", "failure"])
+def test_resubmit_while_unresolved_joins_the_first(plane, monkeypatch, fail):
+    """A peer's gossip re-sends an unacknowledged vote while the first
+    copy waits for its wave: the copy joins it (one lane, one ticket)
+    and gets the same verdict or the same route failure; once resolved
+    the signature is submitted afresh (a cache, when given, answers it
+    first)."""
+    wave = _wave(4)
+    if fail:
+        old_min = crypto_batch._MIN_DEVICE_BATCH
+        crypto_batch.set_min_device_batch(1)
+        from cometbft_tpu_torch.ops import ed25519 as ops_ed
+
+        def boom(items, device=None, precomp=None):
+            raise RuntimeError("CUDA error: launch failed")
+
+        monkeypatch.setattr(ops_ed, "verify_batch_async", boom)
+
+    async def main():
+        v = CoalescingVerifier(window_s=0.01, device=CPU)
+        futs = [v.submit(*it) for it in wave] + [v.submit(*it) for it in wave[:2]]
+        assert v.pending_count() == len(wave) and v.joined == 2
+        got = await asyncio.gather(*futs, return_exceptions=True)
+        again = v.submit(*wave[0])
+        assert v.pending_count() == 1 and v.joined == 2
+        await asyncio.gather(again, return_exceptions=True)
+        return v, got
+
+    try:
+        v, got = run(main())
+    finally:
+        if fail:
+            crypto_batch.set_min_device_batch(old_min)
+    assert len(plane[0].items) == len(wave)
+    if fail:
+        assert all(isinstance(e, sched_mod.DeviceRouteError) for e in got)
+        assert got[4] is got[0] and got[5] is got[1]
+    else:
+        assert got == [True, True, True, True, True, True]
 
 
 def test_dispatch_failure_reaches_every_future(plane, monkeypatch):

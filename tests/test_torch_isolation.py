@@ -16,6 +16,14 @@
   ``block_ingestor``), which on ``device="cpu"`` ingests a chain into
   a started state machine. ``LocalNet`` takes built nodes, so it runs
   where they were built.
+- The network slice's modules (p2p, the secret connection's crypto
+  tiers, the mempool, blocksync and consensus reactors, ``Node``, the
+  stub peer) are among the modules the probe imports. ``Node`` runs on
+  the card by default: it raises on a machine without one unless given
+  ``device="cpu"``, and its reactors take its device. The settings
+  whose planes the port lacks (lp2p, PEX, statesync, RPC, the app
+  mempool, the autopool, the metrics and debug servers) make ``Node``
+  raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
 import subprocess
@@ -48,8 +56,20 @@ for name in names:
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "cometbft_tpu" or m.startswith("cometbft_tpu."))
 print(len(names), bad)
+print(" ".join(names))
 sys.exit(1 if bad else 0)
 """
+
+# the network slice's modules: each must be among those the probe imports
+NETWORK_MODULES = [
+    "crypto._ossl", "crypto.x25519", "crypto.chacha20poly1305",
+    "p2p", "p2p.key", "p2p.node_info", "p2p.reactor", "p2p.peer", "p2p.transport",
+    "p2p.reconnect", "p2p.switch", "p2p.tracewire", "p2p.conn",
+    "p2p.conn.secret_connection", "p2p.conn.connection", "utils.backoff",
+    "config.config", "mempool.codec", "mempool.ingest", "mempool.mempool",
+    "mempool.reactor", "blocksync.net_reactor", "consensus.reactor", "node.node",
+    "utils.chaingen", "utils.loop_errors",
+]
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -59,7 +79,28 @@ def test_port_imports_no_jax_and_no_reference_package():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 80, proc.stdout
+    assert n_modules >= 100, proc.stdout
+    imported = set(proc.stdout.splitlines()[1].split())
+    missing = [m for m in NETWORK_MODULES if f"cometbft_tpu_torch.{m}" not in imported]
+    assert not missing, missing
+
+
+def test_p2p_layer_imports_no_higher_layer():
+    """The network's lowest layer stands alone: importing ``p2p``
+    loads no reactor, state machine, store or node module."""
+    probe = (
+        "import sys, cometbft_tpu_torch.p2p\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[:2] in ("
+        "['cometbft_tpu_torch', 'blocksync'], ['cometbft_tpu_torch', 'consensus'], "
+        "['cometbft_tpu_torch', 'mempool'], ['cometbft_tpu_torch', 'node'], "
+        "['cometbft_tpu_torch', 'state'], ['cometbft_tpu_torch', 'store'])))"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", probe], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
 
 
 def test_entry_points_raise_without_a_gpu():
@@ -237,3 +278,69 @@ def test_consensus_entry_points_raise_without_a_gpu(no_gpu, tmp_path):
     assert ingested == list(range(1, len(ingested) + 1)) and len(ingested) >= 4
     assert node.cs.rs.height == ingested[-1] + 1 and r.loop_errors.count == 0
     assert node.block_store.load_block_meta(4).block_id == src.block_store.load_block_meta(4).block_id
+
+
+def test_node_raises_without_a_gpu_and_takes_its_device(no_gpu):
+    from cometbft_tpu_torch.config.config import test_config as make_test_cfg
+    from cometbft_tpu_torch.node.inprocess import make_genesis, make_privvals
+    from cometbft_tpu_torch.node.node import Node
+
+    gen, privs = make_genesis(2, chain_id="iso-node")
+    cfg = make_test_cfg(".")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Node(cfg, gen)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Node(cfg, gen, privval=make_privvals(privs)[0])
+    node = Node(cfg, gen, device="cpu")
+    cpu = torch.device("cpu")
+    assert node.device == cpu and node.parts.cs.device == cpu
+    assert node.consensus_reactor.vote_verifier.device == cpu
+    assert node.blocksync_reactor.inner.device == cpu
+    node.parts.close_stores()
+
+
+@pytest.mark.parametrize(
+    "section, name, value, item",
+    [
+        ("p2p", "use_libp2p_equivalent", True, "A8"),
+        ("p2p", "pex", True, "A8"),
+        ("p2p", "seeds", "id@127.0.0.1:26656", "A8"),
+        ("p2p", "use_autopool", True, "A8"),
+        ("statesync", "enable", True, "A8"),
+        ("rpc", "laddr", "tcp://127.0.0.1:26657", "A8"),
+        ("rpc", "grpc_laddr", "127.0.0.1:9090", "A8"),
+        ("mempool", "type_", "app", "A8"),
+        ("instrumentation", "prometheus", True, "A10"),
+        ("instrumentation", "pprof_laddr", "127.0.0.1:6060", "A10"),
+    ],
+)
+def test_node_refuses_settings_it_does_not_have(section, name, value, item):
+    from cometbft_tpu_torch.config.config import test_config as make_test_cfg
+    from cometbft_tpu_torch.node.inprocess import make_genesis
+    from cometbft_tpu_torch.node.node import Node
+
+    gen, _ = make_genesis(1, chain_id="iso-cut")
+    cfg = make_test_cfg(".")
+    setattr(getattr(cfg, section), name, value)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        Node(cfg, gen, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "section, name",
+    [
+        ("p2p", "external_address"), ("p2p", "max_num_inbound_peers"),
+        ("p2p", "max_num_outbound_peers"), ("p2p", "max_packet_msg_payload_size"),
+        ("p2p", "handshake_timeout_s"), ("p2p", "dial_timeout_s"),
+        ("mempool", "max_txs_bytes"), ("mempool", "async_recheck"),
+        ("instrumentation", "prometheus_listen_addr"),
+    ],
+)
+def test_config_takes_no_setting_the_port_ignores(section, name):
+    """A JAX setting that nothing in the port reads is not in the
+    port's config, and setting it raises rather than doing nothing."""
+    from cometbft_tpu_torch.config.config import test_config as make_test_cfg
+
+    cfg = make_test_cfg(".")
+    with pytest.raises(AttributeError):
+        setattr(getattr(cfg, section), name, 1)

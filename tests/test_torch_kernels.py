@@ -123,6 +123,21 @@ def test_require_rejects_what_a_kernel_does_not_take():
         kernels.require_rows(t.t(), 64)
 
 
+def test_require_rows_takes_one_lane():
+    """A one-lane dispatch packs (1, rows) arrays and transposes them:
+    the (rows, 1) tensor has stride 64 along its size-1 lane dimension,
+    which no kernel reads, and its rows 1 apart, as the kernel reads
+    them (a vote wave of one signature, which a networked node sends to
+    the card)."""
+    t = torch.zeros((1, 64), dtype=torch.uint8).t().contiguous()
+    assert t.stride() == (1, 64)
+    kernels.require_rows(t, 1)
+    with pytest.raises(ValueError, match="rows 2 apart"):
+        kernels.require_rows(t, 2)
+    with pytest.raises(ValueError, match="lanes contiguous"):
+        kernels.require_rows(torch.zeros((64, 8), dtype=torch.uint8)[:, ::2], 4)
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
