@@ -157,6 +157,38 @@ Phases, each printing one JSON line:
    wave and the forged height's precommit wave (net_max_abs_err), with
    its device time and bound at the prevote wave's width.
 
+12. evidence, the device route pinned: (a) on a copy of phase 8's
+   corpus as phase 8 built it, a node's EvidencePool over its stores
+   takes light-client attacks at committed height 1,000: a fork signed
+   by all 150 with the real set and a lunatic fork signed by 51 of the
+   150 claiming a set of those 51, each from the height before and from
+   six heights back; each must be accepted and pending, its two commit
+   checks (trusting, then light) each one PRIORITY_CATCHUP ticket on
+   the card launching K1-K3 once; then a fabricated header under the
+   genuine commit, a common height ahead of the block, a claimed
+   byzantine set or total power that differs from the derived one, and
+   one forged signature among the 150 must be refused on the card and,
+   with the same error, on the plain kernels; each ticket's lanes and
+   wall and each add_evidence wall are printed; (b) four validator
+   Nodes over TCP (11a's shape): the fourth key equivocates prevotes
+   through node 0's ConsensusReactor.receive, and a lunatic fork of
+   height 2 signed by two keys is handed to node 1; both pieces of
+   evidence must gossip on 0x38, be checked by every node (the fork's
+   two checks on the card at every node), land in blocks and reach
+   every app as MISBEHAVIOR_DUPLICATE_VOTE / LIGHT_CLIENT_ATTACK with
+   the offenders' powers, each app's records equal to what the blocks'
+   evidence gives by evidence_to_misbehavior; heights from the
+   equivocation and from the handoff to the committing block; (c) a
+   fifth node (no signer, blocksync on) dials the four and must reach
+   their height through the evidence blocks with the same block IDs,
+   states and misbehavior records, with at least one of its own
+   blocksync windows verified on the card. The kernels line adds
+   evidence_launches (12a / 12b / 12c; counters zeroed just before
+   each, read just after; 12c also counts the validators' consensus,
+   which runs on, and 12c_joiner the joiner's own windows) and each kernel against its plain version on
+   12a's widest tickets (evidence_max_abs_err), with its device time
+   and bound at the trusting check's 150 lanes.
+
 The line before last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result line. Needs no network; exits non-zero without a GPU or
@@ -223,6 +255,17 @@ NET_HEIGHTS = 12
 NET_LIVE_HEIGHTS = 8
 NET_FORGE_AT = 3  # the fourth live height
 NET_DEADLINE_S = 300
+# phase 12: evidence. (a) light-client attacks on phase 8's corpus at a
+# committed height: an equivocation fork signed by all 150 with the
+# real set, a lunatic fork signed by 51 (510 of 1,500 power, just over
+# a third) claiming a set of those 51, each from the height before and
+# from EV_COMMON_BACK heights back; (b) the 4-validator net of 11a's
+# shape commits a duplicate vote and a lunatic fork of
+# NET_EV_ATTACK_AT signed by two keys; (c) a fifth node joins it
+EV_ATTACK_AT = 1000
+EV_LUNATIC = 51
+EV_COMMON_BACK = 6
+NET_EV_ATTACK_AT = 2
 
 # card peaks: HBM bytes/s from the H100 SXM data sheet; 32-bit integer
 # results per clock per SM on sm_90 (IMAD, IADD, LOP, shifts: 64, the
@@ -1903,6 +1946,386 @@ def phase_network(dev, gen, privs, snapshot, top, src_rows):
     return {"11a": launches_a, "11b": launches_b, "11c": launches_c}, net_items
 
 
+# --- phase 12: evidence ---------------------------------------------------------
+
+
+def _corpus_stores(snapshot):
+    """A block store and a state store over a copy of the corpus (the
+    stores a node over it has): phase 10 extends the corpus itself."""
+    from types import SimpleNamespace
+
+    from cometbft_tpu_torch.state.store import Store as StateStore
+    from cometbft_tpu_torch.store.block_store import BlockStore
+    from cometbft_tpu_torch.utils import kv
+
+    block_db, state_db = kv.MemKV(), kv.MemKV()
+    block_db.write_batch(snapshot[0])
+    state_db.write_batch(snapshot[1])
+    return SimpleNamespace(block_store=BlockStore(block_db), state_store=StateStore(state_db))
+
+
+class PlainKernels:
+    """While active, the verify path calls the kernels' plain PyTorch
+    versions on the card's tensors in place of K1-K3."""
+
+    def __enter__(self):
+        from cometbft_tpu_torch.ops import curve25519 as cv
+        from cometbft_tpu_torch.ops import ladder as ld
+        from cometbft_tpu_torch.ops import sc25519 as sc
+
+        self._mods = (sc, cv, ld)
+        self._real = (sc.hash_digits, cv.decompress, ld.verify)
+        sc.hash_digits, cv.decompress, ld.verify = sc.hash_digits_plain, cv.decompress_plain, ld.verify_plain
+        return self
+
+    def __exit__(self, *exc):
+        sc, cv, ld = self._mods
+        sc.hash_digits, cv.decompress, ld.verify = self._real
+        return False
+
+
+def _verdict(pool, ev):
+    """("accepted", None) or the refusal's (type, message)."""
+    try:
+        pool.add_evidence(ev)
+    except Exception as e:  # the verdict under test, whatever its type
+        return type(e).__name__, str(e)
+    return "accepted", None
+
+
+def _misbehavior_rows(node, upto):
+    """What the app kept, and what the committed blocks' evidence makes
+    of it by the JAX package's rule (``evidence_to_misbehavior``), to
+    height ``upto``."""
+    from cometbft_tpu_torch.state.execution import evidence_to_misbehavior
+
+    kept = [r for r in node.parts.app.misbehavior_seen if r[0] <= upto]
+    made = [(h, m.type_, m.validator_address, m.validator_power, m.height)
+            for h in range(1, upto + 1)
+            for m in evidence_to_misbehavior(node.parts.block_store.load_block(h).evidence)]
+    return kept, made
+
+
+def phase_evidence(dev, gen, privs, snapshot, top):
+    """Phase 12: (a) light-client attacks on the corpus as phase 8 built
+    it, accepted and refused on the card, the refusals again on the
+    plain kernels; (b) a 4-validator net over TCP commits a duplicate
+    vote and a lunatic fork; (c) a fifth node joins that chain by
+    blocksync over TCP. Returns the launches of (a), (b) and (c) and,
+    for phase 6, the kernel items of the widest evidence ticket."""
+    import asyncio
+    import dataclasses
+    import shutil
+
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.abci.types import (MISBEHAVIOR_DUPLICATE_VOTE,
+                                               MISBEHAVIOR_LIGHT_CLIENT_ATTACK)
+    from cometbft_tpu_torch.config.config import test_config
+    from cometbft_tpu_torch.consensus.reactor import VOTE_CHANNEL, encode_vote_msg
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.evidence.pool import EvidencePool
+    from cometbft_tpu_torch.evidence.types import DuplicateVoteEvidence
+    from cometbft_tpu_torch.light.types import LightBlock
+    from cometbft_tpu_torch.node.inprocess import make_genesis, make_privvals
+    from cometbft_tpu_torch.node.node import Node
+    from cometbft_tpu_torch.utils import chaingen, kv, log
+
+    floor = batch._MIN_DEVICE_BATCH
+    sched = S.VerifyScheduler()
+    S.set_scheduler(sched)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "evidence")
+    shutil.rmtree(root, ignore_errors=True)
+    out, launches = {}, {}
+    loop = asyncio.new_event_loop()
+    nodes = []  # every Node started here, stopped in the finally
+    try:
+        batch.set_min_device_batch(1)
+        # 12a: light-client attacks at the corpus's 150 validators
+        corpus = _corpus_stores(snapshot)
+        check(corpus.block_store.height() == top, f"corpus copy at {corpus.block_store.height()}")
+        h = EV_ATTACK_AT
+        n_vals = len(privs)
+        full = chaingen.conflicting_block(corpus, privs, h)
+        lunatic = chaingen.conflicting_block(corpus, privs, h, signers=privs[:EV_LUNATIC])
+        attacks = {
+            "equivocation": chaingen.light_attack(corpus, full, h - 1),
+            "lunatic": chaingen.light_attack(corpus, lunatic, h - 1),
+            "equivocation_back": chaingen.light_attack(corpus, full, h - EV_COMMON_BACK),
+            "lunatic_back": chaingen.light_attack(corpus, lunatic, h - EV_COMMON_BACK),
+        }
+        width = {"equivocation": n_vals, "lunatic": EV_LUNATIC}
+        pool = EvidencePool(kv.MemKV(), corpus.state_store, corpus.block_store, device=dev)
+        accepted = {}
+        ev_items = None
+        kernels.reset_counts()
+        for name, ev in attacks.items():
+            before = dict(kernels.LAUNCHES)
+            with Recorder(sched) as rec:
+                t0 = time.perf_counter()
+                verdict = _verdict(pool, ev)
+                wall = time.perf_counter() - t0
+            tickets = rec.rows()
+            lanes = width[name.split("_")[0]]
+            check(verdict == ("accepted", None), f"12a {name}: {verdict}")
+            check(ev.hash() in {e.hash() for e in pool.pending_evidence(1 << 30)}, f"12a {name}: not pending")
+            check([(lb, p, n, r) for lb, p, n, r, _ in tickets]
+                  == [("trusting", S.PRIORITY_CATCHUP, lanes, "device"), ("light", S.PRIORITY_CATCHUP, lanes, "device")],
+                  f"12a {name}: tickets {tickets}")
+            check(all(kernels.LAUNCHES[k] - before[k] == 2 for k in SOURCES),
+                  f"12a {name}: launches {kernels.LAUNCHES} from {before}")
+            if name == "equivocation":
+                ev_items = {lb: rec.labelled[lb][0] for lb in ("trusting", "light")}
+            accepted[name] = {"lanes": lanes, "common_height": ev.common_height,
+                              "byzantine": len(ev.byzantine_validators), "add_evidence_s": wall,
+                              "tickets": [(lb, n, r, w) for lb, _, n, r, w in tickets]}
+        launches["12a"] = dict(kernels.LAUNCHES)
+
+        real = corpus.block_store.load_block(h).header
+        genuine = corpus.block_store.load_seen_commit(h)
+        vals = corpus.state_store.load_validators(h)
+        forged = attacks["equivocation"]
+        sigs = list(forged.conflicting_block.commit.signatures)
+        lane = n_vals // 2
+        sigs[lane] = dataclasses.replace(sigs[lane], signature=bytes([sigs[lane].signature[0] ^ 1])
+                                         + sigs[lane].signature[1:])
+        forged_block = LightBlock(full.header, dataclasses.replace(full.commit, signatures=sigs), full.validator_set)
+        variants = {
+            "fabricated_header": chaingen.light_attack(
+                corpus, LightBlock(dataclasses.replace(real, app_hash=b"\x55" * 32), genuine, vals), h - 1),
+            "common_ahead": chaingen.light_attack(corpus, LightBlock(real, genuine, vals), h + 1),
+            "byzantine_set": dataclasses.replace(
+                attacks["lunatic"], byzantine_validators=attacks["lunatic"].byzantine_validators[:-1]),
+            "total_power": dataclasses.replace(
+                attacks["equivocation"], total_voting_power=attacks["equivocation"].total_voting_power + 1),
+            "forged_signature": chaingen.light_attack(corpus, forged_block, h - 1),
+        }
+        refused = {}
+        for name, ev in variants.items():
+            on_card = EvidencePool(kv.MemKV(), corpus.state_store, corpus.block_store, device=dev)
+            with Recorder(sched) as rec:
+                t0 = time.perf_counter()
+                card_verdict = _verdict(on_card, ev)
+                card_s = time.perf_counter() - t0
+            tickets = rec.rows()
+            with PlainKernels():
+                on_plain = EvidencePool(kv.MemKV(), corpus.state_store, corpus.block_store, device=dev)
+                t0 = time.perf_counter()
+                plain_verdict = _verdict(on_plain, ev)
+                plain_s = time.perf_counter() - t0
+            check(card_verdict[0] not in ("accepted", "DeviceRouteError"), f"12a {name}: {card_verdict}")
+            check(card_verdict == plain_verdict, f"12a {name}: card {card_verdict}, plain {plain_verdict}")
+            check(on_card.size() == on_plain.size() == 0, f"12a {name}: left pending")
+            check(all(r == "device" for _, _, _, r, _ in tickets), f"12a {name}: a ticket left the card")
+            refused[name] = {"error": card_verdict, "card_s": card_s, "plain_s": plain_s,
+                             "tickets": [(lb, n, r, w) for lb, _, n, r, w in tickets]}
+        check(refused["forged_signature"]["error"][0] == "ErrInvalidSignature",
+              f"12a: the forged lane {refused['forged_signature']['error']}")
+        check(all(refused[k]["error"][0] == "EvidenceError" for k in variants if k != "forged_signature"),
+              f"12a: refusals {refused}")
+        out["attacks"] = {"validators": n_vals, "attack_height": h, "lunatic_signers": EV_LUNATIC,
+                          "common_back": EV_COMMON_BACK, "accepted": accepted, "refused": refused,
+                          "pending": pool.size(), "launches": launches["12a"]}
+        emit("evidence_attacks", **out["attacks"])
+
+        # 12b: a 4-validator net over TCP commits both kinds of evidence
+        log.set_level("consensus:error,p2p:error,blocksync:error,*:info")
+        g4, k4 = make_genesis(NET_VALS, chain_id="smoke-evidence", seed=SEED)
+        pv_root = os.path.join(root, "pv")
+        os.makedirs(pv_root)
+        pvs = make_privvals(k4, root=pv_root)
+        rows = {}  # moniker -> {height: state row}
+
+        def config(moniker, **kw):
+            cfg = test_config(".")
+            cfg.base.moniker = moniker
+            cfg.blocksync.enable = False
+            for k, v in kw.items():
+                sec, _, name = k.partition("__")
+                setattr(getattr(cfg, sec), name, v)
+            return cfg
+
+        def recorded(node):
+            mine = rows.setdefault(node.config.base.moniker, {})
+            real_complete = node.parts.block_exec.apply_complete
+
+            def complete(new_state, block, resp):
+                st = real_complete(new_state, block, resp)
+                mine[st.last_block_height] = _state_row(st)
+                return st
+
+            node.parts.block_exec.apply_complete = complete
+            return node
+
+        async def until(cond, what, timeout=NET_DEADLINE_S):
+            deadline = asyncio.get_running_loop().time() + timeout
+            while not cond():
+                check(asyncio.get_running_loop().time() < deadline, f"timed out: {what}")
+                await asyncio.sleep(0.01)
+
+        def records(n, kind, addr, ev_height=None):
+            return [r for r in n.parts.app.misbehavior_seen
+                    if r[1] == kind and r[2] == addr and ev_height in (None, r[4])]
+
+        byz = k4[3]
+        byz_addr = byz.pub_key().address()
+        lca_addrs = [p.pub_key().address() for p in k4[2:]]
+        powers = {v.address: v.voting_power for v in g4.validator_set().validators}
+
+        async def net():
+            net_nodes = [recorded(Node(config(f"ev{i}"), g4, privval=pv, device=dev)) for i, pv in enumerate(pvs)]
+            nodes.extend(net_nodes)
+            for n in net_nodes:
+                await n.start()
+            for i, a in enumerate(net_nodes):
+                for b in net_nodes[i + 1:]:
+                    await a.dial(b.listen_addr)
+            await until(lambda: all(n.switch.num_peers() == NET_VALS - 1 for n in net_nodes), "the full mesh")
+            await until(lambda: all(n.height > NET_EV_ATTACK_AT for n in net_nodes), f"height {NET_EV_ATTACK_AT + 1}")
+            # the fourth key equivocates prevotes into node 0's
+            # consensus reactor, once a round, at its current height and
+            # round until the conflict registers
+            target = net_nodes[0]
+            idx = g4.validator_set().get_by_address(byz_addr)[0]
+            peer = next(iter(target.switch.peers.values()))
+            reactor = target.switch.reactor("consensus")
+            t0, eq_height = time.perf_counter(), target.height
+            played = set()
+            deadline = asyncio.get_running_loop().time() + 60
+            while not target.parts.evpool.pending_evidence(1 << 20):
+                check(asyncio.get_running_loop().time() < deadline, "12b: no duplicate-vote evidence formed")
+                rs = target.parts.cs.rs
+                if (rs.height, rs.round) not in played:
+                    played.add((rs.height, rs.round))
+                    for v in chaingen.equivocating_votes(byz, idx, g4.chain_id, rs.height, rs.round):
+                        reactor.receive(VOTE_CHANNEL, peer, encode_vote_msg(v))
+                await asyncio.sleep(0.005)
+            dup = target.parts.evpool.pending_evidence(1 << 20)[0]
+            check(isinstance(dup, DuplicateVoteEvidence), f"12b: {dup!r}")
+            await until(lambda: all(records(n, MISBEHAVIOR_DUPLICATE_VOTE, byz_addr) for n in net_nodes),
+                        "the duplicate vote at every app")
+            dup_s = time.perf_counter() - t0
+            dup_at = records(target, MISBEHAVIOR_DUPLICATE_VOTE, byz_addr)[0][0]
+            # a lunatic fork signed by two of the four keys, handed to
+            # node 1; every node that receives it checks it on the card
+            fork = chaingen.conflicting_block(net_nodes[0].parts, k4, NET_EV_ATTACK_AT, signers=k4[2:])
+            lca = chaingen.light_attack(net_nodes[0].parts, fork, NET_EV_ATTACK_AT - 1)
+            t0, lca_height = time.perf_counter(), net_nodes[1].height
+            await net_nodes[1].add_evidence(lca)
+            await until(lambda: all(records(n, MISBEHAVIOR_LIGHT_CLIENT_ATTACK, a, lca.common_height)
+                                    for n in net_nodes for a in lca_addrs), "the lunatic fork at every app")
+            lca_s = time.perf_counter() - t0
+            lca_at = records(target, MISBEHAVIOR_LIGHT_CLIENT_ATTACK, lca_addrs[0], lca.common_height)[0][0]
+            for n in net_nodes:
+                check(records(n, MISBEHAVIOR_DUPLICATE_VOTE, byz_addr)[0][3] == powers[byz_addr],
+                      "12b: the duplicate vote's power")
+                check(all(records(n, MISBEHAVIOR_LIGHT_CLIENT_ATTACK, a, lca.common_height)[0][3] == powers[a]
+                          for a in lca_addrs), "12b: the attackers' powers")
+            upto = min(n.height for n in net_nodes)
+            for n in net_nodes:
+                kept, made = _misbehavior_rows(n, upto)
+                check(kept == made, f"12b {n.config.base.moniker}: app kept {kept}, blocks give {made}")
+            for hh in range(1, upto + 1):
+                check(len({n.block_id_hash_at(hh) for n in net_nodes}) == 1, f"12b: nodes differ at height {hh}")
+            return net_nodes, {
+                "duplicate_vote": {"injected_at_height": eq_height, "committed_in_block": dup_at,
+                                   "heights": dup_at - eq_height, "wall_s": dup_s,
+                                   "rounds_played": len(played)},
+                "light_attack": {"handed_at_height": lca_height, "committed_in_block": lca_at,
+                                 "heights": lca_at - lca_height, "wall_s": lca_s,
+                                 "byzantine": len(lca.byzantine_validators)},
+                "heights": upto,
+                "evidence_blocks": [hh for hh in range(1, upto + 1)
+                                    if net_nodes[0].parts.block_store.load_block(hh).evidence],
+                "misbehavior_seen": [(r[0], r[1], r[2].hex()[:12], r[3], r[4])
+                                     for r in net_nodes[0].parts.app.misbehavior_seen],
+                "loop_errors": sum(n.parts.cs.loop_errors.count for n in net_nodes),
+            }
+
+        kernels.reset_counts()
+        with Recorder(sched) as rec:
+            net_nodes, b = loop.run_until_complete(net())
+        launches["12b"] = dict(kernels.LAUNCHES)
+        tickets = rec.rows()
+        checks_ = [t for t in tickets if t[0] in ("trusting", "light")]
+        check(b["loop_errors"] == 0, f"12b: {b['loop_errors']} loop errors")
+        # two a node that checked the fork: the one it was handed to and
+        # each that took it from the wire before its block
+        check(checks_ and len(checks_) % 2 == 0 and len(checks_) <= 2 * NET_VALS
+              and all(p == S.PRIORITY_CATCHUP and n == 2 and r == "device" for _, p, n, r, _ in checks_),
+              f"12b: evidence tickets {[(lb, p, n, r) for lb, p, n, r, _ in checks_]}")
+        check(all(r == "device" for _, _, _, r, _ in tickets), "12b: a ticket left the device route")
+        check(all(d["device"] == str(dev) and all(d["launches"][k] == 1 for k in SOURCES)
+                  for d in rec.dispatches), "12b: a dispatch did not launch each kernel once")
+        check(all(launches["12b"][k] == len(rec.dispatches) == len(tickets) for k in SOURCES),
+              f"12b: launches {launches['12b']} against {len(tickets)} tickets")
+        out["net"] = {**b, "validators": NET_VALS, "tickets": len(tickets), "evidence_tickets": len(checks_),
+                      "ticket_walls": {lb: ticket_walls([(n, r, w) for l2, _, n, r, w in tickets if l2 == lb])
+                                       for lb in sorted({t[0] for t in tickets})},
+                      "launches": launches["12b"]}
+        emit("evidence_net", **out["net"])
+
+        # 12c: a fifth node joins that chain by blocksync over TCP
+        async def join():
+            joiner = recorded(Node(config("ev-join", blocksync__enable=True), g4, device=dev))
+            nodes.append(joiner)
+            await joiner.start()
+            t0 = time.perf_counter()
+            for n in net_nodes:
+                await joiner.dial(n.listen_addr)
+            target = min(n.height for n in net_nodes)
+            await until(lambda: joiner.height >= target and target in rows["ev-join"], f"the joiner at {target}")
+            return joiner, target, time.perf_counter() - t0
+
+        kernels.reset_counts()
+        with Recorder(sched) as rec:
+            joiner, target, wall = loop.run_until_complete(join())
+        launches["12c"] = dict(kernels.LAUNCHES)
+        tickets = rec.rows()
+        mine, theirs = rows["ev-join"], rows["ev0"]
+        bad = [hh for hh in range(1, target + 1) if mine.get(hh) != theirs.get(hh)]
+        check(not bad, f"12c: the joiner's state differs at heights {bad[:5]}")
+        bad = [hh for hh in range(1, target + 1) if joiner.block_id_hash_at(hh) != net_nodes[0].block_id_hash_at(hh)]
+        check(not bad, f"12c: block IDs differ at heights {bad[:5]}")
+        kept, made = _misbehavior_rows(joiner, target)
+        check(kept == made == _misbehavior_rows(net_nodes[0], target)[0],
+              f"12c: the joiner's misbehavior {kept}")
+        check(any(r[1] == MISBEHAVIOR_LIGHT_CLIENT_ATTACK for r in kept)
+              and any(r[1] == MISBEHAVIOR_DUPLICATE_VOTE for r in kept), "12c: the joiner skipped the evidence")
+        check(all(r == "device" for _, _, _, r, _ in tickets) and tickets, "12c: a ticket left the device route")
+        check(all(launches["12c"][k] == len(rec.dispatches) == len(tickets) for k in SOURCES),
+              f"12c: launches {launches['12c']} against {len(tickets)} tickets")
+        # the four validators keep running consensus meanwhile, so most
+        # of 12c's launches are theirs; the joiner's own are its
+        # blocksync windows, the only "coalesced" tickets (the
+        # validators run no blocksync), each one device dispatch
+        windows = [t for t in tickets if t[0] == "coalesced"]
+        stats = joiner.blocksync_reactor.inner.pipeline_stats
+        check(windows and len(rec.labelled.get("coalesced", [])) == len(windows)
+              <= stats["dispatched"] + stats["predispatched"],
+              f"12c: {len(windows)} joiner windows on the card, pipeline {stats}")
+        launches["12c_joiner"] = {k: len(windows) for k in SOURCES}
+        out["join"] = {"heights": target, "wall_s": wall, "evidence_blocks": b["evidence_blocks"],
+                       "misbehavior_equal": True, "tickets": len(tickets), "joiner_windows": len(windows),
+                       "joiner_window_lanes": [n for _, _, n, _, _ in windows],
+                       "joiner_pipeline": dict(stats),
+                       "ticket_labels": sorted({t[0] for t in tickets}),
+                       "loop_errors": joiner.parts.cs.loop_errors.count + joiner.blocksync_reactor.inner.loop_errors.count,
+                       "launches": launches["12c"], "joiner_launches": launches["12c_joiner"]}
+        check(out["join"]["loop_errors"] == 0, f"12c: {out['join']['loop_errors']} loop errors")
+        emit("evidence_join", **out["join"])
+    finally:
+        batch.set_min_device_batch(floor)
+        log.set_level("info")
+        for n in nodes:
+            loop.run_until_complete(n.stop())
+        loop.close()
+        S.set_scheduler(None)
+        sched.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, ev_items
+
+
 def _wal_files(path):
     from cometbft_tpu_torch.consensus.wal import _group_files
 
@@ -2113,6 +2536,7 @@ def main(argv) -> int:
     net_corpus = (corpus_snapshot(src), src.block_store.height(), dict(src_rows))
     ingest_launches, live_launches, live_items, handoff_items = phase_consensus(dev, *corpus)
     net_launches, net_items = phase_network(dev, gen, privs, *net_corpus)
+    evidence_launches, evidence_items = phase_evidence(dev, gen, privs, *net_corpus[:2])
 
     # phase 6: each kernel against its plain version on the main paths'
     # own inputs (the window's lanes and the commit's; the replay's and
@@ -2144,12 +2568,20 @@ def main(argv) -> int:
     net_calls = {k: stage_calls(xn) for k, xn in x_net.items()}
     net_errs = {k: compare(c) for k, c in net_calls.items()}
     x_netp, netp_calls = x_net["prevote"], net_calls["prevote"]
+    # phase 12's own inputs: the widest evidence tickets (12a's
+    # equivocation fork, 150 lanes each); timed at the trusting check's
+    x_ev = {k: kernel_inputs(its, dev) for k, its in evidence_items.items()}
+    ev_calls = {k: stage_calls(xe) for k, xe in x_ev.items()}
+    ev_errs = {k: compare(c) for k, c in ev_calls.items()}
+    x_evt, evt_calls = x_ev["trusting"], ev_calls["trusting"]
     emit("main_path_vs_plain", lanes=x["n"], commit_lanes=x_commit["n"],
          replay_lanes=list(x_replay), bisect_lanes=list(x_bisect),
          live_lanes={k: xw["n"] for k, xw in x_waves.items()},
-         net_lanes={k: xn["n"] for k, xn in x_net.items()}, equal=True, max_abs_err=errs,
+         net_lanes={k: xn["n"] for k, xn in x_net.items()},
+         evidence_lanes={k: xe["n"] for k, xe in x_ev.items()}, equal=True, max_abs_err=errs,
          commit_max_abs_err=commit_errs, replay_max_abs_err=replay_errs,
-         bisect_max_abs_err=bisect_errs, live_max_abs_err=live_errs, net_max_abs_err=net_errs)
+         bisect_max_abs_err=bisect_errs, live_max_abs_err=live_errs, net_max_abs_err=net_errs,
+         evidence_max_abs_err=ev_errs)
     rows = []
     for name in ("ladder", "decompress", "hash_digits"):
         f, plain = calls[name]
@@ -2159,6 +2591,7 @@ def main(argv) -> int:
         bisect_err = max(e[k] for e in bisect_errs.values() for k in parts)
         live_err = {w: max(e[k] for k in parts) for w, e in live_errs.items()}
         net_err = {w: max(e[k] for k in parts) for w, e in net_errs.items()}
+        ev_err = {w: max(e[k] for k in parts) for w, e in ev_errs.items()}
         err = max(max(errs[k], commit_errs[k]) for k in parts)
         b_ms, b_by = bound(name, x, int_rate)
         bc_ms, bc_by = bound(name, x_commit, int_rate)
@@ -2166,6 +2599,7 @@ def main(argv) -> int:
         bs_ms, bs_by = bound(name, x_bisect[b_wide], int_rate)
         bl_ms, bl_by = bound(name, x_live, int_rate)
         bn_ms, bn_by = bound(name, x_netp, int_rate)
+        be_ms, be_by = bound(name, x_evt, int_rate)
         bb_ms, bb_by = bound(name, x_bulk, int_rate)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -2174,7 +2608,9 @@ def main(argv) -> int:
             "bisect_launches": bisect_launches[name],
             "ingest_launches": ingest_launches[name], "live_launches": live_launches[name],
             "net_launches": {ph: ls[name] for ph, ls in net_launches.items()},
-            "max_abs_err": max(err, replay_err, bisect_err, *live_err.values(), *net_err.values()),
+            "evidence_launches": {ph: ls[name] for ph, ls in evidence_launches.items()},
+            "max_abs_err": max(err, replay_err, bisect_err, *live_err.values(), *net_err.values(),
+                               *ev_err.values()),
             "tolerance": 0,
             "ms": graph_ms(f), "call_ms": cuda_ms(f, 20),
             "plain_ms": cuda_ms(plain, 2, warm=0), "bound_ms": b_ms,
@@ -2203,6 +2639,12 @@ def main(argv) -> int:
             "net_call_ms": cuda_ms(netp_calls[name][0], 20),
             "net_plain_ms": cuda_ms(netp_calls[name][1], 2, warm=0),
             "net_bound_ms": bn_ms, "net_bound_by": bn_by,
+            "evidence_lanes": {w: xe["n"] for w, xe in x_ev.items()},
+            "evidence_max_abs_err": ev_err,
+            "evidence_ms": graph_ms(evt_calls[name][0]),
+            "evidence_call_ms": cuda_ms(evt_calls[name][0], 20),
+            "evidence_plain_ms": cuda_ms(evt_calls[name][1], 2, warm=0),
+            "evidence_bound_ms": be_ms, "evidence_bound_by": be_by,
             "bulk_lanes": N_BULK, "bulk_ms": bulk_ms[name], "bulk_call_ms": bulk_call_ms[name],
             "bulk_bound_ms": bb_ms, "bulk_bound_by": bb_by,
             "bulk_max_abs_err": max(bulk_errs[k] for k in parts),

@@ -5,9 +5,9 @@ the handshake and the consensus round send (reference
 abci/types/application.go): Info, Query, InitChain, CheckTx,
 PrepareProposal (with ``ExtendedCommitInfo`` when vote extensions are
 on), ProcessProposal, ExtendVote, VerifyVoteExtension, FinalizeBlock
-(with ``ExecTxResult``, ``Event``, ``CommitInfo`` and validator
-updates) and Commit. Misbehavior, snapshots and the app-side mempool
-wait for the slices that need them.
+(with ``ExecTxResult``, ``Event``, ``CommitInfo``, validator updates
+and the block evidence's ``Misbehavior``) and Commit. Snapshots and
+the app-side mempool wait for the slices that need them.
 """
 
 from __future__ import annotations
@@ -83,6 +83,9 @@ BLOCK_ID_FLAG_ABSENT = 1
 BLOCK_ID_FLAG_COMMIT = 2
 BLOCK_ID_FLAG_NIL = 3
 
+MISBEHAVIOR_DUPLICATE_VOTE = 1
+MISBEHAVIOR_LIGHT_CLIENT_ATTACK = 2
+
 
 @dataclass
 class VoteInfo:
@@ -116,6 +119,19 @@ class ExtendedVoteInfo:
 class ExtendedCommitInfo:
     round: int = 0
     votes: List[ExtendedVoteInfo] = field(default_factory=list)
+
+
+@dataclass
+class Misbehavior:
+    """Evidence of validator misbehavior handed to the app for slashing
+    (reference abci/types.proto Misbehavior)."""
+
+    type_: int = MISBEHAVIOR_DUPLICATE_VOTE
+    validator_address: bytes = b""
+    validator_power: int = 0
+    height: int = 0
+    time_ns: int = 0
+    total_voting_power: int = 0
 
 
 @dataclass
@@ -197,7 +213,7 @@ class RequestPrepareProposal:
     max_tx_bytes: int = 0
     txs: List[bytes] = field(default_factory=list)
     local_last_commit: Optional[object] = None
-    misbehavior: list = field(default_factory=list)
+    misbehavior: List[Misbehavior] = field(default_factory=list)
     height: int = 0
     time_ns: int = 0
     next_validators_hash: bytes = b""
@@ -217,7 +233,7 @@ PROCESS_PROPOSAL_REJECT = 2
 class RequestProcessProposal:
     txs: List[bytes] = field(default_factory=list)
     proposed_last_commit: Optional[object] = None
-    misbehavior: list = field(default_factory=list)
+    misbehavior: List[Misbehavior] = field(default_factory=list)
     hash: bytes = b""
     height: int = 0
     time_ns: int = 0
@@ -270,7 +286,7 @@ class ResponseVerifyVoteExtension:
 class RequestFinalizeBlock:
     txs: List[bytes] = field(default_factory=list)
     decided_last_commit: Optional[object] = None
-    misbehavior: list = field(default_factory=list)
+    misbehavior: List[Misbehavior] = field(default_factory=list)
     hash: bytes = b""
     height: int = 0
     time_ns: int = 0

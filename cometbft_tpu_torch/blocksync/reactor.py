@@ -39,7 +39,7 @@ import time
 import traceback
 from typing import Callable, Optional
 
-from ..crypto.scheduler import DeviceRouteError
+from ..crypto.scheduler import DeviceRouteError, resolved
 from ..device import resolve
 from ..trace import NOOP as TRACE_NOOP
 from ..types.block import BlockID
@@ -85,6 +85,10 @@ class _PrefixErrors:
         self._h = handle
         self._n = n
 
+    @property
+    def tickets(self):
+        return self._h.tickets
+
     def result(self):
         return self._h.result()[: self._n]
 
@@ -100,6 +104,10 @@ class _SplicedErrors:
         self._a = pre
         self._b = rest
         self._n = n
+
+    @property
+    def tickets(self):
+        return self._a.tickets + self._b.tickets
 
     def result(self):
         return self._a.result()[: self._n] + self._b.result()
@@ -254,6 +262,10 @@ class BlockSyncReactor:
             return 0
         window, jobs, handle = prep
         with self.tracer.span("blocksync.window.verify_wait", tid="blocksync", jobs=len(jobs)):
+            # the tickets are awaited on the loop, so the executor
+            # thread only folds verdicts and never waits on the card
+            for ticket in handle.tickets:
+                await resolved(ticket)
             errors = await asyncio.get_running_loop().run_in_executor(None, handle.result)
         pre = self._predispatch_lookahead(len(jobs))
         with self.tracer.span("blocksync.window.apply", tid="blocksync", jobs=len(jobs)):

@@ -20,8 +20,9 @@ machine's ``device`` (None is the GPU, and raises without one;
 ``device="cpu"`` the host plane or the plain kernels): the in-round
 vote coalescer's waves, the ``commit_block`` catch-up commit and its
 extended commit, and the proposal's LastCommit in ``validate_block``,
-all at ``PRIORITY_LIVE``. The evidence pool stays ``None`` until it is
-ported.
+all at ``PRIORITY_LIVE``. A peer's vote that conflicts with one held
+becomes duplicate-vote evidence in the evidence pool, which checks it
+on the host.
 
 Departure (ROADMAP C3): where the JAX module turns any exception into
 a verdict — the coalescer's callback drops the vote as forged,

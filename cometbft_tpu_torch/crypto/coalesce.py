@@ -147,9 +147,8 @@ class CoalescingVerifier:
                 label="vote-wave",
                 device=self.device,
             )
-            # the blocking resolve rides a worker thread: the loop
-            # stays free
-            _, oks = await asyncio.to_thread(ticket.result)
+            # awaited on the loop, holding no thread
+            _, oks = await crypto_sched.resolved(ticket)
         except asyncio.CancelledError:
             raise
         except Exception as e:

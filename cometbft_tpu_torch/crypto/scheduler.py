@@ -38,12 +38,19 @@ resolved with host verdicts in place of the device's. A failing host
 chunk still falls back to per-item host verification, as in the JAX
 package.
 
+Waiting: ``resolved(ticket)`` awaits a ticket on an event loop without
+holding a thread (an executor thread blocked on a ticket that never
+resolves keeps its process from exiting), and ``close`` resolves every
+ticket it leaves unrouted with a ``DeviceRouteError``, so no waiter is
+left blocked by a closed scheduler.
+
 The JAX package's ``"mesh"`` backend (lanes sharded over several
 devices) is not ported yet.
 """
 
 from __future__ import annotations
 
+import asyncio
 import threading
 import time
 from collections import deque
@@ -95,6 +102,7 @@ class VerifyTicket:
     __slots__ = (
         "items", "priority", "label", "device", "t_submit", "t_done", "oks",
         "backend", "_chunks", "_units_left", "_event", "_routed", "_error",
+        "_callbacks",
     )
 
     def __init__(self, items, priority: int, label: str, device=None) -> None:
@@ -111,6 +119,7 @@ class VerifyTicket:
         self._event = threading.Event()
         self._routed = False
         self._error: Optional[BaseException] = None
+        self._callbacks: list = []
 
     def result(self, timeout: Optional[float] = None) -> Tuple[bool, List[bool]]:
         if not self._event.wait(timeout):
@@ -126,6 +135,23 @@ class VerifyTicket:
 
     def done(self) -> bool:
         return self._event.is_set()
+
+    def add_done_callback(self, fn) -> None:
+        """Call ``fn(ticket)`` once, when the ticket resolves (now, if
+        it has), on the thread that resolves it."""
+        self._callbacks.append(fn)
+        if self._event.is_set():
+            self._run_callbacks()
+
+    def _run_callbacks(self) -> None:
+        # list.pop is atomic: each callback runs once, whichever of the
+        # resolving and the registering thread pops it
+        while True:
+            try:
+                fn = self._callbacks.pop()
+            except IndexError:
+                return
+            fn(self)
 
     def wall(self) -> Optional[float]:
         """Submit → resolve wall (queue wait included: the latency the
@@ -482,6 +508,7 @@ class VerifyScheduler:
                 lanes=len(ticket.items),
             )
         ticket._event.set()
+        ticket._run_callbacks()
 
     # --- observability / lifecycle -------------------------------------
 
@@ -535,7 +562,10 @@ class VerifyScheduler:
         return True
 
     def close(self) -> None:
-        """Stop the dispatcher after the queue drains."""
+        """Stop the dispatcher after the queue drains; a ticket still
+        queued then (the drain ran out of time, or the dispatcher
+        stopped with every slot busy) resolves with a DeviceRouteError:
+        it was not verified."""
         self.drain(timeout=5.0)
         with self._cv:
             self._closed = True
@@ -543,6 +573,37 @@ class VerifyScheduler:
         t = self._thread
         if t is not None:
             t.join(timeout=5.0)
+        with self._cv:
+            left = {id(tk): tk for q in self._queues for tk in q}
+            for q in self._queues:
+                q.clear()
+        for tk in left.values():
+            self._fail(tk, RuntimeError("verify scheduler closed before the ticket was verified"))
+
+
+async def resolved(ticket: Optional[VerifyTicket]) -> Optional[Tuple[bool, List[bool]]]:
+    """Await ``ticket`` on the running event loop without holding a
+    thread; its ``result()`` (None for no ticket)."""
+    if ticket is None:
+        return None
+    if not ticket.done():
+        loop = asyncio.get_running_loop()
+        fut = loop.create_future()
+
+        def wake(_ticket) -> None:
+            try:
+                loop.call_soon_threadsafe(_set_done, fut)
+            except RuntimeError:
+                pass  # the loop closed: nobody waits any more
+
+        ticket.add_done_callback(wake)
+        await fut
+    return ticket.result(0)
+
+
+def _set_done(fut) -> None:
+    if not fut.done():
+        fut.set_result(None)
 
 
 def _host_verify_one(item) -> bool:

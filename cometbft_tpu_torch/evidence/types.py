@@ -7,8 +7,8 @@ encodings and hashes byte for byte:
 - ``LightClientAttackEvidence``: a conflicting light block, the common
   height and the byzantine validators, derived by ``byzantine_from``.
 
-The evidence pool and blocks that carry evidence wait for a later
-slice.
+Blocks carry them (``utils/codec.py``); ``evidence/pool.py`` verifies
+them and ``evidence/reactor.py`` gossips them.
 """
 
 from __future__ import annotations

@@ -7,8 +7,10 @@ committed pair in key order, kept incremental by a sorted chunk cache
 so a block costs its own writes, not the whole state. Queries read
 the committed state; ProcessProposal refuses a block with a malformed
 tx; vote extensions are bound to (height, block hash), as in the
-reference's e2e app. The provable hash (and so query proofs),
-snapshots and the persistence file are not ported.
+reference's e2e app; every Misbehavior that FinalizeBlock delivers is
+kept in ``misbehavior_seen``, the app-side slashing record. The
+provable hash (and so query proofs), snapshots and the persistence
+file are not ported.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ class KVStoreApplication(abci.Application):
         self.staged: Dict[bytes, bytes] = {}
         self.val_updates: List[abci.ValidatorUpdate] = []
         self._pending = None
+        # (block height, type, validator address, power, evidence height)
+        self.misbehavior_seen: List[tuple] = []
         self.extensions_verified = 0  # accepted VerifyVoteExtension calls
 
     # --- hashing ------------------------------------------------------
@@ -171,6 +175,10 @@ class KVStoreApplication(abci.Application):
     def finalize_block(self, req):
         self.staged = {}
         self.val_updates = []
+        for mb in req.misbehavior:
+            self.misbehavior_seen.append(
+                (req.height, mb.type_, bytes(mb.validator_address), mb.validator_power, mb.height)
+            )
         results = [self._exec_tx(tx) for tx in req.txs]
         pending = dict(self.state)
         pending.update(self.staged)

@@ -4,14 +4,15 @@ The part of the JAX package's ``node/inprocess.py`` that replay and
 in-process consensus need (reference consensus/common_test.go
 randConsensusNet): ``build_node`` wires the kv stores, the kvstore app
 behind a local ABCI client, the mempool, the block executor, the ABCI
-handshake, the event bus and the consensus state machine (``cs``, with
-a WAL on disk when ``wal=True``); ``LocalNet`` connects N nodes' state
-machines by in-memory delivery; ``make_genesis`` makes a genesis whose
+handshake, the event bus, the evidence pool (``evpool``, over its own
+in-memory kv, as in the JAX package) and the consensus state machine
+(``cs``, with a WAL on disk when ``wal=True``); ``LocalNet`` connects
+N nodes' state machines by in-memory delivery; ``make_genesis`` makes a genesis whose
 keys come from a seeded ``np.random.default_rng``, as ``bench.py``'s
 replay corpus does, and ``make_privvals`` file-backed signers over
 them. The networked node over these parts is ``node/node.py``'s
-``Node``; the evidence pool, the indexer, retention, snapshots and
-tracing are not ported.
+``Node``; the indexer, retention, snapshots and tracing are not
+ported.
 
 ``device`` is where the node's signature checks run: None is the GPU
 and raises without one; ``device="cpu"`` runs them on the host plane.
@@ -37,6 +38,7 @@ from ..consensus.replay import Handshaker
 from ..consensus.state import ConsensusState
 from ..crypto.keys import Ed25519PrivKey
 from ..device import resolve
+from ..evidence.pool import EvidencePool
 from ..mempool.mempool import CListMempool
 from ..models.kvstore import KVStoreApplication
 from ..privval import FilePV
@@ -67,6 +69,7 @@ class NodeParts:
     privval: Optional[FilePV] = None
     event_bus: Optional[ev.EventBus] = None
     cs: Optional[ConsensusState] = None
+    evpool: Optional[EvidencePool] = None
 
     def close_stores(self) -> None:
         """Release the store handles. Idempotent."""
@@ -114,6 +117,7 @@ def build_node(
         state = genesis.make_genesis_state()
         state_store.save(state)
     state = Handshaker(state_store, state, block_store, genesis).handshake(proxy)
+    evpool = EvidencePool(kv.MemKV(), state_store, block_store, device=device)
     mempool = CListMempool(
         proxy.mempool,
         cache_size=config.mempool.cache_size,
@@ -125,6 +129,7 @@ def build_node(
         state_store,
         proxy.consensus,
         mempool,
+        evidence_pool=evpool,
         block_store=block_store,
         block_time_tolerance_ns=config.consensus.block_time_tolerance_ns,
         device=device,
@@ -142,6 +147,7 @@ def build_node(
         priv_validator=privval,
         event_bus=event_bus,
         wal_path=wal_path,
+        evidence_pool=evpool,
         device=device,
     )
     return NodeParts(
@@ -160,6 +166,7 @@ def build_node(
         privval=privval,
         event_bus=event_bus,
         cs=cs,
+        evpool=evpool,
     )
 
 

@@ -14,16 +14,18 @@ A copy of the JAX package's ``node/node.py``: the constructor,
 ``block_id_hash_at`` and the blocksync-to-consensus hand-off. The node
 runs its signature checks on ``device`` (None is the GPU, and raises
 without one; ``device="cpu"`` the host plane or the plain kernels): the
-consensus state machine, the consensus reactor's vote waves and the
-blocksync windows all take it. Not ported, and refused with
-``NotImplementedError`` when the config asks for them (ROADMAP A8,
-A10): lp2p, PEX and seeds, the statesync reactor, RPC and gRPC, the
-app and nop mempools, the reactor autopool, the metrics and profiling
-servers and the stuck-task watchdog. The evidence reactor waits for
-the evidence pool (A6); the obs plane's loop watchdog, queue registry
-and staged shutdown guard (A10) are replaced by plain per-stage
-timeouts in ``_shutdown``; the indexer and retention do not exist in
-the port.
+consensus state machine, the consensus reactor's vote waves, the
+blocksync windows and the evidence pool all take it. The evidence
+reactor gossips the pool on channel 0x38; ``add_evidence`` hands the
+pool evidence directly, where the JAX node's RPC ``broadcast_evidence``
+does, with the reactor's retry when the verify route fails (C3). Not
+ported, and refused with ``NotImplementedError`` when the config asks
+for them (ROADMAP A8, A10): lp2p, PEX and seeds, the statesync
+reactor, RPC and gRPC, the app and nop mempools, the reactor autopool,
+the metrics and profiling servers and the stuck-task watchdog. The obs
+plane's loop watchdog, queue registry and staged shutdown guard (A10)
+are replaced by plain per-stage timeouts in ``_shutdown``; the indexer
+and retention do not exist in the port.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ..blocksync.net_reactor import BlockSyncNetReactor
 from ..config import Config
 from ..consensus.reactor import ConsensusReactor
 from ..device import resolve
+from ..evidence.reactor import EvidenceReactor
 from ..mempool.reactor import MempoolReactor
 from ..p2p import NodeInfo, NodeKey, Switch, TCPTransport
 from ..types.genesis import GenesisDoc
@@ -150,6 +153,7 @@ class Node:
             batch_max_txs=config.mempool.batch_max_txs,
             batch_flush_ms=config.mempool.batch_flush_ms,
         )
+        self.evidence_reactor = EvidenceReactor(self.parts.evpool)
         self.blocksync_reactor = BlockSyncNetReactor(
             self.parts.state,
             self.parts.block_exec,
@@ -162,6 +166,7 @@ class Node:
         )
         self.switch.add_reactor("consensus", self.consensus_reactor)
         self.switch.add_reactor("mempool", self.mempool_reactor)
+        self.switch.add_reactor("evidence", self.evidence_reactor)
         self.switch.add_reactor("blocksync", self.blocksync_reactor)
         self._adaptive = adaptive
         self._cs_started = False
@@ -275,6 +280,14 @@ class Node:
 
     async def dial(self, addr: str, persistent: bool = False):
         return await self.switch.dial_peer(addr, persistent=persistent)
+
+    async def add_evidence(self, ev) -> None:
+        """Hand evidence to this node's pool: pending and gossiped when
+        this returns; a refusal raises the pool's error; a failed
+        verify route raises ``DeviceRouteError`` and the evidence
+        reactor checks it again until it has a verdict. The commit
+        checks' tickets are awaited on the node's event loop."""
+        await self.evidence_reactor.add_evidence(ev)
 
     @property
     def height(self) -> int:

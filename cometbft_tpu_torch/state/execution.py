@@ -11,8 +11,11 @@ tolerance, ``apply_block`` / ``apply_verified_block`` (:246-258) as the
 three phases ``apply_finalize``, ``apply_hash_persist`` and
 ``apply_complete``, ``_commit`` with the mempool update (:446-509) and
 ``_update_state`` (:694). Commit checks run on the executor's
-``device``. The evidence pool, the event bus and pruning are not
-ported: blocks carry no evidence here.
+``device``. With an evidence pool, a proposal carries the pool's
+pending evidence, every ABCI call that takes a block hands the app its
+evidence as ``Misbehavior`` (``evidence_to_misbehavior``), and the
+commit phase tells the pool what was committed (``evpool.update``).
+The event bus and pruning are not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from ..abci import types as abci
 from ..crypto import merkle
 from ..crypto.keys import pubkey_from_type_bytes
 from ..device import resolve
+from ..evidence.types import DuplicateVoteEvidence, LightClientAttackEvidence
 from ..types.block import Block, BlockID, Commit, Data, Header
 from ..types.part_set import PartSet
 from ..types.signature_cache import SignatureCache
@@ -165,12 +169,45 @@ def build_extended_commit_info(ec, last_vals):
     return abci.ExtendedCommitInfo(round=ec.round, votes=votes)
 
 
+def evidence_to_misbehavior(evidence) -> List[abci.Misbehavior]:
+    """ABCI Misbehavior records from block evidence (reference
+    types/evidence.go ABCI(): a duplicate vote maps to one record, a
+    light-client attack to one per byzantine validator)."""
+    out = []
+    for e in evidence:
+        if isinstance(e, DuplicateVoteEvidence):
+            out.append(
+                abci.Misbehavior(
+                    type_=abci.MISBEHAVIOR_DUPLICATE_VOTE,
+                    validator_address=e.vote_a.validator_address,
+                    validator_power=e.validator_power,
+                    height=e.height(),
+                    time_ns=e.timestamp_ns,
+                    total_voting_power=e.total_voting_power,
+                )
+            )
+        elif isinstance(e, LightClientAttackEvidence):
+            for v in e.byzantine_validators:
+                out.append(
+                    abci.Misbehavior(
+                        type_=abci.MISBEHAVIOR_LIGHT_CLIENT_ATTACK,
+                        validator_address=v.address,
+                        validator_power=v.voting_power,
+                        height=e.common_height,
+                        time_ns=e.timestamp_ns,
+                        total_voting_power=e.total_voting_power,
+                    )
+                )
+    return out
+
+
 class BlockExecutor:
     def __init__(
         self,
         state_store,
         proxy_consensus,
         mempool,
+        evidence_pool=None,
         block_store=None,
         signature_cache: Optional[SignatureCache] = None,
         block_time_tolerance_ns: int = DEFAULT_BLOCK_TIME_TOLERANCE_NS,
@@ -179,6 +216,7 @@ class BlockExecutor:
         self.store = state_store
         self.proxy = proxy_consensus
         self.mempool = mempool
+        self.evpool = evidence_pool
         self.block_store = block_store
         self.sig_cache = signature_cache or SignatureCache()
         self.tolerance_ns = block_time_tolerance_ns
@@ -225,6 +263,11 @@ class BlockExecutor:
     ) -> Tuple[Block, PartSet]:
         max_bytes = state.consensus_params.block.max_bytes
         max_gas = state.consensus_params.block.max_gas
+        evidence = (
+            self.evpool.pending_evidence(state.consensus_params.evidence.max_bytes)
+            if self.evpool
+            else []
+        )
         txs = self.mempool.reap_max_bytes_max_gas(max_bytes - 2048, max_gas)
         t = time_ns or time.time_ns()
         if extended_commit is not None:
@@ -237,16 +280,17 @@ class BlockExecutor:
             max_tx_bytes=max_bytes - 2048,
             txs=txs,
             local_last_commit=lci,
+            misbehavior=evidence_to_misbehavior(evidence),
             height=height,
             time_ns=t,
             next_validators_hash=state.next_validators.hash(),
             proposer_address=proposer_addr,
         )
         resp = self.proxy.prepare_proposal(req)
-        block = self._make_block(height, state, resp.txs, last_commit, proposer_addr, t)
+        block = self._make_block(height, state, resp.txs, last_commit, evidence, proposer_addr, t)
         return block, PartSet.from_data(codec.encode_block(block))
 
-    def _make_block(self, height, state, txs, last_commit, proposer_addr, t) -> Block:
+    def _make_block(self, height, state, txs, last_commit, evidence, proposer_addr, t) -> Block:
         data = Data(txs=list(txs))
         header = Header(
             version_block=BLOCK_VERSION,
@@ -261,10 +305,10 @@ class BlockExecutor:
             consensus_hash=state.consensus_params.hash(),
             app_hash=state.app_hash,
             last_results_hash=state.last_results_hash,
-            evidence_hash=merkle.hash_from_byte_slices([]),
+            evidence_hash=merkle.hash_from_byte_slices([e.hash() for e in evidence]),
             proposer_address=proposer_addr,
         )
-        return Block(header=header, data=data, last_commit=last_commit)
+        return Block(header=header, data=data, evidence=evidence, last_commit=last_commit)
 
     # --- proposal processing (reference :177) -------------------------
 
@@ -272,6 +316,7 @@ class BlockExecutor:
         req = abci.RequestProcessProposal(
             txs=block.data.txs,
             proposed_last_commit=build_last_commit_info(block.last_commit, state.last_validators),
+            misbehavior=evidence_to_misbehavior(block.evidence),
             hash=block.hash(),
             height=block.height,
             time_ns=block.header.time_ns,
@@ -319,6 +364,7 @@ class BlockExecutor:
         req = abci.RequestFinalizeBlock(
             txs=block.data.txs,
             decided_last_commit=build_last_commit_info(block.last_commit, state.last_validators),
+            misbehavior=evidence_to_misbehavior(block.evidence),
             hash=block.hash(),
             height=block.height,
             time_ns=block.header.time_ns,
@@ -340,8 +386,11 @@ class BlockExecutor:
         return self._update_state(state, block_id, block, resp, artifacts), artifacts
 
     def apply_complete(self, new_state: State, block: Block, resp) -> State:
-        """Phase 3: the app's Commit and the mempool update."""
+        """Phase 3: the app's Commit, the mempool update and the
+        evidence pool's update."""
         self._commit(block, resp)
+        if self.evpool:
+            self.evpool.update(new_state, block.evidence)
         return new_state
 
     def apply_verified_block(self, state: State, block_id: BlockID, block: Block) -> State:

@@ -67,5 +67,5 @@ def validate_block(
                 priority=priority,
                 device=device,
             )
-    if block.evidence:
-        raise ValueError("block evidence is not supported")
+    for ev in block.evidence:
+        ev.validate_basic()

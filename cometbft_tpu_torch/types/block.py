@@ -235,9 +235,8 @@ class Data:
 
 @dataclass
 class Block:
-    """A block; ``evidence`` stays empty (the evidence pool is not
-    ported, and ``codec.decode_block`` refuses a block that carries
-    any)."""
+    """A block; ``evidence`` holds its duplicate-vote and light-client
+    attack evidence (``evidence/types.py``)."""
 
     header: Header
     data: Data = field(default_factory=Data)

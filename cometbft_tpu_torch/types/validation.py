@@ -2,7 +2,8 @@
 
 Port of the JAX package's ``types/validation.py`` (reference
 types/validation.go): ``verify_commit`` (:30), ``verify_commit_light``
-(:65), ``verify_commit_light_trusting`` (:148), the cross-height
+(:65), ``verify_commit_light_trusting`` (:148), their ``_awaited``
+forms awaited on an event loop, the cross-height
 ``verify_commits_coalesced(_async)``, the mixed light/trusting
 ``verify_commit_jobs_coalesced`` and ``verify_extended_commit``, with
 the same error classes and messages. Every multi-signature check
@@ -143,6 +144,12 @@ class _BatchHandle:
         self._pending = pending
         self._cache = cache
 
+    @property
+    def tickets(self):
+        """The scheduler tickets behind the verdicts (none when every
+        lane was cached)."""
+        return () if self._pending is None else (self._pending,)
+
     def result(self):
         items, cache = self._items, self._cache
         oks = [True] * len(items)
@@ -167,6 +174,23 @@ def _run_batch(
     if not items:
         return []
     return _run_batch_async(items, cache, priority, label, device).result()
+
+
+async def _run_batch_awaited(
+    items,
+    cache: Optional[SignatureCache],
+    priority: Optional[int] = None,
+    label: str = "",
+    device=None,
+):
+    """``_run_batch`` with the ticket awaited on the running event
+    loop: neither the loop nor a thread waits on the card."""
+    if not items:
+        return []
+    handle = _run_batch_async(items, cache, priority, label, device)
+    for ticket in handle.tickets:
+        await crypto_sched.resolved(ticket)
+    return handle.result()
 
 
 def verify_commit(
@@ -335,6 +359,27 @@ def verify_commit_light(
     _fold_light_lanes(lanes, oks, vals, commit)
 
 
+async def verify_commit_light_awaited(
+    chain_id: str,
+    vals: ValidatorSet,
+    block_id: BlockID,
+    height: int,
+    commit: Commit,
+    cache: Optional[SignatureCache] = None,
+    all_signatures: bool = False,
+    priority: Optional[int] = None,
+    device=None,
+) -> None:
+    """``verify_commit_light`` awaited on the running event loop."""
+    device = resolve(device)
+    items: list = []
+    lanes = _collect_light_lanes(
+        chain_id, vals, block_id, height, commit, all_signatures, items
+    )
+    oks = await _run_batch_awaited(items, cache, priority, "light", device)
+    _fold_light_lanes(lanes, oks, vals, commit)
+
+
 def verify_commits_coalesced_async(
     chain_id: str,
     jobs,
@@ -393,6 +438,10 @@ class _CoalescedHandle:
         self._jobs = jobs
         self._job_lanes = job_lanes
         self._errors = errors
+
+    @property
+    def tickets(self):
+        return self._batch.tickets
 
     def result(self):
         oks = self._batch.result()
@@ -512,6 +561,27 @@ def verify_commit_light_trusting(
         chain_id, vals, commit, trust_level, all_signatures, items
     )
     oks = _run_batch(items, cache, priority, "trusting", device)
+    _fold_trusting_lanes(lanes, oks, total, need, trust_level)
+
+
+async def verify_commit_light_trusting_awaited(
+    chain_id: str,
+    vals: ValidatorSet,
+    commit: Commit,
+    trust_level: Fraction = Fraction(1, 3),
+    cache: Optional[SignatureCache] = None,
+    all_signatures: bool = False,
+    priority: Optional[int] = None,
+    device=None,
+) -> None:
+    """``verify_commit_light_trusting`` awaited on the running event
+    loop."""
+    device = resolve(device)
+    items: list = []
+    lanes, total, need = _collect_trusting_lanes(
+        chain_id, vals, commit, trust_level, all_signatures, items
+    )
+    oks = await _run_batch_awaited(items, cache, priority, "trusting", device)
     _fold_trusting_lanes(lanes, oks, total, need, trust_level)
 
 

@@ -15,17 +15,24 @@ plays a chain's validators against a node's consensus state machine
 ``StubPeer`` carries the stubs' messages to a node over the wire: a
 p2p switch with a harness reactor on the consensus channels, which
 sends each message encoded by the consensus reactor's own codec.
+``conflicting_block``, ``light_attack`` and ``equivocating_votes``
+make the Byzantine side's evidence: a fork of a committed height
+signed by some of its validators, the light-client-attack evidence
+against it, and two conflicting votes by one key.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import struct
 import time
 from dataclasses import dataclass
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 from ..config.config import P2PConfig
+from ..evidence.reactor import EVIDENCE_CHANNEL, EvidenceReactor
+from ..evidence.types import LightClientAttackEvidence, decode_evidence
 from ..consensus.reactor import (
     DATA_CHANNEL,
     MSG_HAS_VOTE,
@@ -156,6 +163,79 @@ class TamperingPeerClient(StorePeerClient):
             if hasattr(blk, "_raw_bytes"):  # decoded objects are immutable
                 del blk._raw_bytes
         return blk
+
+
+# the app hash a conflicting block's header claims
+FORK_APP_HASH = b"\x66" * 32
+
+
+def conflicting_block(node: NodeParts, privs, height: int, signers=None) -> LightBlock:
+    """A block that conflicts with ``node``'s committed block at
+    ``height``: its header with ``FORK_APP_HASH``, under a commit
+    for it. ``signers=None``: every validator of the height signs, with
+    the height's own set (an equivocation fork); else the keys in
+    ``signers`` sign and the header claims a set of just them, at
+    their powers (a lunatic fork). ``privs``: the keys, raw."""
+    real = node.block_store.load_block(height).header
+    vals = node.state_store.load_validators(height)
+    if signers is not None:
+        chosen = {p.pub_key().address() for p in signers}
+        vals = ValidatorSet([v for v in vals.validators if v.address in chosen])
+    header = dataclasses.replace(
+        real, app_hash=FORK_APP_HASH, validators_hash=vals.hash(), next_validators_hash=vals.hash()
+    )
+    bid = BlockID(header.hash(), PartSetHeader(1, header.hash()))
+    by_addr = {p.pub_key().address(): p for p in privs}
+    sigs = []
+    for i, val in enumerate(vals.validators):
+        vote = Vote(
+            type_=PRECOMMIT, height=height, round=0, block_id=bid,
+            timestamp_ns=header.time_ns, validator_address=val.address, validator_index=i,
+        )
+        sigs.append(
+            CommitSig(
+                block_id_flag=BLOCK_ID_FLAG_COMMIT,
+                validator_address=val.address,
+                timestamp_ns=header.time_ns,
+                signature=by_addr[val.address].sign(vote.sign_bytes(header.chain_id)),
+            )
+        )
+    return LightBlock(header, Commit(height=height, round=0, block_id=bid, signatures=sigs), vals)
+
+
+def light_attack(node: NodeParts, block: LightBlock, common_height: int,
+                 timestamp_ns: int = 0) -> LightClientAttackEvidence:
+    """Light-client-attack evidence against ``block`` from
+    ``common_height``, with the byzantine set and total power derived
+    from ``node``'s validator set at that height, as the light
+    client's detector builds it."""
+    common = node.state_store.load_validators(common_height)
+    ev = LightClientAttackEvidence(
+        conflicting_block=block,
+        common_height=common_height,
+        total_voting_power=common.total_voting_power(),
+        timestamp_ns=timestamp_ns or block.header.time_ns,
+    )
+    ev.byzantine_validators = ev.byzantine_from(common)
+    return ev
+
+
+def equivocating_votes(priv, index: int, chain_id: str, height: int, round_: int,
+                       time_ns: int = 0) -> Tuple[Vote, Vote]:
+    """Two prevotes by ``priv`` (the validator at ``index``) for the
+    same height and round but two made-up blocks, each signed: an
+    equivocation, not a forgery."""
+    votes = []
+    for tag in (b"\xaa", b"\xbb"):
+        v = Vote(
+            type_=PREVOTE, height=height, round=round_,
+            block_id=BlockID(tag * 32, PartSetHeader(1, tag * 32)),
+            timestamp_ns=time_ns or time.time_ns(),
+            validator_address=priv.pub_key().address(), validator_index=index,
+        )
+        v.signature = priv.sign(v.sign_bytes(chain_id))
+        votes.append(v)
+    return votes[0], votes[1]
 
 
 class RotatingLightProvider(Provider):
@@ -430,6 +510,22 @@ class StubConsensusReactor(Reactor):
             self.has_votes.add(struct.unpack(">qiBi", msg[1:]))
 
 
+class StubEvidenceReactor(Reactor):
+    """The harness side of the evidence channel (0x38): keeps every
+    piece of evidence the node gossips to it, decoded, and checks
+    nothing."""
+
+    name = "evidence"
+    get_channels = EvidenceReactor.get_channels
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.received: list = []
+
+    def receive(self, chan_id: int, peer, msg: bytes) -> None:
+        self.received.append(decode_evidence(msg))
+
+
 class StubPeer:
     """The validator stubs as a peer on the wire (reference
     consensus/common_test.go ``validatorStub``, over p2p instead of
@@ -441,7 +537,9 @@ class StubPeer:
     reactor's ``encode_proposal_msg``, ``encode_block_part_msg`` and
     ``encode_vote_msg``; ``send_votes`` re-sends votes, as a real
     peer's gossip routine re-sends the ones the node has not
-    acknowledged."""
+    acknowledged. A ``StubEvidenceReactor`` holds the evidence channel:
+    ``send_evidence`` sends a piece of evidence as a peer's evidence
+    reactor does."""
 
     def __init__(self, chain_id: str):
         self.node_key = NodeKey.generate()
@@ -461,6 +559,8 @@ class StubPeer:
         )
         self.reactor = StubConsensusReactor()
         self.switch.add_reactor("consensus", self.reactor)
+        self.evidence = StubEvidenceReactor()
+        self.switch.add_reactor("evidence", self.evidence)
         self.peer = None
 
     async def connect(self, addr: str) -> None:
@@ -485,6 +585,9 @@ class StubPeer:
     def send_votes(self, votes) -> None:
         for v in votes:
             self._send(VOTE_CHANNEL, encode_vote_msg(v))
+
+    def send_evidence(self, ev) -> None:
+        self._send(EVIDENCE_CHANNEL, ev.encode())
 
     def acknowledged(self, v: Vote) -> bool:
         """Whether the node sent a HasVote for ``v``."""

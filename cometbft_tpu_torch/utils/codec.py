@@ -4,9 +4,8 @@ A copy of the portable paths of the JAX package's ``utils/codec.py``:
 block ID, header, commit sig, commit, extended commit, block, vote,
 validator and validator set, and proposal, in the same proto wire
 format and field numbers, so bytes written by one package decode in
-the other. The native wirecodec is not loaded. Evidence
-has its own encoding (``evidence/types.py``), but blocks that carry
-it wait for the evidence pool: ``decode_block`` refuses them.
+the other. The native wirecodec is not loaded. A block's evidence
+(field 4) is each piece's own encoding (``evidence/types.py``).
 """
 
 from __future__ import annotations
@@ -319,15 +318,17 @@ def encode_block(blk: Block) -> bytes:
     out += proto.field_message(2, data)
     if blk.last_commit is not None:
         out += proto.field_message(3, encode_commit(blk.last_commit))
-    if blk.evidence:
-        raise ValueError("block carries evidence, which this package does not encode")
+    for ev in blk.evidence:
+        out += proto.field_message(4, ev.encode())
     return out
 
 
 def decode_block(b: bytes) -> Block:
+    # evidence/types.py encodes with this module: imported here, not at
+    # the top, to break the cycle
+    from ..evidence.types import decode_evidence
+
     m = proto.parse(b)
-    if 4 in m:
-        raise ValueError("block carries evidence, which this package does not decode")
     datab = proto.get1(m, 2, b"")
     txs = proto.parse(datab).get(1, []) if datab else []
     lc = proto.get1(m, 3)
@@ -335,6 +336,7 @@ def decode_block(b: bytes) -> Block:
         header=decode_header(proto.get1(m, 1, b"")),
         data=Data(txs=txs),
         last_commit=decode_commit(lc) if lc is not None else None,
+        evidence=[decode_evidence(e) for e in m.get(4, [])],
     )
     # Memoized wire form (replay hot path): the block store and the
     # blocksync apply loop re-serialize every synced block (PartSet

@@ -27,6 +27,7 @@ from cometbft_tpu_torch.types.validation import (
     verify_commits_coalesced_async,
 )
 from cometbft_tpu_torch.utils.chaingen import StorePeerClient, make_chain
+from torch_hard_limit import hard_limit  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -155,6 +156,52 @@ def test_pipeline_discards_on_refetch():
     assert reactor._process_window(reactor.pool.peek_window(16)) >= 5
     assert reactor.pipeline_stats["dispatched"] == before + 1
     assert fresh.block_store.load_block(12).hash() == src.block_store.load_block(12).hash()
+
+
+@pytest.mark.parametrize("lookahead", ["shorter", "longer"])
+def test_overlapped_pass_reuses_partial_lookahead(lookahead):
+    """Direct drive of _process_window_overlapped when the lookahead
+    and the next window differ in length: a shorter lookahead is
+    spliced with a fresh dispatch of the rest, a longer one gives up
+    its prefix. Both passes await every ticket behind the handle and
+    apply the window from the reused verdicts."""
+    gen, privs = make_genesis(3, chain_id="pipe-splice")
+    src = make_chain(gen, privs, 24, device=CPU)
+    fresh = build_node(gen, device=CPU)
+    reactor = BlockSyncReactor(
+        fresh.state, fresh.block_exec, fresh.block_store, verify_window=8, device=CPU
+    )
+
+    def fill(h0, h1):
+        for h in range(h0, h1 + 1):
+            reactor.pool.blocks.setdefault(h, (src.block_store.load_block(h), "src"))
+
+    async def main():
+        if lookahead == "shorter":
+            # pass 1 sees 1..12: its lookahead covers 8..11 only, and the
+            # pool refills before pass 2, whose window verifies 8..14
+            fill(1, 12)
+            assert await reactor._process_window_overlapped(reactor.pool.peek_window(16)) == 7
+            fill(13, 24)
+            peek, applied, dispatched = 16, 7, 2
+        else:
+            # pass 1's lookahead covers 8..14; pass 2 applies 8..11 only
+            fill(1, 24)
+            assert await reactor._process_window_overlapped(reactor.pool.peek_window(16)) == 7
+            peek, applied, dispatched = 4, 4, 1
+        assert reactor._inflight is not None
+        assert await reactor._process_window_overlapped(reactor.pool.peek_window(peek)) == applied
+        return dispatched
+
+    dispatched = run(main())
+    stats = reactor.pipeline_stats
+    assert stats["reused"] == 1, stats
+    assert stats["discarded"] == 0, stats
+    assert stats["dispatched"] == dispatched, stats
+    assert reactor.loop_errors.count == 0, reactor.loop_errors
+    h = 7 + (7 if lookahead == "shorter" else 4)
+    assert fresh.block_store.height() == h
+    assert fresh.block_store.load_block(h).hash() == src.block_store.load_block(h).hash()
 
 
 def test_pipeline_discards_across_valset_change(monkeypatch):

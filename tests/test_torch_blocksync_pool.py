@@ -10,6 +10,7 @@ import pytest
 
 from cometbft_tpu_torch.blocksync import pool as pool_mod
 from cometbft_tpu_torch.blocksync.pool import BlockPool
+from torch_hard_limit import hard_limit  # noqa: F401
 
 
 class FakeClock:

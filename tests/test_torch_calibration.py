@@ -26,6 +26,7 @@ from cometbft_tpu_torch.crypto import scheduler as sched_mod
 from cometbft_tpu_torch.crypto.batch import _Calibration
 from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
 from cometbft_tpu_torch.ops import ed25519 as ed
+from torch_hard_limit import hard_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -28,6 +28,7 @@ from cometbft_tpu_torch.crypto import scheduler as sched_mod
 from cometbft_tpu_torch.crypto.coalesce import CoalescingVerifier
 from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
 from cometbft_tpu_torch.types.signature_cache import SignatureCache
+from torch_hard_limit import hard_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -26,6 +26,7 @@ from cometbft_tpu_torch.privval import DoubleSignError, FilePV
 from cometbft_tpu_torch.types.block import BlockID, PartSetHeader
 from cometbft_tpu_torch.types.validation import verify_commit
 from cometbft_tpu_torch.types.vote import PREVOTE, Vote
+from torch_hard_limit import hard_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

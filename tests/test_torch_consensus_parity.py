@@ -62,6 +62,7 @@ from cometbft_tpu_torch.ops import ed25519 as ops_ed
 from cometbft_tpu_torch.store.block_store import _encode_part
 from cometbft_tpu_torch.types.vote import PRECOMMIT, PREVOTE
 from cometbft_tpu_torch.utils import chaingen, codec
+from torch_hard_limit import hard_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

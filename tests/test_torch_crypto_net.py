@@ -20,6 +20,7 @@ from cometbft_tpu_torch.crypto import chacha20poly1305 as ccp
 from cometbft_tpu_torch.crypto import ref_ed25519 as ref
 from cometbft_tpu_torch.crypto import x25519
 from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+from torch_hard_limit import hard_limit  # noqa: F401
 
 TIERS = ["wheel", "ctypes", "pure"]
 

@@ -44,6 +44,7 @@ from cometbft_tpu_torch.ops import ed25519 as ed
 from cometbft_tpu_torch.types import block as B
 from cometbft_tpu_torch.types import validation as V
 from cometbft_tpu_torch.types.validator_set import Validator, ValidatorSet
+from torch_hard_limit import hard_limit  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -45,6 +45,7 @@ from cometbft_tpu_torch.light import verifier
 from cometbft_tpu_torch.light.client import Client, TrustOptions
 from cometbft_tpu_torch.light.detector import DivergenceError
 from cometbft_tpu_torch.utils.chaingen import RotatingLightProvider
+from torch_hard_limit import hard_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

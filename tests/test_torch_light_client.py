@@ -48,6 +48,7 @@ from cometbft_tpu_torch.node.inprocess import make_genesis
 from cometbft_tpu_torch.types.block import Commit, CommitSig
 from cometbft_tpu_torch.types.validator_set import ValidatorSet
 from cometbft_tpu_torch.utils import chaingen, kv
+from torch_hard_limit import hard_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

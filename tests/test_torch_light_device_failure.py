@@ -34,6 +34,7 @@ from cometbft_tpu_torch.light.detector import DivergenceError, check_against_wit
 from cometbft_tpu_torch.node.inprocess import make_genesis
 from cometbft_tpu_torch.ops import ed25519 as ops_ed
 from cometbft_tpu_torch.utils.chaingen import make_chain
+from torch_hard_limit import hard_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -37,6 +37,7 @@ from cometbft_tpu_torch.node.inprocess import make_genesis
 from cometbft_tpu_torch.types.block import BlockID, PartSetHeader
 from cometbft_tpu_torch.types.vote import PRECOMMIT, PREVOTE, Vote
 from cometbft_tpu_torch.utils import chaingen, codec, kv
+from torch_hard_limit import hard_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

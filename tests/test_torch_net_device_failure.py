@@ -36,6 +36,7 @@ from cometbft_tpu_torch.node.inprocess import build_node, make_genesis, make_pri
 from cometbft_tpu_torch.node.node import Node
 from cometbft_tpu_torch.p2p import ChannelDescriptor, NodeInfo, NodeKey, Reactor, Switch, TCPTransport
 from cometbft_tpu_torch.utils.chaingen import StubPeer, ValidatorStubs
+from torch_hard_limit import hard_limit  # noqa: F401
 
 FAULTS = [RuntimeError("card lost"), ValueError("bad launch config"), OSError(5, "I/O error")]
 FAULT_IDS = ["RuntimeError", "ValueError", "OSError"]

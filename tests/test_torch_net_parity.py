@@ -64,6 +64,7 @@ from cometbft_tpu_torch.p2p.conn.secret_connection import SecretConnection
 from cometbft_tpu_torch.p2p.key import node_id_from_pubkey
 from cometbft_tpu_torch.store.block_store import _encode_part
 from cometbft_tpu_torch.utils import chaingen, codec
+from torch_hard_limit import hard_limit  # noqa: F401
 
 CPU = "cpu"
 SEED = 8

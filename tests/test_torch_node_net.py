@@ -18,6 +18,7 @@ from cometbft_tpu_torch.crypto import parallel_verify as pv
 from cometbft_tpu_torch.crypto import scheduler as sched_mod
 from cometbft_tpu_torch.node.inprocess import make_genesis, make_privvals
 from cometbft_tpu_torch.node.node import Node
+from torch_hard_limit import hard_limit  # noqa: F401
 
 N_VALS = 4
 

@@ -23,6 +23,7 @@ from cometbft_tpu_torch.p2p.conn.secret_connection import (
     HandshakeError,
     SecretConnection,
 )
+from torch_hard_limit import hard_limit  # noqa: F401
 
 
 def run(coro, timeout=30):

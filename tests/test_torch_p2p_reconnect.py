@@ -20,6 +20,7 @@ import asyncio
 
 from cometbft_tpu_torch.p2p import ChannelDescriptor, MemoryTransport, NodeInfo, NodeKey, Reactor, Switch
 from cometbft_tpu_torch.trace import Tracer
+from torch_hard_limit import hard_limit  # noqa: F401
 
 
 def run(coro, timeout=60):

@@ -24,6 +24,7 @@ from cometbft_tpu_torch.crypto import ref_ed25519 as ref
 from cometbft_tpu_torch.crypto import scheduler as sched_mod
 from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey, Secp256k1PrivKey
 from cometbft_tpu_torch.crypto.parallel_verify import ParallelVerifyEngine
+from torch_hard_limit import hard_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -25,6 +25,7 @@ from cometbft_tpu_torch.crypto.scheduler import DeviceRouteError
 from cometbft_tpu_torch.node.inprocess import build_node, make_genesis
 from cometbft_tpu_torch.ops import ed25519 as ops_ed
 from cometbft_tpu_torch.utils.chaingen import StorePeerClient, make_chain
+from torch_hard_limit import hard_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

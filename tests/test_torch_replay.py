@@ -41,6 +41,7 @@ from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
 from cometbft_tpu_torch.node.inprocess import build_node, make_genesis
 from cometbft_tpu_torch.types.part_set import PartSet
 from cometbft_tpu_torch.utils import chaingen, codec
+from torch_hard_limit import hard_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

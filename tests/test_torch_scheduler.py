@@ -38,6 +38,7 @@ from cometbft_tpu_torch.crypto.scheduler import (
     VerifyTicket,
 )
 from cometbft_tpu_torch.ops import ed25519 as ops_ed
+from torch_hard_limit import hard_limit  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -490,3 +491,68 @@ def test_sched_stats_if_running_registry_contract(cpu_backend):
         s.close()
     finally:
         sched_mod._SCHED = old
+
+
+# --- waiting and closing leave no thread blocked --------------------------
+
+
+class _SlowHandle:
+    """A dispatch that is ready ``delay`` seconds after it was made."""
+
+    def __init__(self, oks, delay):
+        self.oks, self.delay = oks, delay
+
+    def wait(self):
+        time.sleep(self.delay)
+
+    def result(self):
+        return self.oks
+
+
+def test_resolved_awaits_a_ticket_without_a_thread(sched, restore_routing, monkeypatch):
+    """``resolved`` wakes the loop from the thread that resolves the
+    ticket: the loop's default executor is never made, and a failed
+    route raises there as from ``result()``."""
+    import asyncio
+
+    crypto_batch.set_default_backend("cuda")
+    crypto_batch.set_min_device_batch(1)
+    fail = {"on": False}
+
+    def slow_async(ed_items, device=None):
+        if fail["on"]:
+            raise RuntimeError("CUDA error: launch failed")
+        return _SlowHandle([True] * len(ed_items), 0.2)
+
+    monkeypatch.setattr(ops_ed, "verify_batch_async", slow_async)
+    items = make_items(6)
+
+    async def main():
+        loop = asyncio.get_running_loop()
+        ok, oks = await sched_mod.resolved(sched.submit(items, priority=PRIORITY_LIVE, device=CPU))
+        fail["on"] = True
+        with pytest.raises(sched_mod.DeviceRouteError):
+            await sched_mod.resolved(sched.submit(items, priority=PRIORITY_LIVE, device=CPU))
+        assert await sched_mod.resolved(None) is None
+        return ok, oks, loop._default_executor
+
+    ok, oks, executor = asyncio.run(main())
+    assert ok and oks == [True] * 6
+    assert executor is None
+
+
+def test_close_resolves_what_it_leaves_unrouted(cpu_backend, monkeypatch):
+    """A ticket still queued when the dispatcher stops (every slot busy
+    here) resolves with a DeviceRouteError: a waiter on it returns."""
+    s = VerifyScheduler()
+    monkeypatch.setattr(s, "_slots", lambda: 0)  # nothing is ever picked
+    monkeypatch.setattr(s, "drain", lambda timeout=30.0: False)
+    t = s.submit(make_items(3), priority=PRIORITY_CATCHUP, device=CPU)
+    waiter = threading.Thread(target=lambda: pytest.raises(sched_mod.DeviceRouteError, t.result))
+    waiter.start()
+    s.close()
+    waiter.join(timeout=10)
+    assert not waiter.is_alive()
+    assert t.done() and isinstance(t._error, sched_mod.DeviceRouteError)
+    assert "closed" in str(t._error.__cause__)
+    assert s.degraded == 1

@@ -39,6 +39,7 @@ from cometbft_tpu_torch.types import canonical as C
 from cometbft_tpu_torch.types import validation as V
 from cometbft_tpu_torch.types.signature_cache import SignatureCache
 from cometbft_tpu_torch.types.validator_set import Validator, ValidatorSet
+from torch_hard_limit import hard_limit  # noqa: F401
 
 # the plain versions run many small torch ops: one intra-op thread per
 # test process, so parallel test workers do not oversubscribe the cores

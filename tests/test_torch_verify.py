@@ -19,6 +19,7 @@ from cometbft_tpu.ops import fe25519 as jfe
 from cometbft_tpu_torch.crypto import ref_ed25519 as ref
 from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
 from cometbft_tpu_torch.ops import ed25519 as ed
+from torch_hard_limit import hard_limit  # noqa: F401
 
 # the plain versions run many small torch ops: one intra-op thread per
 # test process, so parallel test workers do not oversubscribe the cores

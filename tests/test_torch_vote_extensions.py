@@ -29,6 +29,7 @@ from cometbft_tpu_torch.types.block import (
 )
 from cometbft_tpu_torch.types.vote import PRECOMMIT, Vote
 from cometbft_tpu_torch.utils import codec
+from torch_hard_limit import hard_limit  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -35,6 +35,7 @@ from cometbft_tpu_torch.crypto import scheduler as sched_mod
 from cometbft_tpu_torch.node.inprocess import LocalNet, build_node, make_genesis, make_privvals
 from cometbft_tpu_torch.types.block import NIL_BLOCK_ID, BlockID, PartSetHeader
 from cometbft_tpu_torch.types.vote import PRECOMMIT, PREVOTE, Vote
+from torch_hard_limit import hard_limit  # noqa: F401
 
 torch.set_num_threads(1)
 
