@@ -189,15 +189,57 @@ Phases, each printing one JSON line:
    12a's widest tickets (evidence_max_abs_err), with its device time
    and bound at the trusting check's 150 lanes.
 
+13. RPC and the light serving plane, the device route pinned: (a)
+   serving_storm: config 4's chain (phase 9's keys and rotation,
+   headers minted once a height) served to bench.py::bench_serve's
+   storm, 1,000 sessions on 64 threads asking for 40 distinct heights
+   of [25,000, 50,000) drawn by default_rng(1013): a per-request pass
+   (a fresh Client for each distinct height: the reference blocks), a
+   cold pass on a fresh LightServingPlane (a pool of 8 clients) and a
+   warm pass on it; every served block must equal the reference's,
+   every plane ticket be a PRIORITY_LIGHT ticket on the card (none
+   degraded) launching each kernel once (counters zeroed just before
+   the plane's passes, read just after), and the engine's verdicts
+   equal serial verify_commit_light / verify_commit_light_trusting on
+   a valid commit, one with a forged signature among the first 100
+   lanes and ones under 2/3 and 1/3, on the card and on the plain
+   kernels; sessions/s, p50 and p99 and the wall of each pass, the
+   plane's coalesce and cache counters and every light ticket's lanes;
+   (b) rpc_net: 11a's four validators with rpc.laddr on every node
+   (kvstore with prove=True, the kv indexer), a websocket subscriber on
+   NewBlock from before the first block, 256 txs over HTTP (16 by
+   broadcast_tx_commit), then every tx by tx(prove) with its proof
+   against the block's data hash, tx_search and block_search by
+   height, status, and abci_query(prove) on 16 keys with each proof
+   held against the app hash of the next header, whose commit is
+   verified on the card; a light-client attack handed to node 1 by
+   broadcast_evidence must reach every app within 1-3 heights; every
+   tx committed once, the subscriber must see every height once, in
+   order, and every ticket take the device route; (c) rpc_light: two
+   Nodes serve phase 8's corpus from sqlite over RPC, a port Client
+   (HTTPProvider primary and witness) behind a LightProxy over a
+   LightServingPlane answers 256 concurrent /header requests over 16
+   heights of [2, 1,024], then /commit, /validators, /block and /tx at
+   each: every answer verified and equal to the corpus,
+   /serving_status with cache hits and coalesced dispatches, every
+   ticket a light one on the card. The kernels line adds
+   serve_launches (13a / 13b / 13c) and each kernel against its plain
+   version on 13a's widest light ticket and one of 13c's
+   (serve_max_abs_err), with its device time and bound at 13a's
+   widest.
+
 The line before last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
-result line. Needs no network; exits non-zero without a GPU or
+result line; a run that outlives RUN_LIMIT_S (1,140 s) ends non-zero
+with every thread's stack on stderr. Needs no network; exits non-zero without a GPU or
 without the rest of the repository.
 """
 
 from __future__ import annotations
 
+import faulthandler
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -205,6 +247,7 @@ import sys
 import time
 
 SEED = 20261016
+RUN_LIMIT_S = 1140  # the smoke must exit within 1,200 s
 N_CHECK = 4100  # not a multiple of 128: the last block is partial
 N_RAGGED = 4101  # not a multiple of 4 or 32 either
 N_BULK = 131072
@@ -266,6 +309,24 @@ EV_ATTACK_AT = 1000
 EV_LUNATIC = 51
 EV_COMMON_BACK = 6
 NET_EV_ATTACK_AT = 2
+# phase 13: RPC and the light serving plane. (a) config 4's chain (the
+# bisection's 150 validators, sets rotating every 2,500 heights) served
+# to bench.py::bench_serve's storm: 1,000 sessions on 64 threads over
+# 40 distinct heights drawn from [25,000, 50,000), a pool of 8 verifier
+# clients; (b) 11a's four validators with RPC, 256 txs over HTTP (16 by
+# broadcast_tx_commit), proved queries on 16 keys; (c) phase 8's corpus
+# served over RPC to a light proxy, 256 header requests over 16 heights
+SERVE_SESSIONS = 1000
+SERVE_WORKERS = 64
+SERVE_POOL = 8
+SERVE_DISTINCT = 40
+SERVE_SEED = 1013
+SERVE_FORGED_LANE = 17  # among the first 100 lanes
+RPC_TXS = 256
+RPC_COMMIT_TXS = 16
+RPC_QUERY_KEYS = 16
+LIGHT_REQUESTS = 256
+LIGHT_HEIGHTS = 16
 
 # card peaks: HBM bytes/s from the H100 SXM data sheet; 32-bit integer
 # results per clock per SM on sm_90 (IMAD, IADD, LOP, shifts: 64, the
@@ -2149,8 +2210,8 @@ def phase_evidence(dev, gen, privs, snapshot, top):
             mine = rows.setdefault(node.config.base.moniker, {})
             real_complete = node.parts.block_exec.apply_complete
 
-            def complete(new_state, block, resp):
-                st = real_complete(new_state, block, resp)
+            def complete(new_state, *rest):
+                st = real_complete(new_state, *rest)
                 mine[st.last_block_height] = _state_row(st)
                 return st
 
@@ -2326,6 +2387,599 @@ def phase_evidence(dev, gen, privs, snapshot, top):
     return launches, ev_items
 
 
+# --- phase 13: RPC and the light serving plane ----------------------------------
+
+
+class MemoProvider:
+    """utils.chaingen.RotatingLightProvider with every height minted
+    once (thread-safe): the passes of 13a pay the signing once, as
+    bench.py::bench_serve's provider does."""
+
+    def __init__(self, inner):
+        import threading
+
+        self.inner = inner
+        self.chain_id = inner.chain_id
+        self._memo: dict = {}
+        self._lock = threading.Lock()
+        self.minted = 0
+        self.mint_s = 0.0
+
+    def light_block(self, height):
+        with self._lock:
+            lb = self._memo.get(height)
+        if lb is None:
+            t = time.perf_counter()
+            lb = self.inner.light_block(height)
+            with self._lock:
+                lb = self._memo.setdefault(height, lb)
+                self.minted += 1
+                self.mint_s += time.perf_counter() - t
+        return lb
+
+    def report_evidence(self, ev):
+        self.inner.report_evidence(ev)
+
+
+def _rank(values, q):
+    """The nearest-rank q-quantile of ``values``."""
+    values = sorted(values)
+    return values[max(0, math.ceil(q * len(values)) - 1)]
+
+
+def _pcts(lat) -> dict:
+    return {"p50_ms": _rank(lat, 0.50), "p99_ms": _rank(lat, 0.99)}
+
+
+def _storm(schedule, serve_one, workers):
+    """Run ``serve_one(height)`` for every entry of ``schedule`` on
+    ``workers`` threads: (blocks by session, latencies ms, wall s)."""
+    import concurrent.futures
+
+    got, lat = [None] * len(schedule), [0.0] * len(schedule)
+
+    def one(i):
+        t = time.perf_counter()
+        got[i] = serve_one(schedule[i])
+        lat[i] = (time.perf_counter() - t) * 1e3
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(workers) as ex:
+        for f in [ex.submit(one, i) for i in range(len(schedule))]:
+            f.result()
+    return got, lat, time.perf_counter() - t0
+
+
+def _pass_line(lat, wall) -> dict:
+    return {"sessions": len(lat), "sessions_per_s": len(lat) / wall, **_pcts(lat), "wall_s": wall}
+
+
+def engine_parity(dev, lb) -> dict:
+    """The serving engine's verdicts against serial verify_commit_light
+    / verify_commit_light_trusting on ``lb``'s commit, valid and forged:
+    one bad signature among the first 100 lanes, a commit under 2/3
+    (light) and one under 1/3 (trusting). Fails unless equal; the six
+    jobs must be one coalesced dispatch."""
+    import dataclasses
+    import threading
+    from fractions import Fraction
+
+    from cometbft_tpu_torch.light.serving import CoalescedCommitVerifier
+    from cometbft_tpu_torch.types import validation as V
+    from cometbft_tpu_torch.types.block import CommitSig
+
+    vals, commit, h = lb.validator_set, lb.commit, lb.height
+    sigs = list(commit.signatures)
+    bad = sigs[SERVE_FORGED_LANE]
+    forged = dataclasses.replace(commit, signatures=sigs[:SERVE_FORGED_LANE] + [
+        dataclasses.replace(bad, signature=bytes([bad.signature[0] ^ 1]) + bad.signature[1:])]
+        + sigs[SERVE_FORGED_LANE + 1:])
+
+    def signed_by(n):
+        return dataclasses.replace(commit, signatures=sigs[:n] + [CommitSig.absent()] * (len(sigs) - n))
+
+    third = Fraction(1, 3)
+    jobs = [("light", vals, commit.block_id, h, commit),
+            ("light", vals, commit.block_id, h, forged),
+            ("light", vals, commit.block_id, h, signed_by(len(sigs) * 3 // 5)),
+            ("trusting", vals, commit, third),
+            ("trusting", vals, forged, third),
+            ("trusting", vals, signed_by(len(sigs) * 4 // 15), third)]
+
+    def name(e):
+        return None if e is None else (type(e).__name__, str(e))
+
+    serial = []
+    for job in jobs:
+        try:
+            if job[0] == "light":
+                V.verify_commit_light(lb.header.chain_id, *job[1:], device=dev)
+            else:
+                V.verify_commit_light_trusting(lb.header.chain_id, job[1], job[2], trust_level=job[3],
+                                               device=dev)
+            serial.append(None)
+        except V.CommitVerifyError as e:
+            serial.append(name(e))
+    engine = CoalescedCommitVerifier(lb.header.chain_id, window_s=0.05, device=dev)
+    coalesced = [None] * len(jobs)
+    other = []
+
+    def submit(i, job):
+        try:
+            if job[0] == "light":
+                engine.verify_commit_light(*job[1:])
+            else:
+                engine.verify_commit_light_trusting(*job[1:])
+        except V.CommitVerifyError as e:
+            coalesced[i] = name(e)
+        except Exception as e:  # anything else is a failure of the check
+            other.append(repr(e))
+
+    threads = [threading.Thread(target=submit, args=(i, j)) for i, j in enumerate(jobs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not other, f"engine parity: {other}")
+    check(coalesced == serial, f"engine parity: coalesced {coalesced} != serial {serial}")
+    check(serial[0] is None and serial[3] is None and all(serial[i] for i in (1, 2, 4, 5)),
+          f"engine parity: the forged commits were not refused: {serial}")
+    check(engine.dispatches == 1, f"engine parity: {engine.dispatches} dispatches, want 1")
+    return {"verdicts": [None if v is None else v[0] for v in serial], "dispatches": engine.dispatches,
+            "jobs": len(jobs)}
+
+
+def phase_serving(dev):
+    """13a: BASELINE config 4's chain served to SERVE_SESSIONS light
+    sessions: a per-request pass (one fresh Client for each distinct
+    height: the reference blocks), a cold pass on a fresh
+    LightServingPlane and a warm pass on the same plane, the device
+    route pinned; the engine's verdicts against the serial checks on
+    the card and on the plain kernels. Returns the plane passes'
+    launches and the kernel items of the widest light ticket."""
+    import numpy as np
+
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.light import Client, LightServingPlane, TrustOptions
+    from cometbft_tpu_torch.utils.chaingen import RotatingLightProvider
+
+    keys = bisect_keys()
+    t0_ns = time.time_ns() - (BISECT_TARGET + 120) * 1_000_000_000
+    provider = MemoProvider(RotatingLightProvider("bench-chain", keys, BISECT_VALS, BISECT_EPOCH,
+                                                  BISECT_SHIFT, t0_ns))
+    root = provider.light_block(1)
+    trust = TrustOptions(10 * 365 * 86400 * 10**9, 1, root.hash())
+    rng = np.random.default_rng(SERVE_SEED)
+    distinct = sorted(int(x) for x in rng.choice(np.arange(BISECT_TARGET // 2, BISECT_TARGET),
+                                                 size=SERVE_DISTINCT, replace=False))
+    schedule = [distinct[i % SERVE_DISTINCT] for i in range(SERVE_SESSIONS)]
+    floor = batch._MIN_DEVICE_BATCH
+    sched = S.VerifyScheduler()
+    S.set_scheduler(sched)
+    out = {}
+    t_phase = time.perf_counter()
+    try:
+        batch.set_min_device_batch(1)
+        # the per-request pass: a fresh client for each distinct height
+        per_client, lat, wall = _storm(
+            distinct, lambda h: Client("bench-chain", trust, provider, device=dev)
+            .verify_light_block_at_height(h), SERVE_WORKERS)
+        ref = {lb.height: lb for lb in per_client}
+        check(sorted(ref) == distinct, "per-request pass: a height was not served")
+        out["per_request"] = {**_pass_line(lat, wall), "minted": provider.minted, "mint_s": provider.mint_s}
+
+        # the plane: its clients' trust roots are checked before it
+        # exists (catch-up tickets); from there on every ticket is the
+        # plane's
+        clients = [Client("bench-chain", trust, provider, device=dev) for _ in range(SERVE_POOL)]
+        plane = LightServingPlane(clients, max_sessions=SERVE_SESSIONS + SERVE_WORKERS,
+                                  max_inflight=SERVE_WORKERS, device=dev)
+
+        def serve_one(h):
+            with plane.open_session() as s:
+                return s.verified_block(h)
+
+        minted = provider.minted
+        before = sched.stats()
+        kernels.reset_counts()
+        with Recorder(sched) as rec:
+            cold, lat_c, wall_c = _storm(schedule, serve_one, SERVE_WORKERS)
+            cache_cold = plane.cache.stats()
+            warm, lat_w, wall_w = _storm(schedule, serve_one, SERVE_WORKERS)
+        launches = dict(kernels.LAUNCHES)
+        after = sched.stats()
+        tickets = rec.rows()
+        moved = {k: after[k] - before[k] for k in ("device_dispatches", "host_chunks", "degraded")}
+        by_class = {k: after["by_class"][k] - before["by_class"][k] for k in after["by_class"]}
+        for what, got in (("cold", cold), ("warm", warm)):
+            bad = [h for h, lb in zip(schedule, got) if lb.hash() != ref[h].hash()]
+            check(not bad, f"13a {what}: served blocks differ from the per-request pass at {bad[:5]}")
+        check(tickets and all(p == S.PRIORITY_LIGHT and r == "device" for _, p, _, r, _ in tickets),
+              f"13a: a plane ticket left the light class or the card: "
+              f"{sorted({(p, r) for _, p, _, r, _ in tickets})}")
+        check(moved == {"device_dispatches": len(tickets), "host_chunks": 0, "degraded": 0},
+              f"13a: scheduler {moved} against {len(tickets)} tickets")
+        check(all(launches[k] == len(tickets) == len(rec.dispatches) for k in SOURCES),
+              f"13a: launches {launches} against {len(tickets)} light tickets")
+        check(all(d["device"] == str(dev) and all(d["launches"][k] == 1 for k in SOURCES)
+                  for d in rec.dispatches), "13a: a dispatch did not launch each kernel once")
+        stats = plane.stats()
+        check(stats["requests_shed"] == 0 and stats["sessions_shed"] == 0, f"13a: shed {stats}")
+        jobs = rec.labelled.get("jobs", [])
+        widest = max(jobs, key=len)
+        out["cold"] = _pass_line(lat_c, wall_c)
+        out["warm"] = _pass_line(lat_w, wall_w)
+        out["plane"] = {
+            "coalesce": stats["coalesce"], "cache_after_cold": cache_cold, "cache": stats["cache"],
+            "light_ticket_lanes": [n for _, _, n, _, _ in tickets],
+            "ticket_walls": ticket_walls([(n, r, w) for _, _, n, r, w in tickets]),
+            "tickets_by_class": {name: sum(t[1] == c for t in tickets) for c, name in enumerate(S.CLASS_NAMES)},
+            "lanes_by_class": by_class, "scheduler": moved, "minted_in_plane_passes":
+            provider.minted - minted, "verifier_pool": SERVE_POOL,
+        }
+
+        # the engine's verdicts against the serial checks, on the card
+        # and on the plain kernels
+        lb = ref[distinct[0]]
+        out["engine_parity"] = {"card": engine_parity(dev, lb)}
+        with PlainKernels():
+            out["engine_parity"]["plain"] = engine_parity(dev, lb)
+        check(out["engine_parity"]["card"] == out["engine_parity"]["plain"], "13a: card and plain verdicts differ")
+    finally:
+        batch.set_min_device_batch(floor)
+        S.set_scheduler(None)
+        sched.close()
+    emit("serving_storm", validators=BISECT_VALS, target=BISECT_TARGET, distinct=SERVE_DISTINCT,
+         sessions=SERVE_SESSIONS, workers=SERVE_WORKERS, route="device (pinned)", launches=launches,
+         seconds=time.perf_counter() - t_phase, **out)
+    return launches, widest
+
+
+async def _rpc_calls(cli, walls, route, **params):
+    """One JSON-RPC call, its wall kept by route."""
+    t = time.perf_counter()
+    res = await cli.call(route, **params)
+    walls.setdefault(route, []).append(time.perf_counter() - t)
+    return res
+
+
+def _wall_lines(walls) -> dict:
+    return {r: {"calls": len(w), "median_ms": statistics.median(w) * 1e3, "p99_ms": _rank(w, 0.99) * 1e3}
+            for r, w in sorted(walls.items())}
+
+
+def phase_rpc(dev, gen, privs, snapshot, top):
+    """13b: a 4-validator TCP net with rpc.laddr on every node (kvstore
+    with prove=True, the kv indexer): txs over HTTP, a websocket
+    subscriber, verified queries and a light-client attack through
+    broadcast_evidence. 13c: two Nodes serving phase 8's corpus over
+    RPC to a port Client (HTTPProvider primary and witness) behind a
+    LightProxy over a LightServingPlane. Returns both launches and
+    the kernel items of one of 13c's light tickets."""
+    import asyncio
+    import base64
+    import hashlib
+    import shutil
+
+    import aiohttp
+    import numpy as np
+
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.abci.types import MISBEHAVIOR_LIGHT_CLIENT_ATTACK
+    from cometbft_tpu_torch.config.config import test_config
+    from cometbft_tpu_torch.crypto import batch, merkle
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.light import Client, LightServingPlane, TrustOptions
+    from cometbft_tpu_torch.light.http_provider import HTTPProvider
+    from cometbft_tpu_torch.light.proxy import LightProxy
+    from cometbft_tpu_torch.models.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.node.inprocess import make_genesis, make_privvals
+    from cometbft_tpu_torch.node.node import Node
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+    from cometbft_tpu_torch.types import validation as V
+    from cometbft_tpu_torch.types.block import tx_hash
+    from cometbft_tpu_torch.utils import chaingen, codec, log
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "rpc")
+    shutil.rmtree(root, ignore_errors=True)
+    floor = batch._MIN_DEVICE_BATCH
+    sched = S.VerifyScheduler()
+    S.set_scheduler(sched)
+    log.set_level("consensus:error,p2p:error,blocksync:error,*:info")
+    loop = asyncio.new_event_loop()
+    nodes, clients = [], []
+    launches = {}
+
+    async def until(cond, what, timeout=NET_DEADLINE_S, poll=0.01):
+        deadline = asyncio.get_running_loop().time() + timeout
+        while not cond():
+            check(asyncio.get_running_loop().time() < deadline, f"timed out: {what}")
+            await asyncio.sleep(poll)
+
+    def config(home, moniker, **kw):
+        cfg = test_config(home)
+        cfg.base.moniker = moniker
+        cfg.blocksync.enable = False
+        cfg.rpc.laddr = "tcp://127.0.0.1:0"
+        for k, v in kw.items():
+            sec, _, name = k.partition("__")
+            setattr(getattr(cfg, sec), name, v)
+        return cfg
+
+    async def net():
+        g4, k4 = make_genesis(NET_VALS, chain_id="smoke-rpc", seed=SEED)
+        pv_root = os.path.join(root, "pv")
+        os.makedirs(pv_root)
+        pvs = make_privvals(k4, root=pv_root)
+        net_nodes = [Node(config(".", f"rpc{i}", tx_index__indexer="kv"), g4, privval=pv,
+                          app=KVStoreApplication(prove=True), device=dev) for i, pv in enumerate(pvs)]
+        nodes.extend(net_nodes)
+        for n in net_nodes:
+            await n.start()
+        cli = [HTTPClient(n.rpc_server.listen_addr) for n in net_nodes]
+        clients.extend(cli)
+        # one websocket subscriber on NewBlock, open through the run
+        # from before the first block (no height commits before the
+        # mesh: each validator holds a quarter of the power)
+        frames, arrived = [], []
+        events = await cli[0].subscribe("tm.event='NewBlock'")
+
+        async def read():
+            async for e in events:
+                frames.append(int(e["data"]["value"]["block"]["header"]["height"]))
+                arrived.append(time.perf_counter())
+
+        reader = asyncio.ensure_future(read())
+        try:
+            return await net_body(g4, k4, net_nodes, cli, frames, arrived)
+        finally:
+            # the subscriber and the clients go before the servers do
+            reader.cancel()
+            await asyncio.gather(reader, return_exceptions=True)
+            for c in cli:
+                await c.close()
+                clients.remove(c)
+            for n in net_nodes:
+                await n.stop()
+                nodes.remove(n)
+
+    async def net_body(g4, k4, net_nodes, cli, frames, arrived):
+        for i, a in enumerate(net_nodes):
+            for b in net_nodes[i + 1:]:
+                await a.dial(b.listen_addr)
+        await until(lambda: all(n.switch.num_peers() == NET_VALS - 1 for n in net_nodes), "the full mesh")
+        walls: dict = {}
+        txs = [b"rpc%03d=v%03d" % (i, i) for i in range(RPC_TXS)]
+        t0 = time.perf_counter()
+
+        async def send(i, tx):
+            c = cli[i % NET_VALS]
+            if i < RPC_TXS - RPC_COMMIT_TXS:
+                r = await _rpc_calls(c, walls, "broadcast_tx_sync", tx=base64.b64encode(tx).decode())
+                check(r["code"] == 0, f"13b: broadcast_tx_sync refused {tx!r}: {r}")
+            else:
+                r = await _rpc_calls(c, walls, "broadcast_tx_commit", tx=base64.b64encode(tx).decode())
+                check(r["check_tx"]["code"] == 0 and r["tx_result"]["code"] == 0 and int(r["height"]) > 0,
+                      f"13b: broadcast_tx_commit {r}")
+
+        await asyncio.gather(*(send(i, tx) for i, tx in enumerate(txs)))
+        hashes = {tx_hash(tx): tx for tx in txs}
+
+        def committed():
+            got = [t for h in range(1, net_nodes[0].height + 1)
+                   for t in net_nodes[0].parts.block_store.load_block(h).data.txs]
+            return len(set(got) & set(txs)) == len(txs)
+
+        await until(committed, "every tx committed")
+        tx_wall = time.perf_counter() - t0
+        top4 = net_nodes[0].height
+        got = [t for h in range(1, top4 + 1) for t in net_nodes[0].parts.block_store.load_block(h).data.txs]
+        counts = {tx: got.count(tx) for tx in txs}
+        check(all(c == 1 for c in counts.values()), f"13b: txs committed {sorted(set(counts.values()))} times")
+        # queries: every tx by hash with its proof, tx_search by height,
+        # block_search, status, validators, commit
+        by_height: dict = {}
+        for h_, tx in hashes.items():
+            r = await _rpc_calls(cli[1], walls, "tx", hash=h_.hex(), prove=True)
+            check(base64.b64decode(r["tx"]) == tx, f"13b: tx {h_.hex()} answered another tx")
+            height = int(r["height"])
+            blk = net_nodes[0].parts.block_store.load_block(height)
+            p = merkle.decode_proof(base64.b64decode(r["proof"]["proof_b64"]))
+            check(bytes.fromhex(r["proof"]["root_hash"]) == blk.header.data_hash
+                  and p.verify(blk.header.data_hash, h_), f"13b: tx {h_.hex()}: proof does not verify")
+            by_height.setdefault(height, set()).add(tx)
+        for height, want in sorted(by_height.items()):
+            found, page = set(), 1
+            while len(found) < len(want):  # pages of at most 100 (the route's cap)
+                r = await _rpc_calls(cli[2], walls, "tx_search", query=f"tx.height={height}",
+                                     per_page="100", page=str(page))
+                check(r["txs"] and int(r["total_count"]) == len(want), f"13b: tx_search at {height}, page {page}")
+                found |= {base64.b64decode(t["tx"]) for t in r["txs"]}
+                page += 1
+            check(found == want, f"13b: tx_search at {height}")
+            r = await _rpc_calls(cli[3], walls, "block_search", query=f"block.height={height}")
+            check([int(b["block"]["header"]["height"]) for b in r["blocks"]] == [height],
+                  f"13b: block_search at {height}")
+        st = await _rpc_calls(cli[0], walls, "status")
+        check(int(st["sync_info"]["latest_block_height"]) >= top4, "13b: status behind")
+        # abci_query(prove=True) on RPC_QUERY_KEYS keys, each proof held
+        # against the app hash of the height after, whose commit is
+        # verified on the card
+        for i in range(RPC_QUERY_KEYS):
+            key = b"rpc%03d" % (i * (RPC_TXS // RPC_QUERY_KEYS))
+            r = await _rpc_calls(cli[i % NET_VALS], walls, "abci_query", path="/store", data=key.hex(),
+                                 prove=True)
+            resp = r["response"]
+            hq = int(resp["height"])
+            await until(lambda: net_nodes[0].height > hq, f"height {hq + 1}")
+            cm = await _rpc_calls(cli[0], walls, "commit", height=str(hq + 1))
+            vs = await _rpc_calls(cli[0], walls, "validators", height=str(hq + 1))
+            hdr = codec.decode_header(base64.b64decode(cm["header_b64"]))
+            commit = codec.decode_commit(base64.b64decode(cm["commit_b64"]))
+            vals = codec.decode_validator_set(base64.b64decode(vs["validator_set_b64"]))
+            check(vals.hash() == hdr.validators_hash, "13b: validators do not match the header")
+            await asyncio.to_thread(V.verify_commit_light, g4.chain_id, vals, commit.block_id, hq + 1, commit,
+                                    device=dev)
+            merkle.ProofRuntime().verify_value(merkle.decode_proof_ops(base64.b64decode(resp["proof_ops"])),
+                                               hdr.app_hash, key, base64.b64decode(resp["value"]))
+        # a light-client attack (a lunatic fork signed by two keys)
+        # handed to node 1 over RPC
+        fork = chaingen.conflicting_block(net_nodes[0].parts, k4, NET_EV_ATTACK_AT, signers=k4[2:])
+        lca = chaingen.light_attack(net_nodes[0].parts, fork, NET_EV_ATTACK_AT - 1)
+        ev_at = net_nodes[1].height
+        t_ev = time.perf_counter()
+        await _rpc_calls(cli[1], walls, "broadcast_evidence", evidence=base64.b64encode(lca.encode()).decode())
+        addrs = [p.pub_key().address() for p in k4[2:]]
+
+        def recorded(n):
+            return [r for r in n.parts.app.misbehavior_seen
+                    if r[1] == MISBEHAVIOR_LIGHT_CLIENT_ATTACK and r[4] == lca.common_height]
+
+        await until(lambda: all(len(recorded(n)) == len(addrs) for n in net_nodes), "the attack at every app")
+        ev_wall = time.perf_counter() - t_ev
+        ev_block = recorded(net_nodes[0])[0][0]
+        check(1 <= ev_block - ev_at <= 3, f"13b: the evidence committed {ev_block - ev_at} heights after")
+        check(all(recorded(n) == recorded(net_nodes[0]) for n in net_nodes), "13b: nodes recorded it differently")
+        await until(lambda: net_nodes[0].height > ev_block and frames and frames[-1] >= ev_block,
+                    "the subscriber at the evidence block")
+        last = net_nodes[0].height
+        for hh in range(1, last):
+            check(len({n.block_id_hash_at(hh) for n in net_nodes if n.height >= hh}) == 1,
+                  f"13b: nodes differ at {hh}")
+        check(frames == list(range(1, frames[-1] + 1)),
+              f"13b: the subscriber saw {frames[:3]}...{frames[-3:]}")
+        # a height's wall: between two NewBlock frames at the subscriber
+        height_walls = [b - a for a, b in zip(arrived, arrived[1:])]
+        return {"validators": NET_VALS, "txs": RPC_TXS, "tx_commit": RPC_COMMIT_TXS, "tx_wall_s": tx_wall,
+                "heights": last, "height_wall_median_s": statistics.median(height_walls),
+                "rpc_walls": _wall_lines(walls), "ws_frames": len(frames),
+                "ws_heights": [frames[0], frames[-1]], "proved_queries": RPC_QUERY_KEYS,
+                "evidence": {"handed_at_height": ev_at, "committed_in_block": ev_block,
+                             "heights": ev_block - ev_at, "wall_s": ev_wall, "byzantine": len(addrs)},
+                "loop_errors": sum(n.parts.cs.loop_errors.count for n in net_nodes)}
+
+    async def light():
+        homes = [os.path.join(root, f"serve{i}") for i in range(2)]
+        serving = []
+        for i, home in enumerate(homes):
+            _sqlite_home(home, snapshot)
+            n = Node(config(home, f"serve{i}", base__db_backend="sqlite"), gen, home=home, device=dev)
+            nodes.append(n)
+            await n.start()
+            serving.append(n)
+        src = serving[0].parts
+        addrs = [n.rpc_server.listen_addr for n in serving]
+        primary, witness = HTTPProvider(gen.chain_id, addrs[0]), HTTPProvider(gen.chain_id, addrs[1])
+        # the trust root from the corpus itself
+        root_hash = src.block_store.load_block_meta(1).header.hash()
+        client = await asyncio.to_thread(
+            Client, gen.chain_id, TrustOptions(10 * 365 * 86400 * 10**9, 1, root_hash), primary,
+            witnesses=[witness], device=dev)
+        plane = LightServingPlane([client], max_sessions=4 * LIGHT_REQUESTS, max_inflight=LIGHT_REQUESTS,
+                                  device=dev)
+        proxy = LightProxy(client, addrs[0], plane=plane)
+        await proxy.start("127.0.0.1:0")
+        rng = np.random.default_rng(SEED)
+        heights = sorted(int(x) for x in rng.choice(np.arange(2, min(top, 1025)), LIGHT_HEIGHTS,
+                                                    replace=False))
+        walls: dict = {}
+        kernels.reset_counts()
+        try:
+            with Recorder(sched) as rec:
+                async with aiohttp.ClientSession(connector=aiohttp.TCPConnector(limit=0)) as sess:
+                    async def get(route, **params):
+                        t = time.perf_counter()
+                        async with sess.get(f"http://{proxy.listen_addr}/{route}", params=params) as r:
+                            body = await r.json()
+                        walls.setdefault(route, []).append(time.perf_counter() - t)
+                        check("result" in body and body["result"].get("verified") is True,
+                              f"13c: /{route} {params}: {body.get('error')}")
+                        return body["result"]
+
+                    t0 = time.perf_counter()
+                    hdrs = await asyncio.gather(*(get("header", height=str(heights[i % LIGHT_HEIGHTS]))
+                                                  for i in range(LIGHT_REQUESTS)))
+                    header_wall = time.perf_counter() - t0
+                    for i, r in enumerate(hdrs):
+                        h = heights[i % LIGHT_HEIGHTS]
+                        check(base64.b64decode(r["header_b64"]) == codec.encode_header(src.block_store.load_block(h).header),
+                              f"13c: header {h} differs from the corpus")
+                    for h in heights:
+                        blk = src.block_store.load_block(h)
+                        cm = await get("commit", height=str(h))
+                        check(base64.b64decode(cm["commit_b64"]) == codec.encode_commit(
+                            src.block_store.load_block_commit(h) or src.block_store.load_seen_commit(h)),
+                            f"13c: commit {h}")
+                        vs = await get("validators", height=str(h))
+                        check(base64.b64decode(vs["validator_set_b64"])
+                              == codec.encode_validator_set(src.state_store.load_validators(h)), f"13c: validators {h}")
+                        b = await get("block", height=str(h))
+                        check(base64.b64decode(b["block_b64"]) == codec.encode_block(blk), f"13c: block {h}")
+                        tx = blk.data.txs[0]
+                        t = await get("tx", hash="0x" + hashlib.sha256(tx).hexdigest())
+                        check(base64.b64decode(t["tx"]) == tx and int(t["height"]) == h, f"13c: tx at {h}")
+                    async with sess.get(f"http://{proxy.listen_addr}/serving_status") as r:
+                        status = (await r.json())["result"]
+        finally:
+            await proxy.stop()
+            await asyncio.to_thread(primary.close)
+            await asyncio.to_thread(witness.close)
+        check(status["cache"]["hits"] > 0 and status["coalesce"] and status["coalesce"]["dispatches"] > 0,
+              f"13c: serving_status {status}")
+        tickets = rec.rows()
+        lt = [t for t in tickets if t[1] == S.PRIORITY_LIGHT]
+        check(lt and len(lt) == len(tickets) and all(r == "device" for _, _, _, r, _ in tickets),
+              f"13c: tickets {sorted({(p, r) for _, p, _, r, _ in tickets})}: not all light on the card")
+        for n in serving:
+            await n.stop()
+            nodes.remove(n)
+        return {"requests": LIGHT_REQUESTS, "heights": heights, "header_wall_s": header_wall,
+                "request_walls": _wall_lines(walls), "serving_status": status,
+                "light_tickets": [{"lanes": n, "wall_ms": w * 1e3} for _, _, n, _, w in lt],
+                "tickets_by_class": {name: sum(t[1] == c for t in tickets)
+                                     for c, name in enumerate(S.CLASS_NAMES)}}, rec
+
+    try:
+        batch.set_min_device_batch(1)
+        kernels.reset_counts()
+        t_phase = time.perf_counter()
+        with Recorder(sched) as rec:
+            b = loop.run_until_complete(net())
+        launches["13b"] = dict(kernels.LAUNCHES)
+        tickets = rec.rows()
+        check(b["loop_errors"] == 0, f"13b: {b['loop_errors']} loop errors")
+        check(tickets and all(r == "device" for _, _, _, r, _ in tickets), "13b: a ticket left the device route")
+        check(all(launches["13b"][k] == len(rec.dispatches) == len(tickets) for k in SOURCES),
+              f"13b: launches {launches['13b']} against {len(tickets)} tickets")
+        emit("rpc_net", **b, tickets=len(tickets), ticket_labels=sorted({t[0] for t in tickets}),
+             launches=launches["13b"], seconds=time.perf_counter() - t_phase)
+
+        t_phase = time.perf_counter()
+        c, rec = loop.run_until_complete(light())
+        launches["13c"] = dict(kernels.LAUNCHES)
+        n_tickets = len(rec.rows())
+        check(all(launches["13c"][k] == n_tickets == len(rec.dispatches) for k in SOURCES),
+              f"13c: launches {launches['13c']} against {n_tickets} tickets")
+        emit("rpc_light", validators=REPLAY_VALS, **c, launches=launches["13c"],
+             seconds=time.perf_counter() - t_phase)
+        light_items = rec.labelled["jobs"][0]
+    finally:
+        batch.set_min_device_batch(floor)
+        for cl in clients:
+            loop.run_until_complete(cl.close())
+        for n in nodes:
+            loop.run_until_complete(n.stop())
+        loop.close()
+        log.set_level("info")
+        S.set_scheduler(None)
+        sched.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, light_items
+
+
+
 def _wal_files(path):
     from cometbft_tpu_torch.consensus.wal import _group_files
 
@@ -2493,6 +3147,9 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # a hang fails the run inside its time limit, with every thread's
+    # stack on stderr
+    faulthandler.dump_traceback_later(RUN_LIMIT_S, exit=True)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cometbft_tpu_torch import kernels
 
@@ -2537,6 +3194,9 @@ def main(argv) -> int:
     ingest_launches, live_launches, live_items, handoff_items = phase_consensus(dev, *corpus)
     net_launches, net_items = phase_network(dev, gen, privs, *net_corpus)
     evidence_launches, evidence_items = phase_evidence(dev, gen, privs, *net_corpus[:2])
+    serve_launches_a, serve_widest = phase_serving(dev)
+    serve_launches_bc, rpc_light_items = phase_rpc(dev, gen, privs, *net_corpus[:2])
+    serve_launches = {"13a": serve_launches_a, **serve_launches_bc}
 
     # phase 6: each kernel against its plain version on the main paths'
     # own inputs (the window's lanes and the commit's; the replay's and
@@ -2574,14 +3234,21 @@ def main(argv) -> int:
     ev_calls = {k: stage_calls(xe) for k, xe in x_ev.items()}
     ev_errs = {k: compare(c) for k, c in ev_calls.items()}
     x_evt, evt_calls = x_ev["trusting"], ev_calls["trusting"]
+    # phase 13's own inputs: 13a's widest light ticket (a coalesced
+    # batch of the serving engine) and one of 13c's; timed at 13a's
+    x_serve = {"13a_widest": kernel_inputs(serve_widest, dev), "13c": kernel_inputs(rpc_light_items, dev)}
+    serve_calls = {k: stage_calls(xs) for k, xs in x_serve.items()}
+    serve_errs = {k: compare(c) for k, c in serve_calls.items()}
+    x_sw, sw_calls = x_serve["13a_widest"], serve_calls["13a_widest"]
     emit("main_path_vs_plain", lanes=x["n"], commit_lanes=x_commit["n"],
          replay_lanes=list(x_replay), bisect_lanes=list(x_bisect),
          live_lanes={k: xw["n"] for k, xw in x_waves.items()},
          net_lanes={k: xn["n"] for k, xn in x_net.items()},
-         evidence_lanes={k: xe["n"] for k, xe in x_ev.items()}, equal=True, max_abs_err=errs,
+         evidence_lanes={k: xe["n"] for k, xe in x_ev.items()},
+         serve_lanes={k: xs["n"] for k, xs in x_serve.items()}, equal=True, max_abs_err=errs,
          commit_max_abs_err=commit_errs, replay_max_abs_err=replay_errs,
          bisect_max_abs_err=bisect_errs, live_max_abs_err=live_errs, net_max_abs_err=net_errs,
-         evidence_max_abs_err=ev_errs)
+         evidence_max_abs_err=ev_errs, serve_max_abs_err=serve_errs)
     rows = []
     for name in ("ladder", "decompress", "hash_digits"):
         f, plain = calls[name]
@@ -2592,6 +3259,7 @@ def main(argv) -> int:
         live_err = {w: max(e[k] for k in parts) for w, e in live_errs.items()}
         net_err = {w: max(e[k] for k in parts) for w, e in net_errs.items()}
         ev_err = {w: max(e[k] for k in parts) for w, e in ev_errs.items()}
+        serve_err = {w: max(e[k] for k in parts) for w, e in serve_errs.items()}
         err = max(max(errs[k], commit_errs[k]) for k in parts)
         b_ms, b_by = bound(name, x, int_rate)
         bc_ms, bc_by = bound(name, x_commit, int_rate)
@@ -2600,6 +3268,7 @@ def main(argv) -> int:
         bl_ms, bl_by = bound(name, x_live, int_rate)
         bn_ms, bn_by = bound(name, x_netp, int_rate)
         be_ms, be_by = bound(name, x_evt, int_rate)
+        bsv_ms, bsv_by = bound(name, x_sw, int_rate)
         bb_ms, bb_by = bound(name, x_bulk, int_rate)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -2609,8 +3278,9 @@ def main(argv) -> int:
             "ingest_launches": ingest_launches[name], "live_launches": live_launches[name],
             "net_launches": {ph: ls[name] for ph, ls in net_launches.items()},
             "evidence_launches": {ph: ls[name] for ph, ls in evidence_launches.items()},
+            "serve_launches": {ph: ls[name] for ph, ls in serve_launches.items()},
             "max_abs_err": max(err, replay_err, bisect_err, *live_err.values(), *net_err.values(),
-                               *ev_err.values()),
+                               *ev_err.values(), *serve_err.values()),
             "tolerance": 0,
             "ms": graph_ms(f), "call_ms": cuda_ms(f, 20),
             "plain_ms": cuda_ms(plain, 2, warm=0), "bound_ms": b_ms,
@@ -2645,6 +3315,12 @@ def main(argv) -> int:
             "evidence_call_ms": cuda_ms(evt_calls[name][0], 20),
             "evidence_plain_ms": cuda_ms(evt_calls[name][1], 2, warm=0),
             "evidence_bound_ms": be_ms, "evidence_bound_by": be_by,
+            "serve_lanes": {w: xs["n"] for w, xs in x_serve.items()},
+            "serve_max_abs_err": serve_err,
+            "serve_ms": graph_ms(sw_calls[name][0]),
+            "serve_call_ms": cuda_ms(sw_calls[name][0], 20),
+            "serve_plain_ms": cuda_ms(sw_calls[name][1], 2, warm=0),
+            "serve_bound_ms": bsv_ms, "serve_bound_by": bsv_by,
             "bulk_lanes": N_BULK, "bulk_ms": bulk_ms[name], "bulk_call_ms": bulk_call_ms[name],
             "bulk_bound_ms": bb_ms, "bulk_bound_by": bb_by,
             "bulk_max_abs_err": max(bulk_errs[k] for k in parts),

@@ -8,19 +8,22 @@ whole; of ``BaseConfig`` the moniker and the store backend; of
 ``P2PConfig``, ``MempoolConfig`` and ``BlockSyncConfig`` the fields
 the port reads, which leaves out the JAX package's external address,
 peer caps, packet payload size, handshake and dial timeouts, mempool
-byte cap and async recheck; of ``RPCConfig`` the listen addresses, of
-``StateSyncConfig`` ``enable`` and of ``InstrumentationConfig`` the
-metrics, profiling and watchdog switches. Those sections take no other
-attribute (slots), so setting a field the port lacks raises
-``AttributeError`` instead of doing nothing. ``Node`` refuses the
-settings whose planes the port does not have yet (RPC, PEX, statesync,
-lp2p, the autopool, the metrics and debug servers) with
-``NotImplementedError``; two of them default differently from the JAX
-package so that a default ``Node`` builds: ``rpc.laddr`` is empty and
-``p2p.pex`` is off. ``test_config`` sets
-the reference's short test timeouts (config.TestConfig) and an
-ephemeral p2p port. The storage, indexer, crypto and fleet sections
-and the TOML round trip are not ported.
+byte cap and async recheck; of ``RPCConfig`` the listen addresses and
+``unsafe``, of ``TxIndexConfig`` ``indexer`` (``"kv"`` or ``"null"``;
+the Postgres sink is not ported), of ``StateSyncConfig`` ``enable`` and
+of ``InstrumentationConfig`` the metrics, profiling and watchdog
+switches. Those sections take no other attribute (slots), so setting a
+field the port lacks raises ``AttributeError`` instead of doing
+nothing. ``Node`` refuses the settings whose planes the port does not
+have yet (gRPC, PEX, statesync, lp2p, the autopool, the metrics and
+debug servers) with ``NotImplementedError``. Two settings default
+differently from the JAX package: ``p2p.pex`` is off, so that a
+default ``Node`` builds, and ``rpc.laddr`` is empty, so that a node
+serves RPC only when asked (the JAX ``test_config`` gives every test
+node an ephemeral RPC port; here a test sets ``rpc.laddr`` itself).
+``test_config`` sets the reference's short test timeouts
+(config.TestConfig) and an ephemeral p2p port. The storage, crypto and
+fleet sections and the TOML round trip are not ported.
 """
 
 from __future__ import annotations
@@ -38,10 +41,19 @@ class BaseConfig:
 
 @dataclass(slots=True)
 class RPCConfig:
-    # the port has no RPC server: a listen address makes Node raise
-    # (the JAX default is "tcp://127.0.0.1:26657")
+    # empty: no RPC server (the JAX default is "tcp://127.0.0.1:26657")
     laddr: str = ""
+    # the gRPC broadcast API is not ported: a listen address makes
+    # Node raise
     grpc_laddr: str = ""
+    # expose the unsafe route set (reference --rpc.unsafe: dial_seeds,
+    # dial_peers, unsafe_flush_mempool); never enable on public nodes
+    unsafe: bool = False
+
+
+@dataclass(slots=True)
+class TxIndexConfig:
+    indexer: str = "kv"  # kv | null
 
 
 @dataclass(slots=True)
@@ -185,6 +197,7 @@ class Config:
     statesync: StateSyncConfig = field(default_factory=StateSyncConfig)
     blocksync: BlockSyncConfig = field(default_factory=BlockSyncConfig)
     consensus: ConsensusConfig = field(default_factory=ConsensusConfig)
+    tx_index: TxIndexConfig = field(default_factory=TxIndexConfig)
     instrumentation: InstrumentationConfig = field(default_factory=InstrumentationConfig)
     root_dir: str = "."
 

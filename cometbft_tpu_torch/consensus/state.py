@@ -1657,7 +1657,7 @@ class ConsensusState:
                         )
                         return out, t_a, time.monotonic_ns()
 
-                    (new_state, _), t_a, t_b = (
+                    (new_state, artifacts), t_a, t_b = (
                         await asyncio.to_thread(hash_persist)
                     )
                     self.tracer.complete(
@@ -1666,7 +1666,7 @@ class ConsensusState:
                         tid="consensus", height=block.height,
                     )
                     new_state = self.block_exec.apply_complete(
-                        new_state, block, resp
+                        new_state, bid, block, resp, artifacts
                     )
                     t_apply = time.monotonic_ns()
                     fail_point("cs-after-apply")  # :1837

@@ -16,10 +16,15 @@ overlap between hops: a 50,000-height bisection verifies only the new
 Departure from the JAX package (ROADMAP C3): the JAX client turns any
 failure of the trust-root re-anchoring into a refused root; here a
 failed verify route (``DeviceRouteError``, whatever its cause) raises
-as it is, and every other failure is a refusal, as there. The serving
-plane's seams (``header_cache``, ``verify_engine``, ``priority``) are
-not ported yet (ROADMAP A8): the client's commit checks run in the
-catch-up class.
+as it is, and every other failure is a refusal, as there.
+
+The serving plane's seams (``light/serving.py``): ``header_cache``, a
+shared ``VerifiedHeaderCache`` consulted before fetching or verifying
+and published to only after the witness cross-check; ``verify_engine``,
+the ``CoalescedCommitVerifier`` the skipping hops batch through; and
+``priority``, the verify scheduler's class of this client's checks. A
+client with none of them runs its checks in the catch-up class, on its
+own tickets.
 """
 
 from __future__ import annotations
@@ -74,6 +79,9 @@ class Client:
         trust_level: Fraction = verifier.DEFAULT_TRUST_LEVEL,
         max_clock_drift_ns: int = 10 * 10**9,
         signature_cache: Optional[SignatureCache] = None,
+        header_cache=None,
+        verify_engine=None,
+        priority: Optional[int] = None,
         device=None,
     ):
         self.device = resolve(device)
@@ -94,6 +102,22 @@ class Client:
         self.trust_level = trust_level
         self.drift = max_clock_drift_ns
         self.cache = signature_cache or SignatureCache()
+        # cross-client serving seams (light/serving.py): a shared
+        # VerifiedHeaderCache of already-verified per-height blocks
+        # (consulted before fetching/verifying; published to only
+        # AFTER verification + witness cross-check) and a coalescing
+        # commit-verify engine concurrent clients batch through
+        self.header_cache = header_cache
+        self.verify_engine = verify_engine
+        # verify-scheduler class of this client's commit checks
+        # (crypto/scheduler.py): serving sessions run PRIORITY_LIGHT;
+        # None is the catch-up class
+        self.priority = priority
+        # blocks verified by the CURRENT verify_header call, held back
+        # from the shared cache until the witness cross-check passes —
+        # a valid-but-forked chain (a light-client attack the detector
+        # would halt on) must never be published
+        self._publish_pending: list = []
         self.hops = 0  # bisection hop counter (observability)
         # serializes the verify/update entry points: the light proxy
         # runs them from multiple worker threads (background head
@@ -208,6 +232,7 @@ class Client:
             lb.height,
             lb.commit,
             cache=self.cache,
+            priority=self.priority,
             device=self.device,
         )
         self.store.save(lb)
@@ -220,6 +245,15 @@ class Client:
     def verify_light_block_at_height(
         self, height: int, now_ns: Optional[int] = None
     ) -> LightBlock:
+        # shared-cache fast path OUTSIDE the client lock: a thousand
+        # sessions hitting a cached height must not serialize behind
+        # one client's in-flight bisection (light/serving.py)
+        if self.header_cache is not None and height:
+            cached = self.header_cache.get(height)
+            if cached is not None:
+                with self._lock:
+                    self.store.save(cached)
+                return cached
         with self._lock:
             now_ns = now_ns or time.time_ns()
             got = self.store.get(height)
@@ -258,6 +292,15 @@ class Client:
         a not-yet-produced height (the proxy serves user-chosen
         heights) must surface to the caller, never burn the witness
         set."""
+        # a height another session already VERIFIED needs no fetch at
+        # all — the shared cache is better than any provider (its
+        # entries are post-verification, post-cross-check). peek, not
+        # get: internal probes of ONE request must not inflate the
+        # request-level hit/miss counters
+        if self.header_cache is not None and height:
+            cached = self.header_cache.peek(height)
+            if cached is not None:
+                return cached
         try:
             return self.primary.light_block(height)
         except LightBlockNotFound as e:
@@ -322,7 +365,46 @@ class Client:
             raise LightClientError(
                 "conflicting header for already-trusted height"
             )
-        trusted = self.store.latest_before(target.height)
+        hc = self.header_cache
+        if hc is not None:
+            # peek: the enclosing request already counted its lookup
+            cached = hc.peek(target.height)
+            if cached is not None:
+                if cached.hash() == target.hash():
+                    self.store.save(cached)
+                    return cached
+                # forked-header detection MUST fire on a cache hit:
+                # the primary served a header conflicting with a
+                # block another session fully verified (and witness
+                # cross-checked) at this height
+                raise LightClientError(
+                    f"primary's header at height {target.height} "
+                    "conflicts with the cross-client verified cache "
+                    "(forked or lying primary)"
+                )
+        self._publish_pending = []
+        try:
+            out = self._verify_header_inner(target, now_ns)
+            if hc is not None:
+                # EVERY block this call stages — bisection pivots
+                # included — is witness-cross-checked before any of
+                # them is published: trusting verification lets a
+                # >1/3-colluding fork mint a crypto-valid PIVOT just
+                # as easily as a target, and an unchecked pivot in
+                # the shared cache would poison every session.
+                # _verify_header_inner already cross-checked the
+                # target itself; check the rest, THEN publish all.
+                for lb in self._publish_pending:
+                    if lb is not out:
+                        self._cross_check(lb)
+                for lb in self._publish_pending:
+                    hc.publish(lb)
+        finally:
+            self._publish_pending = []
+        return out
+
+    def _verify_header_inner(self, target: LightBlock, now_ns: int) -> LightBlock:
+        trusted = self._best_trusted_before(target.height)
         if trusted is None:
             # target below every trusted header: hash-chain walk down
             # from the lowest trusted block (reference light/client.go
@@ -339,6 +421,26 @@ class Client:
             self._verify_skipping(trusted, target, now_ns)
         self._cross_check(target)
         return target
+
+    def _best_trusted_before(self, height: int) -> Optional[LightBlock]:
+        """Bisection anchor: own trusted store, improved by the shared
+        cache's frontier when it is closer to the target (a pooled
+        serving client with a cold store picks up where ANY session
+        left off instead of re-walking from its trust root)."""
+        trusted = self.store.latest_before(height)
+        if self.header_cache is not None:
+            cached = self.header_cache.latest_before(height)
+            if cached is not None and (trusted is None or cached.height > trusted.height):
+                self.store.save(cached)
+                trusted = cached
+        return trusted
+
+    def _note_verified(self, lb: LightBlock) -> None:
+        """Stage a freshly verified block for shared-cache publication
+        (held until the enclosing verify_header's cross-check)."""
+        self.store.save(lb)
+        if self.header_cache is not None:
+            self._publish_pending.append(lb)
 
     # --- verification strategies ---------------------------------------
 
@@ -360,9 +462,11 @@ class Client:
                 now_ns,
                 self.drift,
                 cache=self.cache,
+                engine=self.verify_engine,
+                priority=self.priority,
                 device=self.device,
             )
-            self.store.save(nxt)
+            self._note_verified(nxt)
             trusted = nxt
             self.hops += 1
 
@@ -375,6 +479,24 @@ class Client:
         pivots = [target]
         while pivots:
             candidate = pivots[-1]
+            if self.header_cache is not None:
+                # peek: same request-internal probe as _primary_block
+                cached = self.header_cache.peek(candidate.height)
+                if cached is not None:
+                    if cached.hash() != candidate.hash():
+                        # the primary's hop conflicts with a block
+                        # another session verified + cross-checked:
+                        # fork detection on a cache hit
+                        raise LightClientError(
+                            f"primary's header at height "
+                            f"{candidate.height} conflicts with the "
+                            "cross-client verified cache"
+                        )
+                    self.store.save(cached)
+                    trusted = cached
+                    pivots.pop()
+                    self.hops += 1
+                    continue
             try:
                 if candidate.height == trusted.height + 1:
                     verifier.verify_adjacent(
@@ -386,6 +508,8 @@ class Client:
                         now_ns,
                         self.drift,
                         cache=self.cache,
+                        engine=self.verify_engine,
+                        priority=self.priority,
                         device=self.device,
                     )
                 else:
@@ -401,9 +525,11 @@ class Client:
                         self.drift,
                         self.trust_level,
                         cache=self.cache,
+                        engine=self.verify_engine,
+                        priority=self.priority,
                         device=self.device,
                     )
-                self.store.save(candidate)
+                self._note_verified(candidate)
                 trusted = candidate
                 pivots.pop()
                 self.hops += 1
@@ -466,7 +592,7 @@ class Client:
             lower.validate_basic(self.chain_id)
             self.hops += 1
             cur = lower
-        self.store.save(target)
+        self._note_verified(target)
 
     def _next_vals(self, lb: LightBlock) -> ValidatorSet:
         """The valset signing height h+1 (trusted next-vals). For

@@ -3,7 +3,7 @@
 A copy of the JAX package's ``light/provider.py``. A provider serves
 (header, commit, validator set) triples by height;
 ``StoreBackedProvider`` reads them from a full node's block and state
-stores. The provider over a node's RPC waits for the port's ``rpc/``.
+stores; ``http_provider.HTTPProvider`` from a node's RPC.
 """
 
 from __future__ import annotations

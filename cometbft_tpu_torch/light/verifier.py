@@ -16,9 +16,11 @@ the kernels' plain versions when the device route is forced), with the
 signature cache deduplicating lanes across bisection hops (:57, :72).
 Only ``ErrNotEnoughVotingPower`` from the trusting check becomes
 ``ErrNewValSetCantBeTrusted``, the one error that makes the client
-bisect; a failed device route raises as it is. The JAX package's
-``engine=`` and ``priority=`` arguments (the serving plane's coalescing
-engine and scheduler class) are not ported yet (ROADMAP A8).
+bisect; a failed device route raises as it is. ``engine=`` is the
+serving plane's coalescing engine (``light/serving.py``): the commit
+checks then join its lane batch, on the engine's device, with the same
+verdicts and error types as the direct calls; ``priority=`` is the
+verify scheduler's class of the direct calls (None: catch-up).
 """
 
 from __future__ import annotations
@@ -69,6 +71,8 @@ def verify_adjacent(
     now_ns: Optional[int] = None,
     max_clock_drift_ns: int = 10 * 10**9,
     cache: Optional[SignatureCache] = None,
+    engine=None,
+    priority: Optional[int] = None,
     device=None,
 ) -> None:
     device = resolve(device)
@@ -80,6 +84,14 @@ def verify_adjacent(
     _verify_new_header(chain_id, trusted, untrusted, now_ns, max_clock_drift_ns)
     if untrusted.header.validators_hash != trusted.header.next_validators_hash:
         raise ErrInvalidHeader("untrusted validators hash != trusted next validators hash")
+    if engine is not None:
+        # cross-client coalesce seam (light/serving.py): concurrent
+        # sessions' commit checks land in one lane batch, verdicts
+        # serial-equivalent (same exception types as the direct call)
+        engine.verify_commit_light(
+            untrusted_vals, untrusted.commit.block_id, untrusted.height, untrusted.commit
+        )
+        return
     verify_commit_light(
         chain_id,
         untrusted_vals,
@@ -87,6 +99,7 @@ def verify_adjacent(
         untrusted.height,
         untrusted.commit,
         cache=cache,
+        priority=priority,
         device=device,
     )
 
@@ -102,6 +115,8 @@ def verify_non_adjacent(
     max_clock_drift_ns: int = 10 * 10**9,
     trust_level: Fraction = DEFAULT_TRUST_LEVEL,
     cache: Optional[SignatureCache] = None,
+    engine=None,
+    priority: Optional[int] = None,
     device=None,
 ) -> None:
     device = resolve(device)
@@ -111,6 +126,15 @@ def verify_non_adjacent(
     if _header_expired(trusted.header, trusting_period_ns, now_ns):
         raise ErrOldHeaderExpired("trusted header expired")
     _verify_new_header(chain_id, trusted, untrusted, now_ns, max_clock_drift_ns)
+    if engine is not None:
+        try:
+            engine.verify_commit_light_trusting(trusted_next_vals, untrusted.commit, trust_level)
+        except ErrNotEnoughVotingPower as e:
+            raise ErrNewValSetCantBeTrusted(str(e))
+        engine.verify_commit_light(
+            untrusted_vals, untrusted.commit.block_id, untrusted.height, untrusted.commit
+        )
+        return
     try:
         verify_commit_light_trusting(
             chain_id,
@@ -118,7 +142,8 @@ def verify_non_adjacent(
             untrusted.commit,
             trust_level=trust_level,
             cache=cache,
-                device=device,
+            priority=priority,
+            device=device,
         )
     except ErrNotEnoughVotingPower as e:
         raise ErrNewValSetCantBeTrusted(str(e))
@@ -129,6 +154,7 @@ def verify_non_adjacent(
         untrusted.height,
         untrusted.commit,
         cache=cache,
+        priority=priority,
         device=device,
     )
 

@@ -10,7 +10,7 @@ app connection has one, one pool pass; verdicts identical to serial
 ``check_tx``), the insertion log the gossip routines read
 (``txs_after``, ``iter_txs``), ``reap_max_bytes_max_gas``,
 ``lock``/``unlock`` around the commit, ``update`` (drop committed txs,
-then recheck the rest through the app) and ``size``. Tx keys hash with
+then recheck the rest through the app), ``size`` and ``flush``. Tx keys hash with
 hashlib (the JAX package's native batch hasher is not ported), the
 recheck is synchronous, and the other mempool flavours are not ported.
 """
@@ -274,6 +274,11 @@ class CListMempool:
     def size(self) -> int:
         with self._lock:
             return len(self.pool)
+
+    def flush(self) -> None:
+        """Drop every pooled tx (the RPC's ``unsafe_flush_mempool``)."""
+        with self._lock:
+            self.pool.clear()
 
     # --- post-commit --------------------------------------------------
 

@@ -8,9 +8,12 @@ so a block costs its own writes, not the whole state. Queries read
 the committed state; ProcessProposal refuses a block with a malformed
 tx; vote extensions are bound to (height, block hash), as in the
 reference's e2e app; every Misbehavior that FinalizeBlock delivers is
-kept in ``misbehavior_seen``, the app-side slashing record. The
-provable hash (and so query proofs), snapshots and the persistence
-file are not ported.
+kept in ``misbehavior_seen``, the app-side slashing record. With
+``prove=True`` the app hash is SHA-256(height || merkle root over the
+sorted KV leaves) and ``Query(prove=True)`` returns the proof-op chain
+a light client checks against a verified AppHash (``crypto/merkle``'s
+``ProofRuntime``); off by default, so every chain keeps the flat hash.
+Snapshots and the persistence file are not ported.
 """
 
 from __future__ import annotations
@@ -21,14 +24,18 @@ import json
 from typing import Dict, List
 
 from ..abci import types as abci
+from ..crypto import merkle
+from ..utils import proto
 
 VALIDATOR_TX_PREFIX = b"val:"
 
 
 class KVStoreApplication(abci.Application):
-    def __init__(self):
+    def __init__(self, prove: bool = False):
         self.state: Dict[bytes, bytes] = {}
         self.height = 0
+        self.prove = prove
+        self._proof_cache = None  # (height, sorted keys, proofs)
         # (committed state, sorted keys, chunks) and finalize's overlay
         self._chunk_cache = None
         self._chunk_cache_next = None
@@ -70,9 +77,13 @@ class KVStoreApplication(abci.Application):
         return keys, chunks
 
     def _hash_state(self, height: int, state: Dict[bytes, bytes]) -> bytes:
+        keys, chunks = self._chunks_for(state)
+        if self.prove:
+            root = merkle.hash_from_byte_slices([merkle.kv_leaf(k, state[k]) for k in keys])
+            return hashlib.sha256(height.to_bytes(8, "big") + root).digest()
         h = hashlib.sha256()
         h.update(height.to_bytes(8, "big"))
-        for ch in self._chunks_for(state)[1]:
+        for ch in chunks:
             h.update(ch)
         return h.digest()
 
@@ -90,13 +101,56 @@ class KVStoreApplication(abci.Application):
     def query(self, req):
         if req.path == "/store" or req.path == "":
             v = self.state.get(req.data)
+            proof_ops = b""
+            if req.prove and self.prove:
+                proof_ops = merkle.encode_proof_ops(self._query_proof(req.data, v))
             return abci.ResponseQuery(
                 code=abci.CODE_TYPE_OK if v is not None else 1,
                 key=req.data,
                 value=v or b"",
                 height=self.height,
+                proof_ops=proof_ops,
             )
         return abci.ResponseQuery(code=1, log=f"unknown path {req.path}")
+
+    def _query_proof(self, key: bytes, value):
+        """Proof-op chain for one committed key (or its absence):
+        inclusion or absence against the sorted-KV merkle root, then
+        the app-hash binding op. The proofs are built once a committed
+        height and cached."""
+        cache = self._proof_cache
+        if cache is None or cache[0] != self.height:
+            keys = sorted(self.state)
+            _, proofs = merkle.proofs_from_byte_slices(
+                [merkle.kv_leaf(k, self.state[k]) for k in keys]
+            )
+            cache = self._proof_cache = (self.height, keys, proofs)
+        _, keys, proofs = cache
+
+        def neighbor(i: int) -> bytes:
+            return proto.field_message(
+                1,
+                proto.field_bytes(1, merkle.encode_proof(proofs[i]))
+                + proto.field_bytes(2, keys[i])
+                + proto.field_bytes(3, self.state[keys[i]]),
+            )
+
+        if value is not None:
+            idx = bisect.bisect_left(keys, key)
+            first = merkle.ProofOp(merkle.OP_KV_VALUE, key, merkle.encode_proof(proofs[idx]))
+        else:
+            pos = bisect.bisect_left(keys, key)
+            nbs = b""
+            if keys:
+                if pos == 0:
+                    nbs = neighbor(0)
+                elif pos == len(keys):
+                    nbs = neighbor(len(keys) - 1)
+                else:
+                    nbs = neighbor(pos - 1) + neighbor(pos)
+            first = merkle.ProofOp(merkle.OP_KV_ABSENCE, key, nbs)
+        app_op = merkle.ProofOp(merkle.OP_APP_HASH, b"", proto.field_varint(1, self.height))
+        return [first, app_op]
 
     # --- mempool ------------------------------------------------------
 

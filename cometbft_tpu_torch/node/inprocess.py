@@ -4,15 +4,18 @@ The part of the JAX package's ``node/inprocess.py`` that replay and
 in-process consensus need (reference consensus/common_test.go
 randConsensusNet): ``build_node`` wires the kv stores, the kvstore app
 behind a local ABCI client, the mempool, the block executor, the ABCI
-handshake, the event bus, the evidence pool (``evpool``, over its own
-in-memory kv, as in the JAX package) and the consensus state machine
-(``cs``, with a WAL on disk when ``wal=True``); ``LocalNet`` connects
+handshake, the event bus (which the executor publishes each block's
+events on), the tx and block indexers with their ``IndexerService``
+when ``config.tx_index.indexer`` is ``"kv"`` (one kv db,
+``tx_index.db`` under ``home`` on disk), the evidence pool (``evpool``,
+over its own in-memory kv, as in the JAX package) and the consensus
+state machine (``cs``, with a WAL on disk when ``wal=True``);
+``LocalNet`` connects
 N nodes' state machines by in-memory delivery; ``make_genesis`` makes a genesis whose
 keys come from a seeded ``np.random.default_rng``, as ``bench.py``'s
 replay corpus does, and ``make_privvals`` file-backed signers over
 them. The networked node over these parts is ``node/node.py``'s
-``Node``; the indexer, retention, snapshots and tracing are not
-ported.
+``Node``; retention, snapshots and tracing are not ported.
 
 ``device`` is where the node's signature checks run: None is the GPU
 and raises without one; ``device="cpu"`` runs them on the host plane.
@@ -43,6 +46,7 @@ from ..mempool.mempool import CListMempool
 from ..models.kvstore import KVStoreApplication
 from ..privval import FilePV
 from ..state.execution import BlockExecutor
+from ..state.indexer import BlockIndexer, IndexerService, TxIndexer
 from ..state.state_types import State
 from ..state.store import Store as StateStore
 from ..store.block_store import BlockStore
@@ -70,11 +74,16 @@ class NodeParts:
     event_bus: Optional[ev.EventBus] = None
     cs: Optional[ConsensusState] = None
     evpool: Optional[EvidencePool] = None
+    index_db: Optional[kv.KV] = None
+    tx_indexer: Optional[TxIndexer] = None
+    block_indexer: Optional[BlockIndexer] = None
+    indexer_service: Optional[IndexerService] = None
 
     def close_stores(self) -> None:
         """Release the store handles. Idempotent."""
-        for db in (self.block_db, self.state_db):
-            db.close()
+        for db in (self.block_db, self.state_db, self.index_db):
+            if db is not None:
+                db.close()
 
 
 def build_node(
@@ -102,14 +111,17 @@ def build_node(
     db_backend = config.base.db_backend
     app = app if app is not None else KVStoreApplication()
     proxy = AppConns.local(app)
-    if db_backend == "memdb":
-        block_db, state_db = kv.MemKV(), kv.MemKV()
-    else:
+    if db_backend != "memdb":
         if not home:
             raise ValueError(f"the {db_backend} backend needs a home directory")
         os.makedirs(home, exist_ok=True)
-        block_db = kv.open_kv(db_backend, os.path.join(home, "blockstore.db"))
-        state_db = kv.open_kv(db_backend, os.path.join(home, "state.db"))
+
+    def open_db(name: str) -> kv.KV:
+        if db_backend == "memdb":
+            return kv.MemKV()
+        return kv.open_kv(db_backend, os.path.join(home, name))
+
+    block_db, state_db = open_db("blockstore.db"), open_db("state.db")
     block_store = BlockStore(block_db)
     state_store = StateStore(state_db)
     state = state_store.load()
@@ -117,6 +129,22 @@ def build_node(
         state = genesis.make_genesis_state()
         state_store.save(state)
     state = Handshaker(state_store, state, block_store, genesis).handshake(proxy)
+    event_bus = ev.EventBus()
+    # indexing (reference [tx_index] indexer = "kv" | "null"): the
+    # service accumulates a height's events on the bus and flushes ONE
+    # write_batch per height, from an async drain once Node.start
+    # upgrades it
+    index_db = tx_indexer = block_indexer = indexer_service = None
+    if config.tx_index.indexer == "kv":
+        index_db = open_db("tx_index.db")
+        tx_indexer = TxIndexer(index_db)
+        block_indexer = BlockIndexer(index_db)
+        indexer_service = IndexerService(tx_indexer, block_indexer, event_bus)
+        indexer_service.start()
+    elif config.tx_index.indexer != "null":
+        raise NotImplementedError(
+            f"tx_index.indexer={config.tx_index.indexer!r} is not ported (ROADMAP A6)"
+        )
     evpool = EvidencePool(kv.MemKV(), state_store, block_store, device=device)
     mempool = CListMempool(
         proxy.mempool,
@@ -133,8 +161,8 @@ def build_node(
         block_store=block_store,
         block_time_tolerance_ns=config.consensus.block_time_tolerance_ns,
         device=device,
+        event_bus=event_bus,
     )
-    event_bus = ev.EventBus()
     wal_path = None
     if wal:
         wal_path = os.path.join(home or tempfile.mkdtemp(), "cs.wal")
@@ -167,6 +195,10 @@ def build_node(
         event_bus=event_bus,
         cs=cs,
         evpool=evpool,
+        index_db=index_db,
+        tx_indexer=tx_indexer,
+        block_indexer=block_indexer,
+        indexer_service=indexer_service,
     )
 
 

@@ -11,7 +11,11 @@ blocksync/reactor_adaptive.go).
 
 A copy of the JAX package's ``node/node.py``: the constructor,
 ``start``, ``stop``, ``kill``, ``dial``, ``listen_addr``, ``height``,
-``block_id_hash_at`` and the blocksync-to-consensus hand-off. The node
+``block_id_hash_at`` and the blocksync-to-consensus hand-off. With
+``rpc.laddr`` set the node serves JSON-RPC and websocket events
+(``rpc/``), started after the switch and the indexer's drain and
+stopped first, in the JAX order; ``queues`` is the obs registry its
+``health`` route reads. The node
 runs its signature checks on ``device`` (None is the GPU, and raises
 without one; ``device="cpu"`` the host plane or the plain kernels): the
 consensus state machine, the consensus reactor's vote waves, the
@@ -21,11 +25,11 @@ pool evidence directly, where the JAX node's RPC ``broadcast_evidence``
 does, with the reactor's retry when the verify route fails (C3). Not
 ported, and refused with ``NotImplementedError`` when the config asks
 for them (ROADMAP A8, A10): lp2p, PEX and seeds, the statesync
-reactor, RPC and gRPC, the app and nop mempools, the reactor autopool,
-the metrics and profiling servers and the stuck-task watchdog. The obs
-plane's loop watchdog, queue registry and staged shutdown guard (A10)
-are replaced by plain per-stage timeouts in ``_shutdown``; the indexer
-and retention do not exist in the port.
+reactor, gRPC, the app and nop mempools, the reactor autopool, the
+metrics and profiling servers and the stuck-task watchdog. The obs
+plane's loop watchdog and staged shutdown guard (A10) are replaced by
+plain per-stage timeouts in ``_shutdown``; retention does not exist in
+the port.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from ..consensus.reactor import ConsensusReactor
 from ..device import resolve
 from ..evidence.reactor import EvidenceReactor
 from ..mempool.reactor import MempoolReactor
+from ..obs import QueueRegistry
 from ..p2p import NodeInfo, NodeKey, Switch, TCPTransport
 from ..types.genesis import GenesisDoc
 from ..utils.log import get_logger
@@ -69,7 +74,6 @@ def _refuse_unported(config: Config) -> None:
         (config.p2p.seeds or config.p2p.seed_mode, "p2p.seeds / p2p.seed_mode (PEX)", "A8"),
         (config.p2p.use_autopool, "p2p.use_autopool (the reactor autopool)", "A8"),
         (config.statesync.enable, "statesync.enable (the statesync reactor)", "A8"),
-        (config.rpc.laddr, "rpc.laddr (the RPC server)", "A8"),
         (config.rpc.grpc_laddr, "rpc.grpc_laddr (the gRPC broadcast API)", "A8"),
         (config.mempool.type_ != "clist", f"mempool.type_={config.mempool.type_!r}", "A8"),
         (config.instrumentation.prometheus, "instrumentation.prometheus (the metrics server)", "A10"),
@@ -170,6 +174,30 @@ class Node:
         self.switch.add_reactor("blocksync", self.blocksync_reactor)
         self._adaptive = adaptive
         self._cs_started = False
+        self.rpc_server = None
+        self.rpc_env = None
+        # a co-resident light serving plane's shared VerifiedHeaderCache
+        # (light/serving.py), reported by the health route
+        self.light_header_cache = None
+        self.queues = QueueRegistry()
+        self._register_queues()
+
+    def _register_queues(self) -> None:
+        """Point the backpressure registry (obs/queues.py) at the
+        bounded queues the port has. Entries are callables read at
+        scrape time: planes rebuild queues across start/stop."""
+        from ..crypto.scheduler import sched_stats_if_running
+
+        q = self.queues
+        q.register(
+            "rpc.fanout",
+            lambda: None if self.rpc_server is None else self.rpc_server.fanout.queue_stats(),
+        )
+        svc = self.parts.indexer_service
+        if svc is not None:
+            q.register("state.index", svc.queue_stats)
+        q.register("blocksync.window", lambda: self.blocksync_reactor.inner.pool.queue_stats())
+        q.register("crypto.sched", sched_stats_if_running)
 
     # --- phase switching ----------------------------------------------
 
@@ -222,6 +250,16 @@ class Node:
             chain=self.genesis.chain_id,
             height=self.parts.block_store.height(),
         )
+        if self.parts.indexer_service is not None:
+            await self.parts.indexer_service.start_async(
+                self.parts.block_store, self.parts.state_store
+            )
+        if self.config.rpc.laddr:
+            from ..rpc import Environment, RPCServer
+
+            self.rpc_env = Environment.from_node(self)
+            self.rpc_server = RPCServer(self.rpc_env)
+            await self.rpc_server.start(_strip_proto(self.config.rpc.laddr))
         # consensus starts now unless blocksync must complete first
         if not self.blocksync_reactor.active or self._adaptive:
             await self.parts.cs.start()
@@ -256,6 +294,10 @@ class Node:
 
     async def _shutdown(self, graceful: bool) -> None:
         budget = SHUTDOWN_STAGE_BUDGET_S
+        if self.rpc_server is not None:
+            await self._stage("rpc", self.rpc_server.stop(), budget)
+        if self.rpc_env is not None:
+            await self._stage("rpc_env", self.rpc_env.close(), budget)
         if self._cs_started:
             await self._stage(
                 "consensus",
@@ -272,6 +314,8 @@ class Node:
                 self.switch.abort()
             except Exception:
                 traceback.print_exc()
+        if self.parts.indexer_service is not None:
+            await self._stage("indexer", self.parts.indexer_service.stop(), budget)
         # release store handles last: a restart in the same process
         # must be able to reopen every database
         await self._stage("stores", asyncio.to_thread(self.parts.close_stores), budget)

@@ -15,11 +15,15 @@ three phases ``apply_finalize``, ``apply_hash_persist`` and
 pending evidence, every ABCI call that takes a block hands the app its
 evidence as ``Misbehavior`` (``evidence_to_misbehavior``), and the
 commit phase tells the pool what was committed (``evpool.update``).
-The event bus and pruning are not ported.
+With an ``event_bus``, the commit phase publishes NewBlock,
+NewBlockHeader, one Tx per tx and ValidatorSetUpdates (``_fire_events``)
+with the finalize pass's flattened and encoded events, which the
+indexer and the RPC fan-out read. Pruning is not ported.
 """
 
 from __future__ import annotations
 
+import hashlib
 import time
 from typing import List, Optional, Tuple
 
@@ -28,6 +32,7 @@ from ..crypto import merkle
 from ..crypto.keys import pubkey_from_type_bytes
 from ..device import resolve
 from ..evidence.types import DuplicateVoteEvidence, LightClientAttackEvidence
+from ..types import events as ev
 from ..types.block import Block, BlockID, Commit, Data, Header
 from ..types.part_set import PartSet
 from ..types.signature_cache import SignatureCache
@@ -212,11 +217,13 @@ class BlockExecutor:
         signature_cache: Optional[SignatureCache] = None,
         block_time_tolerance_ns: int = DEFAULT_BLOCK_TIME_TOLERANCE_NS,
         device=None,
+        event_bus: Optional[ev.EventBus] = None,
     ):
         self.store = state_store
         self.proxy = proxy_consensus
         self.mempool = mempool
         self.evpool = evidence_pool
+        self.event_bus = event_bus
         self.block_store = block_store
         self.sig_cache = signature_cache or SignatureCache()
         self.tolerance_ns = block_time_tolerance_ns
@@ -352,8 +359,8 @@ class BlockExecutor:
         self, state: State, block_id: BlockID, block: Block, verified: bool = False
     ) -> State:
         resp = self.apply_finalize(state, block, verified=verified)
-        new_state, _ = self.apply_hash_persist(state, block_id, block, resp)
-        return self.apply_complete(new_state, block, resp)
+        new_state, artifacts = self.apply_hash_persist(state, block_id, block, resp)
+        return self.apply_complete(new_state, block_id, block, resp, artifacts)
 
     def apply_finalize(
         self, state: State, block: Block, verified: bool = False
@@ -385,13 +392,41 @@ class BlockExecutor:
         )
         return self._update_state(state, block_id, block, resp, artifacts), artifacts
 
-    def apply_complete(self, new_state: State, block: Block, resp) -> State:
-        """Phase 3: the app's Commit, the mempool update and the
-        evidence pool's update."""
+    def apply_complete(
+        self, new_state: State, block_id: BlockID, block: Block, resp, artifacts=None
+    ) -> State:
+        """Phase 3: the app's Commit, the mempool update, the evidence
+        pool's update and the block's events."""
         self._commit(block, resp)
         if self.evpool:
             self.evpool.update(new_state, block.evidence)
+        self._fire_events(block, block_id, resp, artifacts)
         return new_state
+
+    def _fire_events(self, block, block_id, resp, artifacts=None) -> None:
+        if self.event_bus is None:
+            return
+        new_block_data = {"block": block, "block_id": block_id, "result_events": resp.events}
+        if artifacts is not None:
+            # the once-flattened/encoded forms, so the indexer and the
+            # fan-out never re-walk the attributes (events published
+            # without them are flattened by each consumer)
+            new_block_data["events_flat"] = artifacts.block_events_flat
+            new_block_data["events_enc"] = artifacts.block_events_enc
+        self.event_bus.publish_type(ev.EVENT_NEW_BLOCK, new_block_data, height=block.height)
+        self.event_bus.publish_type(ev.EVENT_NEW_BLOCK_HEADER, block.header, height=block.height)
+        for i, tx in enumerate(block.data.txs):
+            data = {"height": block.height, "index": i, "tx": tx, "result": resp.tx_results[i]}
+            if artifacts is not None:
+                data["tx_hash"] = artifacts.tx_hashes[i]
+                data["events_flat"] = artifacts.tx_events_flat[i]
+                data["events_enc"] = artifacts.tx_events_enc[i]
+                h = artifacts.tx_hashes[i].hex()
+            else:
+                h = hashlib.sha256(tx).hexdigest()
+            self.event_bus.publish_type(ev.EVENT_TX, data, hash=h)
+        if resp.validator_updates:
+            self.event_bus.publish_type(ev.EVENT_VALIDATOR_SET_UPDATES, resp.validator_updates)
 
     def apply_verified_block(self, state: State, block_id: BlockID, block: Block) -> State:
         """Skip validation: the commit was verified already (blocksync,

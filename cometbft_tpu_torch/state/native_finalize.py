@@ -40,16 +40,27 @@ def encode_event_flat(fe: FlatEvent) -> bytes:
 class FinalizeArtifacts:
     """What the finalize pass derives from (txs, tx_results), once a
     block: ``tx_hashes``, ``results_enc`` (each result's encoding),
-    ``results_hash`` (the RFC 6962 root over them), ``tx_events_enc``
-    and ``block_events_enc``."""
+    ``results_hash`` (the RFC 6962 root over them), each tx's events
+    flattened (``tx_events_flat``) and encoded (``tx_events_enc``), and
+    the block events' (``block_events_flat``, ``block_events_enc``);
+    the event bus hands the flat and encoded forms to the indexer and
+    the RPC fan-out."""
 
-    __slots__ = ("tx_hashes", "results_enc", "results_hash", "tx_events_enc", "block_events_enc")
+    __slots__ = (
+        "tx_hashes", "results_enc", "results_hash", "tx_events_flat", "tx_events_enc",
+        "block_events_flat", "block_events_enc",
+    )
 
-    def __init__(self, tx_hashes, results_enc, results_hash, tx_events_enc, block_events_enc):
+    def __init__(
+        self, tx_hashes, results_enc, results_hash, tx_events_flat, tx_events_enc,
+        block_events_flat, block_events_enc,
+    ):
         self.tx_hashes = tx_hashes
         self.results_enc = results_enc
         self.results_hash = results_hash
+        self.tx_events_flat = tx_events_flat
         self.tx_events_enc = tx_events_enc
+        self.block_events_flat = block_events_flat
         self.block_events_enc = block_events_enc
 
 
@@ -58,12 +69,14 @@ def finalize_pass(txs: Sequence[bytes], resp) -> FinalizeArtifacts:
     response."""
     sha = hashlib.sha256
     results_enc = [r.encode() for r in resp.tx_results]
+    tx_flat = [flatten_events(r.events) for r in resp.tx_results]
+    block_flat = flatten_events(resp.events)
     return FinalizeArtifacts(
         tx_hashes=[sha(tx).digest() for tx in txs],
         results_enc=results_enc,
         results_hash=merkle.hash_from_byte_slices(results_enc),
-        tx_events_enc=[
-            [encode_event_flat(fe) for fe in flatten_events(r.events)] for r in resp.tx_results
-        ],
-        block_events_enc=[encode_event_flat(fe) for fe in flatten_events(resp.events)],
+        tx_events_flat=tx_flat,
+        tx_events_enc=[[encode_event_flat(fe) for fe in flat] for flat in tx_flat],
+        block_events_flat=block_flat,
+        block_events_enc=[encode_event_flat(fe) for fe in block_flat],
     )

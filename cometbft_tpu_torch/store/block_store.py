@@ -212,6 +212,12 @@ class BlockStore:
         data = b"".join(p.bytes_ for p in parts)
         return codec.decode_block(data)
 
+    def load_block_by_hash(self, h: bytes) -> Optional[Block]:
+        hb = self.db.get(b"BH:" + h)
+        if hb is None:
+            return None
+        return self.load_block(int.from_bytes(hb, "big"))
+
     def load_block_commit(self, height: int) -> Optional[Commit]:
         b = self.db.get(_hkey(b"C:", height))
         return codec.decode_commit(b) if b else None

@@ -150,11 +150,13 @@ class _BatchHandle:
         lane was cached)."""
         return () if self._pending is None else (self._pending,)
 
-    def result(self):
+    def result(self, timeout: Optional[float] = None):
+        """``timeout`` bounds the wait on the ticket (``TimeoutError``
+        past it); None waits for the scheduler to resolve it."""
         items, cache = self._items, self._cache
         oks = [True] * len(items)
         if self._pending is not None:
-            _, verdicts = self._pending.result()
+            _, verdicts = self._pending.result(timeout)
             for i, ok in zip(self._to_verify, verdicts):
                 oks[i] = ok
                 if ok and cache is not None:
@@ -169,11 +171,12 @@ def _run_batch(
     priority: Optional[int] = None,
     label: str = "",
     device=None,
+    timeout: Optional[float] = None,
 ):
     """items: list of (pubkey, sign_bytes, sig). Returns list[bool]."""
     if not items:
         return []
-    return _run_batch_async(items, cache, priority, label, device).result()
+    return _run_batch_async(items, cache, priority, label, device).result(timeout)
 
 
 async def _run_batch_awaited(
@@ -489,6 +492,7 @@ def verify_commit_jobs_coalesced(
     cache: Optional[SignatureCache] = None,
     priority: Optional[int] = None,
     device=None,
+    timeout: Optional[float] = None,
 ) -> list:
     """Mixed-kind coalesced verification: many light and trusting
     commit checks in ONE lane batch (a light client's bisection hop is
@@ -501,7 +505,8 @@ def verify_commit_jobs_coalesced(
     Returns one entry per job: None or the exact CommitVerifyError the
     serial path raises — collection and fold run the same helpers as
     verify_commit_light and verify_commit_light_trusting, over one
-    shared lane batch."""
+    shared lane batch. ``timeout`` bounds the wait on the batch's
+    ticket (``TimeoutError`` past it: no verdict)."""
     device = resolve(device)
     items: list = []
     metas: list = []
@@ -526,7 +531,7 @@ def verify_commit_jobs_coalesced(
         except CommitVerifyError as e:
             errors[j] = e
             metas.append(None)
-    oks = _run_batch(items, cache, priority, "jobs", device)
+    oks = _run_batch(items, cache, priority, "jobs", device, timeout)
     for j, meta in enumerate(metas):
         if meta is None:
             continue

@@ -21,9 +21,14 @@
   stub peer) are among the modules the probe imports. ``Node`` runs on
   the card by default: it raises on a machine without one unless given
   ``device="cpu"``, and its reactors take its device. The settings
-  whose planes the port lacks (lp2p, PEX, statesync, RPC, the app
+  whose planes the port lacks (lp2p, PEX, statesync, gRPC, the app
   mempool, the autopool, the metrics and debug servers) make ``Node``
-  raise ``NotImplementedError`` naming the ROADMAP item.
+  raise ``NotImplementedError`` naming the ROADMAP item; ``rpc.laddr``
+  makes it serve RPC.
+- The RPC and light serving slice's modules (``rpc/``, the indexer,
+  the queue telemetry, the serving plane, the HTTP provider and the
+  proxy) are among the modules the probe imports, and the serving
+  plane raises without a GPU unless given ``device="cpu"``.
 """
 
 import subprocess
@@ -70,6 +75,10 @@ NETWORK_MODULES = [
     "config.config", "mempool.codec", "mempool.ingest", "mempool.mempool",
     "mempool.reactor", "blocksync.net_reactor", "consensus.reactor", "node.node",
     "utils.chaingen", "utils.loop_errors",
+    # the RPC and light serving slice
+    "utils.pubsub_query", "obs", "obs.queues", "state.indexer", "rpc", "rpc.encoding",
+    "rpc.env", "rpc.core", "rpc.fanout", "rpc.server", "rpc.client", "light.serving",
+    "light.http_provider", "light.proxy",
 ]
 
 
@@ -308,7 +317,6 @@ def test_node_raises_without_a_gpu_and_takes_its_device(no_gpu):
         ("p2p", "seeds", "id@127.0.0.1:26656", "A8"),
         ("p2p", "use_autopool", True, "A8"),
         ("statesync", "enable", True, "A8"),
-        ("rpc", "laddr", "tcp://127.0.0.1:26657", "A8"),
         ("rpc", "grpc_laddr", "127.0.0.1:9090", "A8"),
         ("mempool", "type_", "app", "A8"),
         ("instrumentation", "prometheus", True, "A10"),
@@ -345,3 +353,32 @@ def test_config_takes_no_setting_the_port_ignores(section, name):
     cfg = make_test_cfg(".")
     with pytest.raises(AttributeError):
         setattr(getattr(cfg, section), name, 1)
+
+
+def test_serving_entry_points_raise_without_a_gpu(no_gpu):
+    from cometbft_tpu_torch.config.config import test_config as make_test_cfg
+    from cometbft_tpu_torch.light import Client, LightServingPlane, StoreBackedProvider, TrustOptions
+    from cometbft_tpu_torch.light.serving import CoalescedCommitVerifier
+    from cometbft_tpu_torch.node.inprocess import make_genesis
+    from cometbft_tpu_torch.node.node import Node
+    from cometbft_tpu_torch.utils.chaingen import make_chain
+
+    gen, privs = make_genesis(2, chain_id="iso-serve")
+    src = make_chain(gen, privs, 3, device="cpu")
+    provider = StoreBackedProvider(gen.chain_id, src.block_store, src.state_store)
+    client = Client(gen.chain_id, TrustOptions(10**18, 1, provider.light_block(1).hash()), provider,
+                    device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LightServingPlane([client])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CoalescedCommitVerifier(gen.chain_id)
+    # on the CPU the plane serves, its engine on the CPU
+    plane = LightServingPlane([client], device="cpu")
+    assert plane.engine.device == torch.device("cpu")
+    assert plane.serve(3).hash() == provider.light_block(3).hash()
+    # a Node with rpc.laddr builds (it serves once started)
+    cfg = make_test_cfg(".")
+    cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    node = Node(cfg, gen, device="cpu")
+    assert node.rpc_server is None and "rpc.fanout" in node.queues.names()
+    node.parts.close_stores()
