@@ -228,6 +228,38 @@ Phases, each printing one JSON line:
    (serve_max_abs_err), with its device time and bound at 13a's
    widest.
 
+14. statesync, the device route pinned, on phase 8's genesis (150
+   validators): a chain of 544 heights x 256 txs a block (139,264
+   kvstore keys) minted by utils.chaingen with the app writing on-disk
+   snapshots at 510 and 520 (a checksumming kvstore: each chunk's
+   SHA-256 in the snapshot's metadata), then served by three source
+   Nodes (no signer, RPC on, storage.snapshot_interval 10) from sqlite
+   copies of its home, the third corrupting every chunk it serves:
+   (a) a fresh Node with statesync.enable (two sources as its RPC
+   primary and witness, the trust root at height 1, its app a
+   checksumming kvstore too, so that it reads the chunk hashes) dials
+   all three, restores the newest snapshot, bans the corrupting sender
+   and blocksyncs the tail to 544; its block store must start at 521,
+   every block ID from 521 and every state row from 520 equal the
+   source's, the restored pairs (133,120, at least 131,072) hash by the
+   kvstore's rule to the app hash the light client certified, and a
+   pre-snapshot
+   key is among them; every state-provider ticket a PRIORITY_CATCHUP
+   ticket on the card; the restore wall split into light checks and
+   chunk fetch and apply, chunks a second, the tail, every ticket, the
+   header cache's stats and K1-K3 launches (counters zeroed just
+   before each joiner, read just after); (b) the same with adaptive
+   sync, consensus started on the restored state ingesting the tail;
+   (c) a fourth source pruning to its last 64 blocks (retain_blocks 64,
+   prune_interval_s 0.2) until its base is 480: RPC block below the
+   base answers the structured pruned error, and a joiner with its
+   trust root at 492 restores from it alone, every chunk served under
+   the retention plane's serve floor. The kernels line adds
+   statesync_launches (14a / 14b / 14c) and each kernel against its
+   plain version on 14a's widest state-provider ticket and its first
+   tail window (statesync_max_abs_err), with its device time and bound
+   at the provider ticket's width.
+
 The line before last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result line; a run that outlives RUN_LIMIT_S (1,140 s) ends non-zero
@@ -327,6 +359,14 @@ RPC_COMMIT_TXS = 16
 RPC_QUERY_KEYS = 16
 LIGHT_REQUESTS = 256
 LIGHT_HEIGHTS = 16
+# phase 14: statesync, on phase 8's genesis (150 validators)
+SS_BLOCKS = 544
+SS_TXS = 256
+SS_SNAPSHOTS = (510, 520)  # on disk: the newest leaves a 24-height tail
+SS_MIN_RESTORED_KEYS = 131072
+SS_RETAIN = 64
+SS_TRUST_IN_WINDOW = 492
+SS_DEADLINE_S = 240
 
 # card peaks: HBM bytes/s from the H100 SXM data sheet; 32-bit integer
 # results per clock per SM on sm_90 (IMAD, IADD, LOP, shifts: 64, the
@@ -2980,6 +3020,293 @@ def phase_rpc(dev, gen, privs, snapshot, top):
 
 
 
+# --- phase 14: statesync -------------------------------------------------------
+
+
+def _kv_app_hash(height, state) -> bytes:
+    """The kvstore's flat app hash, computed here from the pairs: SHA-256
+    over the height and every (key, value), length-prefixed, in key
+    order (models/kvstore.py, not called)."""
+    import hashlib
+
+    h = hashlib.sha256(height.to_bytes(8, "big"))
+    for k in sorted(state):
+        v = state[k]
+        h.update(len(k).to_bytes(4, "big") + k + len(v).to_bytes(4, "big") + v)
+    return h.digest()
+
+
+def phase_statesync(dev, gen, privs):
+    """Phase 14: a 150-validator chain of 544 heights x 256 txs minted
+    with on-disk snapshots at 510 and 520, served by three source Nodes
+    from sqlite copies (one of them corrupting every chunk it serves);
+    (a) a fresh Node restores the newest snapshot by statesync and
+    blocksyncs the tail, (b) the same with adaptive sync, (c) a joiner
+    with its trust root inside the retained window restores from a
+    source that prunes to its last 64 blocks. Returns the launches of
+    (a), (b), (c) and, for phase 6, the kernel items of 14a's widest
+    state-provider ticket and of its first tail window."""
+    import asyncio
+    import shutil
+    from collections import Counter
+    from contextlib import contextmanager
+
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.abci.types import RequestQuery
+    from cometbft_tpu_torch.config.config import test_config
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.models.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.node.inprocess import build_node
+    from cometbft_tpu_torch.node.node import Node
+    from cometbft_tpu_torch.rpc.client import HTTPClient, RPCClientError
+    from cometbft_tpu_torch.statesync.snapshots import SnapshotStore
+    from cometbft_tpu_torch.utils import chaingen, log
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "statesync")
+    shutil.rmtree(root, ignore_errors=True)
+    floor = batch._MIN_DEVICE_BATCH
+    sched = S.VerifyScheduler()
+    S.set_scheduler(sched)
+    log.set_level("consensus:error,p2p:error,blocksync:error,statesync:error,*:info")
+    loop = asyncio.new_event_loop()
+    nodes, clients = [], []
+    launches, items = {}, {}
+
+    # the corpus: snapshots on disk at 510 and 520 only (the app writes
+    # through the store while it is attached), so the newest leaves a
+    # 24-height tail
+    t0 = time.perf_counter()
+    mint = os.path.join(root, "mint")
+    app = KVStoreApplication(chunk_hashes=True)
+    mint_cfg = test_config(mint)
+    mint_cfg.base.db_backend = "sqlite"
+    mint_cfg.tx_index.indexer = "null"
+    src = build_node(gen, app=app, config=mint_cfg, home=mint, device=dev)
+    src_rows: dict = {}
+    _record_states(src, src_rows)
+    chaingen.make_chain(gen, privs, SS_SNAPSHOTS[0] - 10, txs_per_block=SS_TXS, node=src)
+    app.snapshot_store = SnapshotStore(os.path.join(mint, "snapshots"), keep_recent=2)
+    chaingen.make_chain(gen, privs, SS_SNAPSHOTS[-1] - SS_SNAPSHOTS[0] + 10, txs_per_block=SS_TXS, node=src)
+    check(app.snapshot_store.heights() == list(SS_SNAPSHOTS), f"14: snapshots {app.snapshot_store.heights()}")
+    app.snapshot_store = None
+    chaingen.make_chain(gen, privs, SS_BLOCKS - SS_SNAPSHOTS[-1], txs_per_block=SS_TXS, node=src)
+    app.persist_path = os.path.join(mint, "app_state.json")
+    app._persist()
+    top = src.block_store.height()
+    check(top == SS_BLOCKS and len(app.state) == SS_BLOCKS * SS_TXS, f"14: corpus at {top}, {len(app.state)} keys")
+    snap = SnapshotStore(os.path.join(mint, "snapshots")).list_snapshots()[-1]
+    blob_bytes = sum(len(SnapshotStore(os.path.join(mint, "snapshots")).load_chunk(snap.height, 1, i))
+                     for i in range(snap.chunks))
+    src.close_stores()
+    emit("statesync_corpus", validators=len(gen.validators), blocks=top, txs_per_block=SS_TXS,
+         keys=len(app.state), snapshots=list(SS_SNAPSHOTS), snapshot_bytes=blob_bytes,
+         snapshot_chunks=snap.chunks, chunk_size=KVStoreApplication.SNAPSHOT_CHUNK,
+         seconds=time.perf_counter() - t0)
+    final_pairs = dict(app.state)
+    del app
+
+    def config(home, moniker, **kw):
+        cfg = test_config(home)
+        cfg.base.moniker = moniker
+        cfg.blocksync.enable = False
+        cfg.rpc.laddr = "tcp://127.0.0.1:0"
+        for k, v in kw.items():
+            sec, _, name = k.partition("__")
+            setattr(getattr(cfg, sec), name, v)
+        return cfg
+
+    async def until(cond, what, timeout=SS_DEADLINE_S, poll=0.01):
+        deadline = asyncio.get_running_loop().time() + timeout
+        while not cond():
+            check(asyncio.get_running_loop().time() < deadline, f"timed out: {what}")
+            await asyncio.sleep(poll)
+
+    async def source(i, **kw):
+        home = os.path.join(root, f"src{i}")
+        shutil.copytree(mint, home)
+        n = Node(config(home, f"src{i}", base__db_backend="sqlite", tx_index__indexer="null",
+                        storage__snapshot_interval=10, **kw), gen, home=home, device=dev)
+        nodes.append(n)
+        await n.start()
+        check(n.height == top and n.parts.app.height == top, f"14: source {i} at {n.height}")
+        return n
+
+    def corrupting(n):
+        """Every chunk ``n`` serves has its first byte flipped."""
+        real = n.parts.app.load_snapshot_chunk
+        served = Counter()
+
+        def load(height, format_, index):
+            chunk = real(height, format_, index)
+            served[height] += 1
+            return bytes([chunk[0] ^ 0xFF]) + chunk[1:] if chunk else chunk
+
+        n.parts.app.load_snapshot_chunk = load
+        return served
+
+    async def join(name, servers, dial, trust_h, adaptive=False):
+        """A fresh Node restoring by statesync from ``dial``, its app a
+        checksumming kvstore (it reads the snapshot's chunk hashes, so a
+        corrupt chunk bans its sender); returns its line, the Node and
+        its recorder."""
+        trust = servers[0].parts.block_store.load_block_meta(trust_h).header.hash()
+        cfg = config(".", name, rpc__laddr="", blocksync__enable=True, blocksync__adaptive_sync=adaptive,
+                     statesync__enable=True, statesync__trust_height=trust_h,
+                     statesync__trust_hash=bytes(trust).hex(), statesync__discovery_time_s=30.0,
+                     statesync__rpc_servers=[s.rpc_server.listen_addr for s in servers])
+        j = Node(cfg, gen, app=KVStoreApplication(chunk_hashes=True), device=dev)
+        nodes.append(j)
+        rows, marks = {}, {}
+        real_complete = j.parts.block_exec.apply_complete
+        real_bootstrap = j.parts.state_store.bootstrap
+
+        def complete(new_state, *rest):
+            st = real_complete(new_state, *rest)
+            rows[st.last_block_height] = _state_row(st)
+            marks["last"] = time.perf_counter()
+            return st
+
+        def bootstrap(state):
+            marks["restored"] = time.perf_counter()
+            rows[state.last_block_height] = _state_row(state)
+            marks["pairs"] = dict(j.parts.app.state)
+            return real_bootstrap(state)
+
+        j.parts.block_exec.apply_complete = complete
+        j.parts.state_store.bootstrap = bootstrap
+        kernels.reset_counts()
+        with Recorder(sched) as rec:
+            t_start = time.perf_counter()
+            await j.start()
+            for s in dial:
+                await j.dial(s.listen_addr)
+            await until(lambda: j.statesync_error is not None or (j.height >= top and "last" in marks),
+                        f"{name}: the joiner at {top}")
+            check(j.statesync_error is None, f"{name}: statesync failed: {j.statesync_error!r}")
+        syncer = j.statesync_reactor.syncer
+        ls = syncer.last_sync
+        snap_h = ls["height"]
+        check(snap_h == SS_SNAPSHOTS[-1], f"{name}: restored {snap_h}, not the newest snapshot")
+        bs = j.parts.block_store
+        check(bs.base() == snap_h + 1 > 1, f"{name}: block store base {bs.base()}")
+        bad = [h for h in range(snap_h + 1, top + 1)
+               if bs.load_block_meta(h).block_id != servers[0].parts.block_store.load_block_meta(h).block_id]
+        check(not bad, f"{name}: block IDs differ at {bad[:5]}")
+        bad = [h for h in range(snap_h, top + 1) if rows.get(h) != src_rows[h]]
+        check(not bad, f"{name}: state differs from the source at {bad[:5]}")
+        # the restored pairs, hashed here by the kvstore's rule, give the
+        # app hash the light client certified (header snap_h + 1), and a
+        # pre-snapshot key is among them
+        certified = j.statesync_provider.client.store.get(snap_h + 1).header.app_hash
+        pairs = marks["pairs"]
+        check(len(pairs) == snap_h * SS_TXS >= SS_MIN_RESTORED_KEYS and pairs.get(b"h1_0") == b"v1",
+              f"{name}: restored {len(pairs)} pairs")
+        check(_kv_app_hash(snap_h, pairs) == certified == rows[snap_h][0], f"{name}: restored app hash")
+        launch = dict(kernels.LAUNCHES)
+        tickets = rec.rows()
+        light = [t for t in tickets if t[0] in ("trusting", "light")]
+        tail = [t for t in tickets if t[0] == "coalesced"]
+        check(light and all(p == S.PRIORITY_CATCHUP and r == "device" for _, p, _, r, _ in light),
+              f"{name}: state-provider tickets {[(l, p, r) for l, p, _, r, _ in light]}")
+        check(tail and all(r == "device" for *_, r, _ in tail), f"{name}: tail windows off the card")
+        check(all(launch[k] == len(rec.dispatches) == len(tickets) for k in SOURCES),
+              f"{name}: launches {launch} against {len(tickets)} tickets")
+        wall = marks["last"] - t_start
+        restore = marks["restored"] - t_start
+        line = {
+            "snapshot_height": snap_h, "chunks": ls["chunks"], "bytes": ls["bytes"],
+            "restored_keys": len(pairs), "keys": len(j.parts.app.state),
+            "restore_wall_s": restore, "light_s": ls["light_s"], "chunks_s": ls["chunks_s"],
+            "chunks_per_s": ls["chunks"] / ls["chunks_s"], "tail_s": marks["last"] - marks["restored"],
+            "tail_blocks": top - snap_h, "wall_s": wall, "banned_peers": sorted(syncer.banned_peers),
+            "provider_tickets": [{"label": lbl, "priority": S.CLASS_NAMES[p], "lanes": n, "wall_ms": w * 1e3}
+                                 for lbl, p, n, _, w in light],
+            "tail_tickets": [{"lanes": n, "wall_ms": w * 1e3} for _, _, n, _, w in tail],
+            "header_cache": j.light_header_cache.stats() if j.light_header_cache is not None else None,
+            "provider": j.statesync_provider.cache_stats(), "launches": launch,
+        }
+        return line, j, rec
+
+    async def run():
+        nonlocal launches, items
+        srcs = [await source(i) for i in range(3)]
+        served = corrupting(srcs[2])
+        bad_id = srcs[2].node_info.node_id
+        # 14a: statesync, then blocksync
+        a, ja, rec = await join("ss-a", srcs[:2], srcs, 1)
+        check(served[SS_SNAPSHOTS[-1]] >= 1 and a["banned_peers"] == [bad_id],
+              f"14a: the corrupting source served {dict(served)}, banned {a['banned_peers']}")
+        check(a["keys"] == SS_BLOCKS * SS_TXS and ja.parts.app.state == final_pairs, "14a: the app's pairs")
+        q = ja.parts.app.query(RequestQuery(path="/store", data=b"h1_0"))
+        check(q.code == 0 and q.value == b"v1", "14a: a pre-snapshot key")
+        emit("statesync_restore", **a, seconds=a["wall_s"])
+        launches["14a"] = a["launches"]
+        provider = [x for lbl in ("trusting", "light") for x in rec.labelled.get(lbl, [])]
+        items["provider"] = max(provider, key=len)
+        items["tail"] = rec.labelled["coalesced"][0]
+        await ja.stop()
+        nodes.remove(ja)
+        # 14b: the same into adaptive sync
+        b, jb, _ = await join("ss-b", srcs[:2], srcs, 1, adaptive=True)
+        check(jb._cs_started and b["banned_peers"] == [bad_id],
+              f"14b: consensus {jb._cs_started}, banned {b['banned_peers']}")
+        emit("statesync_adaptive", **b, seconds=b["wall_s"])
+        launches["14b"] = b["launches"]
+        await jb.stop()
+        nodes.remove(jb)
+        # 14c: from a source that prunes to its last 64 blocks
+        pruned = await source(3, storage__retain_blocks=SS_RETAIN, storage__prune_interval_s=0.2)
+        ret = pruned.parts.retention
+        await until(lambda: pruned.parts.block_store.base() >= top - SS_RETAIN, "14c: the source's prune")
+        base = pruned.parts.block_store.base()
+        cli = HTTPClient(pruned.rpc_server.listen_addr)
+        clients.append(cli)
+        try:
+            await cli.call("block", height=str(base - 1))
+            check(False, "14c: a pruned block was served")
+        except RPCClientError as e:
+            check(json.loads(e.data) == {"pruned": True, "base": str(base)}, f"14c: pruned error {e.data}")
+            pruned_error = {"code": e.code, "message": e.message, "data": e.data}
+        real_serving = ret.serving
+        serves = Counter()
+
+        @contextmanager
+        def serving(height):
+            serves[height] += 1
+            with real_serving(height):
+                serves["floor_seen"] = min(serves.get("floor_seen") or height, ret._serve_floor())
+                yield
+
+        ret.serving = serving
+        c, jc, _ = await join("ss-c", [pruned, srcs[1]], [pruned], SS_TRUST_IN_WINDOW)
+        reconciles = ret.reconciles
+        check(serves[SS_SNAPSHOTS[-1]] == c["chunks"] and serves["floor_seen"] == SS_SNAPSHOTS[-1],
+              f"14c: serves {dict(serves)}")
+        emit("statesync_pruned", **c, source_base=base, retain_blocks=SS_RETAIN, pruned_error=pruned_error,
+             serve_floor=serves["floor_seen"], chunks_served=serves[SS_SNAPSHOTS[-1]],
+             retention=ret.stats(), reconciles=reconciles, seconds=c["wall_s"])
+        launches["14c"] = c["launches"]
+
+    try:
+        batch.set_min_device_batch(1)
+        t_phase = time.perf_counter()
+        loop.run_until_complete(run())
+        emit("statesync_phase", seconds=time.perf_counter() - t_phase)
+    finally:
+        batch.set_min_device_batch(floor)
+        for cl in clients:
+            loop.run_until_complete(cl.close())
+        for n in nodes:
+            loop.run_until_complete(n.stop())
+        loop.close()
+        log.set_level("info")
+        S.set_scheduler(None)
+        sched.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, items
+
+
 def _wal_files(path):
     from cometbft_tpu_torch.consensus.wal import _group_files
 
@@ -3197,6 +3524,7 @@ def main(argv) -> int:
     serve_launches_a, serve_widest = phase_serving(dev)
     serve_launches_bc, rpc_light_items = phase_rpc(dev, gen, privs, *net_corpus[:2])
     serve_launches = {"13a": serve_launches_a, **serve_launches_bc}
+    ss_launches, ss_items = phase_statesync(dev, gen, privs)
 
     # phase 6: each kernel against its plain version on the main paths'
     # own inputs (the window's lanes and the commit's; the replay's and
@@ -3240,15 +3568,22 @@ def main(argv) -> int:
     serve_calls = {k: stage_calls(xs) for k, xs in x_serve.items()}
     serve_errs = {k: compare(c) for k, c in serve_calls.items()}
     x_sw, sw_calls = x_serve["13a_widest"], serve_calls["13a_widest"]
+    # phase 14's own inputs: 14a's widest state-provider ticket and its
+    # first tail window; timed at the provider ticket
+    x_ss = {k: kernel_inputs(its, dev) for k, its in ss_items.items()}
+    ss_calls = {k: stage_calls(xs) for k, xs in x_ss.items()}
+    ss_errs = {k: compare(c) for k, c in ss_calls.items()}
+    x_ssp, ssp_calls = x_ss["provider"], ss_calls["provider"]
     emit("main_path_vs_plain", lanes=x["n"], commit_lanes=x_commit["n"],
          replay_lanes=list(x_replay), bisect_lanes=list(x_bisect),
          live_lanes={k: xw["n"] for k, xw in x_waves.items()},
          net_lanes={k: xn["n"] for k, xn in x_net.items()},
          evidence_lanes={k: xe["n"] for k, xe in x_ev.items()},
-         serve_lanes={k: xs["n"] for k, xs in x_serve.items()}, equal=True, max_abs_err=errs,
+         serve_lanes={k: xs["n"] for k, xs in x_serve.items()},
+         statesync_lanes={k: xs["n"] for k, xs in x_ss.items()}, equal=True, max_abs_err=errs,
          commit_max_abs_err=commit_errs, replay_max_abs_err=replay_errs,
          bisect_max_abs_err=bisect_errs, live_max_abs_err=live_errs, net_max_abs_err=net_errs,
-         evidence_max_abs_err=ev_errs, serve_max_abs_err=serve_errs)
+         evidence_max_abs_err=ev_errs, serve_max_abs_err=serve_errs, statesync_max_abs_err=ss_errs)
     rows = []
     for name in ("ladder", "decompress", "hash_digits"):
         f, plain = calls[name]
@@ -3260,6 +3595,7 @@ def main(argv) -> int:
         net_err = {w: max(e[k] for k in parts) for w, e in net_errs.items()}
         ev_err = {w: max(e[k] for k in parts) for w, e in ev_errs.items()}
         serve_err = {w: max(e[k] for k in parts) for w, e in serve_errs.items()}
+        ss_err = {w: max(e[k] for k in parts) for w, e in ss_errs.items()}
         err = max(max(errs[k], commit_errs[k]) for k in parts)
         b_ms, b_by = bound(name, x, int_rate)
         bc_ms, bc_by = bound(name, x_commit, int_rate)
@@ -3269,6 +3605,7 @@ def main(argv) -> int:
         bn_ms, bn_by = bound(name, x_netp, int_rate)
         be_ms, be_by = bound(name, x_evt, int_rate)
         bsv_ms, bsv_by = bound(name, x_sw, int_rate)
+        bss_ms, bss_by = bound(name, x_ssp, int_rate)
         bb_ms, bb_by = bound(name, x_bulk, int_rate)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -3279,8 +3616,9 @@ def main(argv) -> int:
             "net_launches": {ph: ls[name] for ph, ls in net_launches.items()},
             "evidence_launches": {ph: ls[name] for ph, ls in evidence_launches.items()},
             "serve_launches": {ph: ls[name] for ph, ls in serve_launches.items()},
+            "statesync_launches": {ph: ls[name] for ph, ls in ss_launches.items()},
             "max_abs_err": max(err, replay_err, bisect_err, *live_err.values(), *net_err.values(),
-                               *ev_err.values(), *serve_err.values()),
+                               *ev_err.values(), *serve_err.values(), *ss_err.values()),
             "tolerance": 0,
             "ms": graph_ms(f), "call_ms": cuda_ms(f, 20),
             "plain_ms": cuda_ms(plain, 2, warm=0), "bound_ms": b_ms,
@@ -3321,6 +3659,12 @@ def main(argv) -> int:
             "serve_call_ms": cuda_ms(sw_calls[name][0], 20),
             "serve_plain_ms": cuda_ms(sw_calls[name][1], 2, warm=0),
             "serve_bound_ms": bsv_ms, "serve_bound_by": bsv_by,
+            "statesync_lanes": {w: xs["n"] for w, xs in x_ss.items()},
+            "statesync_max_abs_err": ss_err,
+            "statesync_ms": graph_ms(ssp_calls[name][0]),
+            "statesync_call_ms": cuda_ms(ssp_calls[name][0], 20),
+            "statesync_plain_ms": cuda_ms(ssp_calls[name][1], 2, warm=0),
+            "statesync_bound_ms": bss_ms, "statesync_bound_by": bss_by,
             "bulk_lanes": N_BULK, "bulk_ms": bulk_ms[name], "bulk_call_ms": bulk_call_ms[name],
             "bulk_bound_ms": bb_ms, "bulk_bound_by": bb_by,
             "bulk_max_abs_err": max(bulk_errs[k] for k in parts),

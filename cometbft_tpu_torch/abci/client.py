@@ -3,7 +3,8 @@
 The part of the JAX package's ``abci/client.py`` that a node with a
 local app uses: ``LocalClient`` serializes every call on one lock, as
 the reference's local client does with its mutex, and ``AppConns``
-names the logical connections over it. Socket and gRPC clients are
+names the logical connections over it (consensus, mempool, query and
+the snapshot connection statesync uses). Socket and gRPC clients are
 not ported.
 """
 
@@ -64,15 +65,34 @@ class LocalClient:
         with self._lock:
             return self.app.query(req)
 
+    # snapshot connection
+    def list_snapshots(self):
+        with self._lock:
+            return self.app.list_snapshots()
+
+    def offer_snapshot(self, snapshot, app_hash):
+        with self._lock:
+            return self.app.offer_snapshot(snapshot, app_hash)
+
+    def load_snapshot_chunk(self, height, format_, chunk):
+        with self._lock:
+            return self.app.load_snapshot_chunk(height, format_, chunk)
+
+    def apply_snapshot_chunk(self, index, chunk, sender):
+        with self._lock:
+            return self.app.apply_snapshot_chunk(index, chunk, sender)
+
 
 class AppConns:
     """Named logical connections sharing one client (reference
-    proxy/multi_app_conn.go: consensus, mempool, query)."""
+    proxy/multi_app_conn.go:21-62: consensus, mempool, query,
+    snapshot)."""
 
-    def __init__(self, client, mempool=None, query=None):
+    def __init__(self, client, mempool=None, query=None, snapshot=None):
         self.consensus = client
         self.mempool = mempool or client
         self.query = query or client
+        self.snapshot = snapshot or client
 
     @classmethod
     def local(cls, app: abci.Application) -> "AppConns":

@@ -6,8 +6,11 @@ abci/types/application.go): Info, Query, InitChain, CheckTx,
 PrepareProposal (with ``ExtendedCommitInfo`` when vote extensions are
 on), ProcessProposal, ExtendVote, VerifyVoteExtension, FinalizeBlock
 (with ``ExecTxResult``, ``Event``, ``CommitInfo``, validator updates
-and the block evidence's ``Misbehavior``) and Commit. Snapshots and
-the app-side mempool wait for the slices that need them.
+and the block evidence's ``Misbehavior``), Commit (with its
+``retain_height``) and the snapshot connection statesync drives:
+``Snapshot``, ListSnapshots, OfferSnapshot, LoadSnapshotChunk and
+ApplySnapshotChunk with their result constants. The app-side mempool
+waits for the slice that needs it.
 """
 
 from __future__ import annotations
@@ -308,6 +311,40 @@ class ResponseCommit:
     retain_height: int = 0
 
 
+@dataclass
+class Snapshot:
+    height: int = 0
+    format: int = 0
+    chunks: int = 0
+    hash: bytes = b""
+    metadata: bytes = b""
+
+
+OFFER_SNAPSHOT_ACCEPT = 1
+OFFER_SNAPSHOT_ABORT = 2
+OFFER_SNAPSHOT_REJECT = 3
+OFFER_SNAPSHOT_REJECT_FORMAT = 4
+OFFER_SNAPSHOT_REJECT_SENDER = 5
+
+APPLY_CHUNK_ACCEPT = 1
+APPLY_CHUNK_ABORT = 2
+APPLY_CHUNK_RETRY = 3
+APPLY_CHUNK_RETRY_SNAPSHOT = 4
+APPLY_CHUNK_REJECT_SNAPSHOT = 5
+
+
+@dataclass
+class ResponseOfferSnapshot:
+    result: int = OFFER_SNAPSHOT_ACCEPT
+
+
+@dataclass
+class ResponseApplySnapshotChunk:
+    result: int = APPLY_CHUNK_ACCEPT
+    refetch_chunks: List[int] = field(default_factory=list)
+    reject_senders: List[str] = field(default_factory=list)
+
+
 class Application:
     """The calls this package makes, with accept-everything defaults
     (reference BaseApplication), so an app overrides what it needs."""
@@ -350,3 +387,18 @@ class Application:
 
     def commit(self) -> ResponseCommit:
         return ResponseCommit()
+
+    # --- snapshot connection ---
+    def list_snapshots(self) -> List[Snapshot]:
+        return []
+
+    def offer_snapshot(self, snapshot: Snapshot, app_hash: bytes) -> ResponseOfferSnapshot:
+        return ResponseOfferSnapshot(result=OFFER_SNAPSHOT_REJECT)
+
+    def load_snapshot_chunk(self, height: int, format_: int, chunk: int) -> bytes:
+        return b""
+
+    def apply_snapshot_chunk(
+        self, index: int, chunk: bytes, sender: str
+    ) -> ResponseApplySnapshotChunk:
+        return ResponseApplySnapshotChunk(result=APPLY_CHUNK_ABORT)

@@ -10,19 +10,20 @@ the port reads, which leaves out the JAX package's external address,
 peer caps, packet payload size, handshake and dial timeouts, mempool
 byte cap and async recheck; of ``RPCConfig`` the listen addresses and
 ``unsafe``, of ``TxIndexConfig`` ``indexer`` (``"kv"`` or ``"null"``;
-the Postgres sink is not ported), of ``StateSyncConfig`` ``enable`` and
-of ``InstrumentationConfig`` the metrics, profiling and watchdog
-switches. Those sections take no other attribute (slots), so setting a
+the Postgres sink is not ported), ``StateSyncConfig`` whole, of
+``StorageConfig`` the retention and snapshot fields (not
+``discard_abci_responses``) and of ``InstrumentationConfig`` the
+metrics, profiling and watchdog switches. Those sections take no other attribute (slots), so setting a
 field the port lacks raises ``AttributeError`` instead of doing
 nothing. ``Node`` refuses the settings whose planes the port does not
-have yet (gRPC, PEX, statesync, lp2p, the autopool, the metrics and
-debug servers) with ``NotImplementedError``. Two settings default
+have yet (gRPC, PEX, lp2p, the autopool, the metrics and debug
+servers) with ``NotImplementedError``. Two settings default
 differently from the JAX package: ``p2p.pex`` is off, so that a
 default ``Node`` builds, and ``rpc.laddr`` is empty, so that a node
 serves RPC only when asked (the JAX ``test_config`` gives every test
 node an ephemeral RPC port; here a test sets ``rpc.laddr`` itself).
 ``test_config`` sets the reference's short test timeouts
-(config.TestConfig) and an ephemeral p2p port. The storage, crypto and
+(config.TestConfig) and an ephemeral p2p port. The crypto and
 fleet sections and the TOML round trip are not ported.
 """
 
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
+from typing import List
 
 
 @dataclass
@@ -104,8 +106,15 @@ class MempoolConfig:
 
 @dataclass(slots=True)
 class StateSyncConfig:
-    # the port has no statesync reactor: on makes Node raise
     enable: bool = False
+    rpc_servers: List[str] = field(default_factory=list)
+    trust_height: int = 0
+    trust_hash: str = ""
+    trust_period_s: float = 168 * 3600.0
+    discovery_time_s: float = 15.0
+    # how long the syncer waits for one chunk (the JAX package keeps
+    # this field but its syncer uses a constant 10 s)
+    chunk_request_timeout_s: float = 10.0
 
 
 @dataclass(slots=True)
@@ -121,6 +130,29 @@ class InstrumentationConfig:
     prometheus: bool = False
     pprof_laddr: str = ""
     watchdog_stall_s: float = 0.0
+
+
+@dataclass(slots=True)
+class StorageConfig:
+    # --- retention plane (store/retention.py) --------------------------
+    # blocks/states/index rows kept behind the committed head; 0 =
+    # retain everything (reference semantics — pruning entirely off).
+    # The effective prune target is min-reconciled with the app's
+    # retain_height from ABCI Commit; node-side windows only ever
+    # TIGHTEN what the app allows, never override it upward.
+    retain_blocks: int = 0
+    retain_states: int = 0
+    retain_index: int = 0
+    # background reconcile cadence + per-batch height budget: each
+    # batch is ONE atomic write_batch (deletes + base-marker advance)
+    # so a crash mid-prune resumes idempotently
+    prune_interval_s: float = 10.0
+    prune_batch: int = 100
+    # node-side snapshot generation (statesync/snapshots.py): take an
+    # on-disk chunked app snapshot every `snapshot_interval` heights
+    # (0 = off), rotating to the newest `snapshot_keep_recent`
+    snapshot_interval: int = 0
+    snapshot_keep_recent: int = 2
 
 
 @dataclass
@@ -195,6 +227,7 @@ class Config:
     p2p: P2PConfig = field(default_factory=P2PConfig)
     mempool: MempoolConfig = field(default_factory=MempoolConfig)
     statesync: StateSyncConfig = field(default_factory=StateSyncConfig)
+    storage: StorageConfig = field(default_factory=StorageConfig)
     blocksync: BlockSyncConfig = field(default_factory=BlockSyncConfig)
     consensus: ConsensusConfig = field(default_factory=ConsensusConfig)
     tx_index: TxIndexConfig = field(default_factory=TxIndexConfig)

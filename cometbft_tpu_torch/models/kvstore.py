@@ -13,7 +13,28 @@ kept in ``misbehavior_seen``, the app-side slashing record. With
 sorted KV leaves) and ``Query(prove=True)`` returns the proof-op chain
 a light client checks against a verified AppHash (``crypto/merkle``'s
 ``ProofRuntime``); off by default, so every chain keeps the flat hash.
-Snapshots and the persistence file are not ported.
+
+Snapshots, as in the JAX package: every 10th committed height the whole
+state is one JSON blob (``{"height", "state": {hex key: hex value}}``,
+keys sorted), cut into ``SNAPSHOT_CHUNK`` = 1,024-byte chunks, kept in
+RAM (the newest four) or, with ``snapshot_store``, written through the
+on-disk ``statesync.snapshots.SnapshotStore``; OfferSnapshot takes
+format 1, ApplySnapshotChunk buffers chunks in order and, at the last,
+checks the blob's SHA-256 against the snapshot's hash and restores.
+``persist_path`` keeps the committed state in a JSON file across
+restarts (the reference's PersistentKVStoreApplication), and
+``retain_height`` makes Commit advertise ``height - retain_height``.
+One addition the JAX app lacks, off by default: with
+``chunk_hashes=True`` a snapshot's ``metadata`` carries the SHA-256 of
+each chunk, 32 bytes apiece, and a restore by such an app, when the
+offered snapshot carries such metadata, checks every chunk as it
+arrives and answers ``APPLY_CHUNK_RETRY`` for one that differs, so the
+syncer bans its sender and fetches the chunk elsewhere (a checksumming
+app, as a Cosmos SDK app's snapshot metadata does). The metadata is
+advisory: the blob's hash at the last chunk decides the restore. An
+app without the option (the default, and every JAX app) reads no
+metadata, and a corrupt chunk rejects the whole snapshot at the end,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +42,7 @@ from __future__ import annotations
 import bisect
 import hashlib
 import json
+import os
 from typing import Dict, List
 
 from ..abci import types as abci
@@ -31,10 +53,28 @@ VALIDATOR_TX_PREFIX = b"val:"
 
 
 class KVStoreApplication(abci.Application):
-    def __init__(self, prove: bool = False):
+    SNAPSHOT_CHUNK = 1024
+
+    def __init__(
+        self,
+        persist_path: str = None,
+        prove: bool = False,
+        retain_height: int = 0,
+        snapshot_store=None,
+        chunk_hashes: bool = False,
+    ):
         self.state: Dict[bytes, bytes] = {}
         self.height = 0
         self.prove = prove
+        # Commit advertises height - retain_height (0: the app allows
+        # no pruning, the reference's semantics)
+        self.retain_height = retain_height
+        # None: snapshots in RAM only, gone on restart
+        self.snapshot_store = snapshot_store
+        self.chunk_hashes = chunk_hashes
+        self.persist_path = persist_path
+        if persist_path:
+            self._load_persisted()
         self._proof_cache = None  # (height, sorted keys, proofs)
         # (committed state, sorted keys, chunks) and finalize's overlay
         self._chunk_cache = None
@@ -43,9 +83,32 @@ class KVStoreApplication(abci.Application):
         self.staged: Dict[bytes, bytes] = {}
         self.val_updates: List[abci.ValidatorUpdate] = []
         self._pending = None
+        self.snapshots: Dict[int, bytes] = {}
+        self._restore_buf: List[bytes] = []
+        self._restore_target = None  # (snapshot, app hash, chunk digests or None)
         # (block height, type, validator address, power, evidence height)
         self.misbehavior_seen: List[tuple] = []
         self.extensions_verified = 0  # accepted VerifyVoteExtension calls
+
+    def _load_persisted(self) -> None:
+        if not os.path.exists(self.persist_path):
+            return
+        with open(self.persist_path) as f:
+            st = json.load(f)
+        self.height = st["height"]
+        self.state = {bytes.fromhex(k): bytes.fromhex(v) for k, v in st["state"].items()}
+
+    def _persist(self) -> None:
+        if not self.persist_path:
+            return
+        os.makedirs(os.path.dirname(self.persist_path), exist_ok=True)
+        tmp = self.persist_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(
+                {"height": self.height, "state": {k.hex(): v.hex() for k, v in self.state.items()}},
+                f,
+            )
+        os.replace(tmp, self.persist_path)
 
     # --- hashing ------------------------------------------------------
 
@@ -254,4 +317,85 @@ class KVStoreApplication(abci.Application):
         if nxt is not None and nxt[0] is pending:
             self._chunk_cache = nxt
             self._chunk_cache_next = None
-        return abci.ResponseCommit()
+        if self.height % 10 == 0:
+            self._take_snapshot()
+        self._persist()
+        return abci.ResponseCommit(
+            retain_height=max(0, self.height - self.retain_height) if self.retain_height > 0 else 0
+        )
+
+    # --- snapshots ----------------------------------------------------
+
+    def _chunk_digests(self, blob: bytes) -> bytes:
+        c = self.SNAPSHOT_CHUNK
+        return b"".join(hashlib.sha256(blob[i : i + c]).digest() for i in range(0, len(blob), c))
+
+    def _take_snapshot(self) -> None:
+        blob = json.dumps(
+            {"height": self.height, "state": {k.hex(): v.hex() for k, v in sorted(self.state.items())}}
+        ).encode()
+        if self.snapshot_store is not None:
+            # chunk size matches the wire chunking, so served chunks are
+            # those of the RAM snapshots byte for byte
+            self.snapshot_store.save(
+                self.height, blob, format_=1,
+                metadata=self._chunk_digests(blob) if self.chunk_hashes else b"",
+                chunk_size=self.SNAPSHOT_CHUNK,
+            )
+            return
+        self.snapshots[self.height] = blob
+        while len(self.snapshots) > 4:
+            del self.snapshots[min(self.snapshots)]
+
+    def list_snapshots(self):
+        if self.snapshot_store is not None:
+            return self.snapshot_store.list_snapshots()
+        return [
+            abci.Snapshot(
+                height=h,
+                format=1,
+                chunks=(len(blob) + self.SNAPSHOT_CHUNK - 1) // self.SNAPSHOT_CHUNK,
+                hash=hashlib.sha256(blob).digest(),
+                metadata=self._chunk_digests(blob) if self.chunk_hashes else b"",
+            )
+            for h, blob in sorted(self.snapshots.items())
+        ]
+
+    def load_snapshot_chunk(self, height, format_, chunk):
+        if self.snapshot_store is not None:
+            return self.snapshot_store.load_chunk(height, format_, chunk)
+        blob = self.snapshots.get(height, b"")
+        off = chunk * self.SNAPSHOT_CHUNK
+        return blob[off : off + self.SNAPSHOT_CHUNK]
+
+    def offer_snapshot(self, snapshot, app_hash):
+        if snapshot.format != 1:
+            return abci.ResponseOfferSnapshot(result=abci.OFFER_SNAPSHOT_REJECT_FORMAT)
+        self._restore_buf = []
+        # the chunk digests are checked only by an app that opted in:
+        # the metadata comes from whichever peers advertised the snapshot
+        md = bytes(snapshot.metadata or b"")
+        digests = (
+            [md[i : i + 32] for i in range(0, len(md), 32)]
+            if self.chunk_hashes and snapshot.chunks and len(md) == 32 * snapshot.chunks
+            else None
+        )
+        self._restore_target = (snapshot, app_hash, digests)
+        return abci.ResponseOfferSnapshot(result=abci.OFFER_SNAPSHOT_ACCEPT)
+
+    def apply_snapshot_chunk(self, index, chunk, sender):
+        snapshot, app_hash, digests = self._restore_target
+        if digests is not None and hashlib.sha256(chunk).digest() != digests[index]:
+            # this chunk is not the one the snapshot lists: its sender
+            # is banned and the chunk fetched again elsewhere
+            return abci.ResponseApplySnapshotChunk(result=abci.APPLY_CHUNK_RETRY)
+        self._restore_buf.append(chunk)
+        if len(self._restore_buf) == snapshot.chunks:
+            blob = b"".join(self._restore_buf)
+            if hashlib.sha256(blob).digest() != snapshot.hash:
+                return abci.ResponseApplySnapshotChunk(result=abci.APPLY_CHUNK_REJECT_SNAPSHOT)
+            st = json.loads(blob)
+            self.height = st["height"]
+            self.state = {bytes.fromhex(k): bytes.fromhex(v) for k, v in st["state"].items()}
+            self.app_hash = self._hash_state(self.height, self.state)
+        return abci.ResponseApplySnapshotChunk(result=abci.APPLY_CHUNK_ACCEPT)

@@ -8,14 +8,21 @@ handshake, the event bus (which the executor publishes each block's
 events on), the tx and block indexers with their ``IndexerService``
 when ``config.tx_index.indexer`` is ``"kv"`` (one kv db,
 ``tx_index.db`` under ``home`` on disk), the evidence pool (``evpool``,
-over its own in-memory kv, as in the JAX package) and the consensus
-state machine (``cs``, with a WAL on disk when ``wal=True``);
+over its own in-memory kv, as in the JAX package), the consensus
+state machine (``cs``, with a WAL on disk when ``wal=True``), the
+on-disk ``SnapshotStore`` (``<home>/snapshots``) when
+``config.storage.snapshot_interval`` is set, which a default kvstore
+writes through (and which an injected app without one is given), and
+the storage lifecycle plane (``retention``, ``store/retention.py``),
+always built and idle until a ``[storage]`` knob is set; with one set,
+the default kvstore keeps its state in ``<home>/app_state.json``, so a
+pruned node's restart replays only its retained tail;
 ``LocalNet`` connects
 N nodes' state machines by in-memory delivery; ``make_genesis`` makes a genesis whose
 keys come from a seeded ``np.random.default_rng``, as ``bench.py``'s
 replay corpus does, and ``make_privvals`` file-backed signers over
 them. The networked node over these parts is ``node/node.py``'s
-``Node``; retention, snapshots and tracing are not ported.
+``Node``; tracing is not wired here.
 
 ``device`` is where the node's signature checks run: None is the GPU
 and raises without one; ``device="cpu"`` runs them on the host plane.
@@ -49,7 +56,9 @@ from ..state.execution import BlockExecutor
 from ..state.indexer import BlockIndexer, IndexerService, TxIndexer
 from ..state.state_types import State
 from ..state.store import Store as StateStore
+from ..statesync.snapshots import SnapshotStore
 from ..store.block_store import BlockStore
+from ..store.retention import RetentionPlane
 from ..types import events as ev
 from ..types.genesis import GenesisDoc
 from ..types.validator_set import Validator
@@ -78,6 +87,11 @@ class NodeParts:
     tx_indexer: Optional[TxIndexer] = None
     block_indexer: Optional[BlockIndexer] = None
     indexer_service: Optional[IndexerService] = None
+    # the storage lifecycle plane: always built, a no-op until a
+    # [storage] knob is set; Node.start spawns its reconcile loop
+    retention: Optional[RetentionPlane] = None
+    # on-disk chunked snapshots; None when snapshot generation is off
+    snapshot_store: Optional[SnapshotStore] = None
 
     def close_stores(self) -> None:
         """Release the store handles. Idempotent."""
@@ -109,12 +123,35 @@ def build_node(
         config = test_config(home or ".")
         config.base.db_backend = db_backend
     db_backend = config.base.db_backend
-    app = app if app is not None else KVStoreApplication()
-    proxy = AppConns.local(app)
     if db_backend != "memdb":
         if not home:
             raise ValueError(f"the {db_backend} backend needs a home directory")
         os.makedirs(home, exist_ok=True)
+    storage = config.storage
+    snapshot_store = None
+    if storage.snapshot_interval > 0:
+        snapshot_store = SnapshotStore(
+            os.path.join(home, "snapshots") if home else tempfile.mkdtemp(prefix="snapshots_"),
+            keep_recent=storage.snapshot_keep_recent,
+        )
+    if app is None:
+        # a pruned node cannot replay from block 1 at its handshake: the
+        # blocks below its base are gone. With a lifecycle knob on, the
+        # default app keeps its committed state on disk, so a restart
+        # replays only the retained tail
+        lifecycle_on = bool(
+            storage.retain_blocks or storage.retain_states or storage.retain_index
+            or storage.snapshot_interval
+        )
+        app = KVStoreApplication(
+            persist_path=os.path.join(home, "app_state.json") if home and lifecycle_on else None,
+            snapshot_store=snapshot_store,
+        )
+    elif snapshot_store is not None and getattr(app, "snapshot_store", False) is None:
+        # an injected kvstore-style app with the seam unset gets the
+        # node's store
+        app.snapshot_store = snapshot_store
+    proxy = AppConns.local(app)
 
     def open_db(name: str) -> kv.KV:
         if db_backend == "memdb":
@@ -143,7 +180,7 @@ def build_node(
         indexer_service.start()
     elif config.tx_index.indexer != "null":
         raise NotImplementedError(
-            f"tx_index.indexer={config.tx_index.indexer!r} is not ported (ROADMAP A6)"
+            f"tx_index.indexer={config.tx_index.indexer!r} is not ported (ROADMAP A8, the psql sink's gate)"
         )
     evpool = EvidencePool(kv.MemKV(), state_store, block_store, device=device)
     mempool = CListMempool(
@@ -178,6 +215,22 @@ def build_node(
         evidence_pool=evpool,
         device=device,
     )
+    # the retention plane owns all pruning once enabled: the executor's
+    # inline prune hands the app's retain_height to it
+    retention = RetentionPlane(
+        storage,
+        block_store,
+        state_store,
+        tx_indexer=tx_indexer,
+        block_indexer=block_indexer,
+        evpool=evpool,
+        snapshot_store=snapshot_store,
+        proxy=proxy,
+        wal_path=wal_path,
+        home=home,
+    )
+    if retention.enabled:
+        block_exec.retention_hook = retention.notify_retain_height
     return NodeParts(
         genesis=genesis,
         app=app,
@@ -199,6 +252,8 @@ def build_node(
         tx_indexer=tx_indexer,
         block_indexer=block_indexer,
         indexer_service=indexer_service,
+        retention=retention,
+        snapshot_store=snapshot_store,
     )
 
 

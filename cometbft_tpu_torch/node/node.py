@@ -1,9 +1,9 @@
 """Full node assembly: transport + switch + reactors + consensus
 (reference node/node.go:285 NewNode, :616 OnStart, node/setup.go).
 
-Startup phases mirror the reference: blocksync -> consensus. When
-blocksync is enabled the consensus state machine is built but NOT
-started; once the pool reports caught-up the node switches to
+Startup phases mirror the reference: (statesync ->) blocksync ->
+consensus. When blocksync is enabled the consensus state machine is
+built but NOT started; once the pool reports caught-up the node switches to
 consensus (reference consensus/reactor.go:121 SwitchToConsensus). With
 the fork's AdaptiveSync, blocksync pipelines verified blocks straight
 into the RUNNING consensus state machine instead (reference
@@ -11,7 +11,15 @@ blocksync/reactor_adaptive.go).
 
 A copy of the JAX package's ``node/node.py``: the constructor,
 ``start``, ``stop``, ``kill``, ``dial``, ``listen_addr``, ``height``,
-``block_id_hash_at`` and the blocksync-to-consensus hand-off. With
+``block_id_hash_at``, the statesync phase (``_statesync_routine``:
+discover and restore an app snapshot whose app hash and state the
+light client verifies on the node's device, bootstrap the stores, hand
+off to blocksync, adaptive or not; a failure is fatal and kept in
+``statesync_error``, a failed verify route as the ``DeviceRouteError``
+chained to the card's error), the statesync reactor that serves this
+node's snapshots, the storage lifecycle plane's start and stop
+(``parts.retention``, reported as ``store.retention``) and the
+blocksync-to-consensus hand-off. With
 ``rpc.laddr`` set the node serves JSON-RPC and websocket events
 (``rpc/``), started after the switch and the indexer's drain and
 stopped first, in the JAX order; ``queues`` is the obs registry its
@@ -24,12 +32,11 @@ reactor gossips the pool on channel 0x38; ``add_evidence`` hands the
 pool evidence directly, where the JAX node's RPC ``broadcast_evidence``
 does, with the reactor's retry when the verify route fails (C3). Not
 ported, and refused with ``NotImplementedError`` when the config asks
-for them (ROADMAP A8, A10): lp2p, PEX and seeds, the statesync
-reactor, gRPC, the app and nop mempools, the reactor autopool, the
-metrics and profiling servers and the stuck-task watchdog. The obs
-plane's loop watchdog and staged shutdown guard (A10) are replaced by
-plain per-stage timeouts in ``_shutdown``; retention does not exist in
-the port.
+for them (ROADMAP A8, A10): lp2p, PEX and seeds, gRPC, the app and nop
+mempools, the reactor autopool, the metrics and profiling servers and
+the stuck-task watchdog. The obs plane's loop watchdog and staged
+shutdown guard (A10) are replaced by plain per-stage timeouts in
+``_shutdown``.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from ..evidence.reactor import EvidenceReactor
 from ..mempool.reactor import MempoolReactor
 from ..obs import QueueRegistry
 from ..p2p import NodeInfo, NodeKey, Switch, TCPTransport
+from ..statesync.reactor import StateSyncReactor
 from ..types.genesis import GenesisDoc
 from ..utils.log import get_logger
 from ..utils.tasks import spawn
@@ -73,7 +81,6 @@ def _refuse_unported(config: Config) -> None:
         (config.p2p.pex, "p2p.pex (the PEX reactor)", "A8"),
         (config.p2p.seeds or config.p2p.seed_mode, "p2p.seeds / p2p.seed_mode (PEX)", "A8"),
         (config.p2p.use_autopool, "p2p.use_autopool (the reactor autopool)", "A8"),
-        (config.statesync.enable, "statesync.enable (the statesync reactor)", "A8"),
         (config.rpc.grpc_laddr, "rpc.grpc_laddr (the gRPC broadcast API)", "A8"),
         (config.mempool.type_ != "clist", f"mempool.type_={config.mempool.type_!r}", "A8"),
         (config.instrumentation.prometheus, "instrumentation.prometheus (the metrics server)", "A10"),
@@ -141,11 +148,13 @@ class Node:
         # machine's do (C3)
         self.switch.loop_errors = self.parts.cs.loop_errors
 
-        blocksync_active = config.blocksync.enable
+        blocksync_active = config.blocksync.enable and not config.statesync.enable
         adaptive = config.blocksync.adaptive_sync
-        # consensus gossip stays off until blocksync completes, unless
-        # blocksync ingests into the running state machine
-        sync_pending = blocksync_active and not adaptive
+        # consensus gossip stays off until every sync phase completes
+        # (the statesync hand-off activates blocksync, which switches to
+        # consensus), unless blocksync ingests into the running state
+        # machine
+        sync_pending = config.statesync.enable or (blocksync_active and not adaptive)
         self.consensus_reactor = ConsensusReactor(
             self.parts.cs,
             self.parts.block_store,
@@ -168,16 +177,28 @@ class Node:
             local_blocks_chain=self._local_blocks_chain,
             device=self.device,
         )
+        self.statesync_reactor = StateSyncReactor(self.parts.proxy, enabled=config.statesync.enable)
+        # serve floor: a chunk being streamed to a joiner pins its
+        # height against pruning
+        self.statesync_reactor.retention = self.parts.retention
         self.switch.add_reactor("consensus", self.consensus_reactor)
         self.switch.add_reactor("mempool", self.mempool_reactor)
         self.switch.add_reactor("evidence", self.evidence_reactor)
         self.switch.add_reactor("blocksync", self.blocksync_reactor)
+        self.switch.add_reactor("statesync", self.statesync_reactor)
         self._adaptive = adaptive
         self._cs_started = False
         self.rpc_server = None
         self.rpc_env = None
-        # a co-resident light serving plane's shared VerifiedHeaderCache
-        # (light/serving.py), reported by the health route
+        self._statesync_task = None
+        self.statesync_error = None
+        # the last restore's LightClientStateProvider (its client's
+        # hops, the header cache's stats), kept after it is closed
+        self.statesync_provider = None
+        # cross-client verified-header cache (light/serving.py): a
+        # co-resident serving plane and this node's statesync restore
+        # share verification work through it; made by
+        # _statesync_routine when none was injected
         self.light_header_cache = None
         self.queues = QueueRegistry()
         self._register_queues()
@@ -198,6 +219,8 @@ class Node:
             q.register("state.index", svc.queue_stats)
         q.register("blocksync.window", lambda: self.blocksync_reactor.inner.pool.queue_stats())
         q.register("crypto.sched", sched_stats_if_running)
+        ret = self.parts.retention
+        q.register("store.retention", lambda: ret.stats() if ret.enabled else None)
 
     # --- phase switching ----------------------------------------------
 
@@ -215,6 +238,74 @@ class Node:
         if val is None:
             return False
         return val.voting_power >= state.validators.total_voting_power() / 3
+
+    async def _statesync_routine(self) -> None:
+        """Phase 1: snapshot restore, then the hand-off to blocksync
+        (reference node/setup.go:560 performStateSync)."""
+        from ..light.serving import VerifiedHeaderCache
+        from ..statesync.stateprovider import LightClientStateProvider
+
+        cfg = self.config.statesync
+        try:
+            # with two or more RPC servers the restore client has
+            # witnesses that cross-check what it verifies, so it may
+            # share the node's header cache with a co-resident serving
+            # plane; with one, the sole (untrusted) primary's answers
+            # must reach only a cache private to this restore
+            if len(cfg.rpc_servers) >= 2:
+                header_cache = self.light_header_cache
+                if header_cache is None:
+                    header_cache = self.light_header_cache = VerifiedHeaderCache(self.genesis.chain_id)
+            else:
+                header_cache = VerifiedHeaderCache(self.genesis.chain_id)
+            # the constructor light-verifies the trust root over HTTP:
+            # off this event loop
+            provider = await asyncio.to_thread(
+                LightClientStateProvider,
+                self.genesis.chain_id,
+                cfg.rpc_servers,
+                cfg.trust_height,
+                bytes.fromhex(cfg.trust_hash) if isinstance(cfg.trust_hash, str) else cfg.trust_hash,
+                int(cfg.trust_period_s * 1e9),
+                genesis=self.genesis,
+                header_cache=header_cache,
+                device=self.device,
+            )
+            self.statesync_provider = provider
+            try:
+                state = await self.statesync_reactor.sync(
+                    provider,
+                    self.parts.state_store,
+                    self.parts.block_store,
+                    discovery_time_s=cfg.discovery_time_s,
+                    chunk_timeout_s=cfg.chunk_request_timeout_s,
+                )
+            finally:
+                await asyncio.to_thread(provider.close)
+            self.parts.state = state
+            _log.info(
+                "statesync complete, switching to blocksync",
+                height=state.last_block_height,
+                adaptive=self._adaptive,
+            )
+            if self._adaptive:
+                # adaptive: consensus runs during blocksync and is the
+                # block ingestor, so it starts on the synced state
+                self.parts.cs.update_to_state(state)
+                await self.parts.cs.start()
+                self._cs_started = True
+                self.consensus_reactor.switch_to_consensus()
+            await self.blocksync_reactor.activate(state)
+        except asyncio.CancelledError:
+            raise  # node stop cancels the statesync task
+        except Exception as e:
+            # a statesync failure is fatal (reference node/setup.go
+            # performStateSync): a node that cannot bootstrap must not
+            # linger half-alive
+            self.statesync_error = e
+            traceback.print_exc()
+            _log.error("statesync failed, stopping node", err=repr(e))
+            spawn(self.stop(), name="node-stop")
 
     def _on_caught_up(self, state) -> None:
         spawn(self._switch_to_consensus(state), name="switch-to-consensus")
@@ -254,14 +345,19 @@ class Node:
             await self.parts.indexer_service.start_async(
                 self.parts.block_store, self.parts.state_store
             )
+        # the storage lifecycle plane: a no-op unless a [storage] knob
+        # is set
+        await self.parts.retention.start()
         if self.config.rpc.laddr:
             from ..rpc import Environment, RPCServer
 
             self.rpc_env = Environment.from_node(self)
             self.rpc_server = RPCServer(self.rpc_env)
             await self.rpc_server.start(_strip_proto(self.config.rpc.laddr))
-        # consensus starts now unless blocksync must complete first
-        if not self.blocksync_reactor.active or self._adaptive:
+        # consensus starts now unless a sync phase must complete first
+        if self.config.statesync.enable:
+            self._statesync_task = asyncio.create_task(self._statesync_routine())
+        elif not self.blocksync_reactor.active or self._adaptive:
             await self.parts.cs.start()
             self._cs_started = True
         if self.config.p2p.persistent_peers:
@@ -294,6 +390,8 @@ class Node:
 
     async def _shutdown(self, graceful: bool) -> None:
         budget = SHUTDOWN_STAGE_BUDGET_S
+        if self._statesync_task is not None:
+            self._statesync_task.cancel()
         if self.rpc_server is not None:
             await self._stage("rpc", self.rpc_server.stop(), budget)
         if self.rpc_env is not None:
@@ -316,6 +414,10 @@ class Node:
                 traceback.print_exc()
         if self.parts.indexer_service is not None:
             await self._stage("indexer", self.parts.indexer_service.stop(), budget)
+        # before the stores close: a reconcile pass in its worker
+        # thread must finish (or be abandoned, bounded) while its dbs
+        # are still open
+        await self._stage("retention", self.parts.retention.stop(), budget)
         # release store handles last: a restart in the same process
         # must be able to reopen every database
         await self._stage("stores", asyncio.to_thread(self.parts.close_stores), budget)

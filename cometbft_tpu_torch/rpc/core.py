@@ -6,10 +6,10 @@ Heights arrive as strings or ints (JSON-RPC clients send both).
 
 A copy of the JAX package's ``rpc/core.py``: every route of ``ROUTES``
 and ``UNSAFE_ROUTES``, answering with the JAX node's JSON. The planes
-the port lacks (the loop watchdog, retention, the serving fleet;
-ROADMAP A10, A6) are absent from ``Environment``, and ``health``,
-``status`` and ``fleet_status`` answer as the JAX routes do when those
-fields are None. ``broadcast_evidence`` awaits ``Node.add_evidence``
+the port lacks (the loop watchdog, the serving fleet; ROADMAP A10) are
+absent from ``Environment``, and ``health``, ``status`` and
+``fleet_status`` answer as the JAX routes do when those fields are
+None; ``health`` gives the retention plane's storage verdict. ``broadcast_evidence`` awaits ``Node.add_evidence``
 (the JAX route calls the pool directly): the commit checks' tickets
 resolve on the loop, and a failed verify route raises
 ``DeviceRouteError`` to the caller, a JSON-RPC ``-32603`` error, while
@@ -130,9 +130,9 @@ def health(env) -> Dict[str, Any]:
     """Runtime health verdict: commit freshness, queue backpressure
     and connectivity, with a degraded/ok verdict + reasons. The
     reference returns {} here; every field is additive so `health ==
-    ok` probes keep working. The JAX route's loop-watchdog, retention
-    and serving-fleet parts read planes the port lacks (ROADMAP A10,
-    A6): it answers as the JAX route does when those are None."""
+    ok` probes keep working. The JAX route's loop-watchdog and
+    serving-fleet parts read planes the port lacks (ROADMAP A10): it
+    answers as the JAX route does when those are None."""
     reasons: List[str] = []
     out: Dict[str, Any] = {}
     latest = env.block_store.height()
@@ -204,6 +204,24 @@ def health(env) -> Dict[str, Any]:
         # once a co-resident serving plane shares one — hit/miss/flight
         # counters for "is the serving side sharing verification work"
         out["light_header_cache"] = hc.stats()
+    ret = getattr(env, "retention", None)
+    if ret is not None and getattr(ret, "enabled", False):
+        # storage lifecycle verdict (store/retention.py): the plane's
+        # base/pruned/snapshot counters, degraded when the reconciler
+        # has stopped keeping the window (pruning far behind target)
+        st = ret.stats()
+        out["storage"] = st
+        cfg = getattr(ret, "cfg", None)
+        if cfg is not None and cfg.retain_blocks > 0:
+            lag = latest - st["base_height"]
+            # 3 windows behind = the reconciler is not keeping up
+            # (wedged worker, dead loop) — disk is growing unbounded
+            if st["reconciles"] > 0 and lag > 3 * max(cfg.retain_blocks, cfg.prune_batch):
+                reasons.append(
+                    f"storage: prune base {st['base_height']} lags "
+                    f"head {latest} by {lag} "
+                    f"(> 3x retain_blocks={cfg.retain_blocks})"
+                )
     out["serving_role"] = _serving_role(env)
     # a port node is never a follower replica of a serving fleet
     out["replica_lag_heights"] = 0

@@ -2,9 +2,10 @@
 (reference rpc/core/env.go + node/node.go:754-788 ConfigureRPC).
 
 A copy of the JAX package's ``rpc/env.py`` without the fields of the
-planes the port lacks (the loop watchdog, retention and the serving
-fleet, ROADMAP A10): the routes that read them answer as the JAX routes
-do when those fields are None. ``add_evidence`` is the node's
+planes the port lacks (the loop watchdog and the serving fleet,
+ROADMAP A10): the routes that read them answer as the JAX routes do
+when those fields are None. ``retention`` is the node's storage
+lifecycle plane, whose stats the ``health`` route reports. ``add_evidence`` is the node's
 ``Node.add_evidence``, which ``broadcast_evidence`` awaits: the commit
 checks' tickets resolve on the loop, and a failed verify route raises
 to the caller with the evidence kept on the reactor's retry list (C3).
@@ -42,6 +43,9 @@ class Environment:
     # after this Environment was built
     light_header_cache_fn: object = None
     indexer_service: object = None  # batched per-height index drain
+    # storage lifecycle plane (store/retention.py): health verdict and
+    # stats
+    retention: object = None
     # async (evidence) -> None: the node's pool behind its evidence
     # reactor's retry list
     add_evidence: object = None
@@ -124,5 +128,6 @@ class Environment:
             queues=node.queues,
             light_header_cache_fn=lambda: node.light_header_cache,
             indexer_service=p.indexer_service,
+            retention=p.retention,
             add_evidence=node.add_evidence,
         )

@@ -18,7 +18,9 @@ commit phase tells the pool what was committed (``evpool.update``).
 With an ``event_bus``, the commit phase publishes NewBlock,
 NewBlockHeader, one Tx per tx and ValidatorSetUpdates (``_fire_events``)
 with the finalize pass's flattened and encoded events, which the
-indexer and the RPC fan-out read. Pruning is not ported.
+indexer and the RPC fan-out read. The app's Commit ``retain_height``
+goes to the retention plane's ``retention_hook`` when the node has one
+(``_prune``, reference :527-545), else prunes blocks and states inline.
 """
 
 from __future__ import annotations
@@ -232,6 +234,11 @@ class BlockExecutor:
         self.device = device
         # fork feature: skip re-validating the block validated last
         self._last_validated: Optional[bytes] = None
+        # the app's retain_height from the last Commit, and the
+        # retention plane's hook (store/retention.py), which takes it
+        # when set; without a hook the executor prunes inline
+        self._retain_height = 0
+        self.retention_hook = None
 
     # --- proposal creation (reference :114) ---------------------------
 
@@ -396,10 +403,11 @@ class BlockExecutor:
         self, new_state: State, block_id: BlockID, block: Block, resp, artifacts=None
     ) -> State:
         """Phase 3: the app's Commit, the mempool update, the evidence
-        pool's update and the block's events."""
+        pool's update, pruning and the block's events."""
         self._commit(block, resp)
         if self.evpool:
             self.evpool.update(new_state, block.evidence)
+        self._prune()
         self._fire_events(block, block_id, resp, artifacts)
         return new_state
 
@@ -436,10 +444,31 @@ class BlockExecutor:
     def _commit(self, block: Block, resp) -> None:
         self.mempool.lock()
         try:
-            self.proxy.commit()
+            cres = self.proxy.commit()
             self.mempool.update(block.height, block.data.txs, resp.tx_results)
+            self._retain_height = getattr(cres, "retain_height", 0)
         finally:
             self.mempool.unlock()
+
+    def _prune(self) -> None:
+        rh = self._retain_height
+        hook = self.retention_hook
+        if hook is not None:
+            # the retention plane owns pruning: it records the app's
+            # retain_height here and deletes on its own cadence, in
+            # bounded batches, off this consensus path
+            if rh:
+                try:
+                    hook(rh)
+                except Exception:
+                    pass
+            return
+        if rh and self.block_store is not None:
+            try:
+                self.block_store.prune_blocks(rh)
+                self.store.prune_states(rh)
+            except Exception:
+                pass
 
     def _update_state(
         self, state: State, block_id: BlockID, block: Block, resp, artifacts=None

@@ -451,8 +451,8 @@ def prune_index(
     retain_height: int,
 ) -> int:
     """Prune BOTH indexers' rows below ``retain_height`` in ONE
-    atomic batch carrying the ``idx:base`` advance — the path of the
-    JAX package's retention plane (not ported, ROADMAP A6). Crash-safe by construction:
+    atomic batch carrying the ``idx:base`` advance — the retention
+    plane's index leg (store/retention.py). Crash-safe by construction:
     the marker lands with (never before) the deletes it covers, so a
     crash mid-prune leaves either the old base (deletes retried
     idempotently) or the new base with every covered row gone — no

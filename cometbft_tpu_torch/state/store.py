@@ -7,6 +7,9 @@ A copy of the JAX package's ``state/store.py``. Key layout:
   S:vi:<height>      -> ValidatorsInfo for height: the full set when it
                         changed at <height> (or at a checkpoint), else
                         a pointer {last_height_changed}
+  S:vals:<height>    -> legacy full ValidatorSet records (read-only
+                        fallback for stores written before the pointer
+                        scheme)
   S:params:<height>  -> ConsensusParams active at height
   S:abci:<height>    -> FinalizeBlock response (tx results etc.)
 
@@ -15,8 +18,10 @@ The pointer scheme is the reference's ValidatorsInfo design
 it changes or every VALSET_CHECKPOINT_INTERVAL heights; a load in
 between rebuilds proposer priorities by incrementing from the last
 full set. The live state's priorities never take that path: S:state
-carries the three exact priority vectors. The JAX package's legacy
-``S:vals`` records, ``bootstrap`` and ``prune_states`` are not ported.
+carries the three exact priority vectors. ``bootstrap`` saves a
+state obtained out of band (statesync) with full records only;
+``prune_states`` keeps the full record every retained pointer record
+anchors at.
 """
 
 from __future__ import annotations
@@ -243,6 +248,7 @@ class Store:
                     vs is not None
                     and getattr(vs, "validators", None)
                     and self.db.get(_h(b"S:vi:", hh)) is None
+                    and self.db.get(_h(b"S:vals:", hh)) is None
                 ):
                     sets.append(
                         (
@@ -266,7 +272,10 @@ class Store:
             # out-of-band save — e.g. a state constructed directly by
             # tests/tools rather than evolved from genesis)
             k0 = _last_stored_height_for(k, changed)
-            full = self.db.get(_h(b"S:vi:", k0)) is None
+            full = (
+                self.db.get(_h(b"S:vi:", k0)) is None
+                and self.db.get(_h(b"S:vals:", k0)) is None
+            )
         sets.append(
             (
                 _h(b"S:vi:", k),
@@ -282,6 +291,25 @@ class Store:
         self.db.write_batch(sets)
         self._last_saved_height = state.last_block_height
 
+    def bootstrap(self, state: State) -> None:
+        """Save a state obtained out of band (statesync), with history
+        gaps (reference state/store.go Bootstrap): every record is a
+        full set — there is no contiguous history to point into."""
+        h = state.last_block_height
+        sets = [(b"S:state", encode_state(state, embed_valsets=False))]
+        if state.last_validators is not None and getattr(state.last_validators, "validators", None):
+            sets.append((_h(b"S:vi:", h), _encode_validators_info(state.last_validators, h)))
+        sets.append(
+            (_h(b"S:vi:", h + 1),
+             _encode_validators_info(state.validators, state.last_height_validators_changed))
+        )
+        sets.append(
+            (_h(b"S:vi:", h + 2),
+             _encode_validators_info(state.next_validators, state.last_height_validators_changed))
+        )
+        sets.append((_h(b"S:params:", h + 1), state.consensus_params.encode()))
+        self.db.write_batch(sets)
+
     def load_validators(
         self, height: int, membership_only: bool = False
     ) -> Optional[ValidatorSet]:
@@ -293,13 +321,19 @@ class Store:
         callers that overlay exact priorities anyway (load())."""
         b = self.db.get(_h(b"S:vi:", height))
         if b is None:
-            return None
+            # legacy record (pre-pointer-scheme store)
+            b = self.db.get(_h(b"S:vals:", height))
+            return codec.decode_validator_set(b) if b else None
         vs, changed = _decode_validators_info(b)
         if vs is not None:
             return vs
         k0 = _last_stored_height_for(height, changed)
         b0 = self.db.get(_h(b"S:vi:", k0))
-        vs = _decode_validators_info(b0)[0] if b0 is not None else None
+        if b0 is not None:
+            vs = _decode_validators_info(b0)[0]
+        else:  # the stored-full height predates the scheme: legacy record
+            raw = self.db.get(_h(b"S:vals:", k0))
+            vs = codec.decode_validator_set(raw) if raw else None
         if vs is None:
             raise ValueError(
                 f"validators at height {height} point to missing full "
@@ -325,3 +359,33 @@ class Store:
 
     def load_finalize_block_response(self, height: int) -> Optional[bytes]:
         return self.db.get(_h(b"S:abci:", height))
+
+    def prune_states(self, retain_height: int) -> None:
+        """Delete state records below ``retain_height``, keeping the
+        full record every retained pointer record anchors at
+        (reference state/store.go:299 keeps the last checkpoint). The
+        floor is the anchor of the first pointer record at or above
+        retain_height: anchors max(checkpoint(h), changed) are monotone
+        in h, so it bounds every later one. Full records on the way are
+        skipped, not trusted as a floor: save()'s backfill writes full
+        records that are not change points, so a pointer above one can
+        still anchor below it (a legacy ``S:vals`` record included)."""
+        keep_from = retain_height
+        for k, v in self.db.iter_prefix(b"S:vi:"):
+            h = int.from_bytes(k[len(b"S:vi:") :], "big")
+            if h < retain_height:
+                continue
+            vs, changed = _decode_validators_info(v)
+            if vs is None:
+                keep_from = min(keep_from, _last_stored_height_for(h, changed))
+                break
+        deletes = []
+        for prefix in (b"S:vi:", b"S:vals:"):
+            for k, _ in self.db.iter_prefix(prefix):
+                if int.from_bytes(k[len(prefix) :], "big") < keep_from:
+                    deletes.append(k)
+        for k, _ in self.db.iter_prefix(b"S:abci:"):
+            if int.from_bytes(k[len(b"S:abci:") :], "big") < retain_height:
+                deletes.append(k)
+        if deletes:
+            self.db.write_batch([], deletes)

@@ -1,7 +1,7 @@
 """Block store: blocks, parts, metas, commits by height (reference store/store.go).
 
-A copy of the JAX package's ``store/block_store.py`` without pruning,
-with a plain lock.
+A copy of the JAX package's ``store/block_store.py``, pruning
+(``prune_blocks``) included, with a plain lock.
 
 Key layout (all big-endian heights for ordered iteration):
   H:<height>     -> block meta (block id + header, proto)
@@ -228,6 +228,30 @@ class BlockStore:
 
     def load_extended_commit(self, height: int) -> Optional[bytes]:
         return self.db.get(_hkey(b"EC:", height))
+
+    # --- prune --------------------------------------------------------
+
+    def prune_blocks(self, retain_height: int) -> int:
+        """Delete blocks below retain_height; returns the number pruned
+        (reference store/store.go PruneBlocks). The deletes and the new
+        base land in one write batch."""
+        if retain_height <= self._base:
+            return 0
+        pruned = 0
+        deletes = []
+        for h in range(self._base, min(retain_height, self._height)):
+            meta = self.load_block_meta(h)
+            if meta is None:
+                continue
+            deletes += [_hkey(b"H:", h), _hkey(b"C:", h), _hkey(b"SC:", h), _hkey(b"EC:", h)]
+            deletes.append(b"BH:" + meta.block_id.hash)
+            for i in range(meta.block_id.part_set_header.total):
+                deletes.append(_hkey(b"P:", h) + i.to_bytes(4, "big"))
+            pruned += 1
+        with self._lock:
+            self.db.write_batch([(b"base", retain_height.to_bytes(8, "big"))], deletes)
+            self._base = retain_height
+        return pruned
 
 
 def _encode_part(part: Part) -> bytes:

@@ -21,14 +21,19 @@
   stub peer) are among the modules the probe imports. ``Node`` runs on
   the card by default: it raises on a machine without one unless given
   ``device="cpu"``, and its reactors take its device. The settings
-  whose planes the port lacks (lp2p, PEX, statesync, gRPC, the app
-  mempool, the autopool, the metrics and debug servers) make ``Node``
-  raise ``NotImplementedError`` naming the ROADMAP item; ``rpc.laddr``
-  makes it serve RPC.
+  whose planes the port lacks (lp2p, PEX, gRPC, the app mempool, the
+  autopool, the metrics and debug servers) make ``Node`` raise
+  ``NotImplementedError`` naming the ROADMAP item; ``rpc.laddr`` makes
+  it serve RPC.
 - The RPC and light serving slice's modules (``rpc/``, the indexer,
   the queue telemetry, the serving plane, the HTTP provider and the
   proxy) are among the modules the probe imports, and the serving
   plane raises without a GPU unless given ``device="cpu"``.
+- The statesync slice's modules (``statesync/``, the retention plane,
+  rollback, offline bootstrap) are among the modules the probe imports;
+  the light-client state provider raises without a GPU unless given
+  ``device="cpu"``, and ``Node`` takes ``statesync.enable`` (its
+  provider then runs on the node's device).
 """
 
 import subprocess
@@ -79,6 +84,10 @@ NETWORK_MODULES = [
     "utils.pubsub_query", "obs", "obs.queues", "state.indexer", "rpc", "rpc.encoding",
     "rpc.env", "rpc.core", "rpc.fanout", "rpc.server", "rpc.client", "light.serving",
     "light.http_provider", "light.proxy",
+    # the statesync slice
+    "statesync", "statesync.chunks", "statesync.snapshots", "statesync.syncer",
+    "statesync.stateprovider", "statesync.reactor", "store.retention", "state.rollback",
+    "node.bootstrap",
 ]
 
 
@@ -316,7 +325,6 @@ def test_node_raises_without_a_gpu_and_takes_its_device(no_gpu):
         ("p2p", "pex", True, "A8"),
         ("p2p", "seeds", "id@127.0.0.1:26656", "A8"),
         ("p2p", "use_autopool", True, "A8"),
-        ("statesync", "enable", True, "A8"),
         ("rpc", "grpc_laddr", "127.0.0.1:9090", "A8"),
         ("mempool", "type_", "app", "A8"),
         ("instrumentation", "prometheus", True, "A10"),
@@ -343,6 +351,7 @@ def test_node_refuses_settings_it_does_not_have(section, name, value, item):
         ("p2p", "handshake_timeout_s"), ("p2p", "dial_timeout_s"),
         ("mempool", "max_txs_bytes"), ("mempool", "async_recheck"),
         ("instrumentation", "prometheus_listen_addr"),
+        ("storage", "discard_abci_responses"),
     ],
 )
 def test_config_takes_no_setting_the_port_ignores(section, name):
@@ -382,3 +391,46 @@ def test_serving_entry_points_raise_without_a_gpu(no_gpu):
     node = Node(cfg, gen, device="cpu")
     assert node.rpc_server is None and "rpc.fanout" in node.queues.names()
     node.parts.close_stores()
+
+
+def test_statesync_entry_points_raise_without_a_gpu(no_gpu):
+    """The state provider and offline bootstrap take their device; a
+    Node with statesync.enable builds on the CPU and starts its restore
+    with its provider on the node's device."""
+    import asyncio
+
+    from cometbft_tpu_torch.config.config import test_config as make_test_cfg
+    from cometbft_tpu_torch.node.bootstrap import bootstrap_state
+    from cometbft_tpu_torch.node.inprocess import make_genesis
+    from cometbft_tpu_torch.node.node import Node
+    from cometbft_tpu_torch.statesync.stateprovider import LightClientStateProvider
+
+    gen, _ = make_genesis(1, chain_id="iso-ss")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LightClientStateProvider(gen.chain_id, ["127.0.0.1:1"], 1, b"\0" * 32, 10**15)
+    cfg = make_test_cfg(".")
+    cfg.statesync.enable = True
+    cfg.statesync.rpc_servers = ["127.0.0.1:1"]
+    cfg.statesync.trust_height = 1
+    cfg.statesync.trust_hash = "ab" * 32
+    cfg.statesync.discovery_time_s = 1.0
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bootstrap_state(cfg, gen, ".", 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Node(cfg, gen)
+    node = Node(cfg, gen, device="cpu")
+    assert node.statesync_reactor.enabled and not node.blocksync_reactor.active
+    assert "store.retention" in node.queues.names()
+
+    async def main():
+        await node.start()
+        for _ in range(400):
+            if node.statesync_error is not None:
+                break
+            await asyncio.sleep(0.05)
+        await node.stop()
+
+    asyncio.run(asyncio.wait_for(main(), 60))
+    # nothing listens there: the sync failed, it was not refused
+    assert node.statesync_error is not None
+    assert not isinstance(node.statesync_error, NotImplementedError)

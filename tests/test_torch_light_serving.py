@@ -1,8 +1,7 @@
 """The port's light serving plane (``light/serving.py``), its client
 seams and HTTP provider held to the JAX package's
-(``tests/test_light_serving.py``, 18 of its 21 cases: the statesync
-provider's case waits for ROADMAP A9 and the two metrics cases for
-A10).
+(``tests/test_light_serving.py``, 19 of its 21 cases: the two metrics
+cases wait for ROADMAP A10).
 
 Each case is written once over a namespace of one package's classes
 and runs on both, on byte-identical chains (one seeded genesis; the
@@ -45,6 +44,7 @@ from cometbft_tpu.obs import QueueRegistry as JQueueRegistry
 from cometbft_tpu.rpc import client as jrpcclient
 from cometbft_tpu.rpc import core as jcore
 from cometbft_tpu.rpc import env as jenv
+from cometbft_tpu.statesync import stateprovider as jstateprovider
 from cometbft_tpu.trace.tracer import Tracer as JTracer
 from cometbft_tpu.types.genesis import GenesisDoc as JGenesisDoc
 from cometbft_tpu.utils import chaingen as jchaingen
@@ -63,6 +63,7 @@ from cometbft_tpu_torch.obs import QueueRegistry as PQueueRegistry
 from cometbft_tpu_torch.rpc import client as prpcclient
 from cometbft_tpu_torch.rpc import core as pcore
 from cometbft_tpu_torch.rpc import env as penv
+from cometbft_tpu_torch.statesync import stateprovider as pstateprovider
 from cometbft_tpu_torch.trace.tracer import Tracer as PTracer
 from cometbft_tpu_torch.types import block as pblock
 from cometbft_tpu_torch.types import validation as pvalidation
@@ -124,6 +125,7 @@ PORT = SimpleNamespace(
     HTTPClient=prpcclient.HTTPClient, health=pcore.health, Environment=penv.Environment,
     LightProxy=pproxy.LightProxy, RPC_OVERLOADED=pproxy.RPC_OVERLOADED,
     make_chain=functools.partial(pchaingen.make_chain, device=CPU),
+    stateprovider=pstateprovider,
 )
 JAX = SimpleNamespace(
     name="jax", serving=jserving, Client=jclient.Client, TrustOptions=jclient.TrustOptions,
@@ -138,7 +140,7 @@ JAX = SimpleNamespace(
     RPCClientError=jrpcclient.RPCClientError, LightBlockNotFound=jprovider.LightBlockNotFound,
     ProviderError=jprovider.ProviderError, HTTPClient=jrpcclient.HTTPClient, health=jcore.health,
     Environment=jenv.Environment, LightProxy=jproxy.LightProxy, RPC_OVERLOADED=jproxy.RPC_OVERLOADED,
-    make_chain=jchaingen.make_chain,
+    make_chain=jchaingen.make_chain, stateprovider=jstateprovider,
 )
 
 
@@ -562,6 +564,60 @@ def test_cached_height_conflict_detected(chains):
             victim.verify_header(forged, time.time_ns())
         assert bytes(cache.peek(h).hash()) == bytes(node.block_store.load_block_meta(h).block_id.hash)
         return str(e.value)
+
+    both(case, chains)
+
+
+# --- statesync sharing ----------------------------------------------------
+
+
+def test_statesync_provider_shares_header_cache(chains, monkeypatch):
+    """A joining node's light-verified restore rides verification work
+    concurrent sessions already did (and the other way): heights a
+    serving client verified come out of the shared cache with no
+    fetches by the statesync client."""
+
+    def case(P, gen, privs, node):
+        class FakeHTTPProvider(P.StoreBackedProvider):
+            """Counts fetches; stands in for the HTTP provider so the
+            statesync wiring runs in process."""
+
+            def __init__(self, chain_id, url, *a, **k):
+                super().__init__(chain_id, node.block_store, node.state_store)
+                self.fetches = 0
+
+            def light_block(self, height):
+                self.fetches += 1
+                return super().light_block(height)
+
+            def close(self):
+                pass
+
+        monkeypatch.setattr(P.stateprovider, "HTTPProvider", FakeHTTPProvider)
+        cache = P.serving.VerifiedHeaderCache(gen.chain_id)
+        # a serving session verifies the restore heights first
+        serving_client = client(P, gen, node, header_cache=cache)
+        for h in (5, 6, 7):
+            serving_client.verify_light_block_at_height(h)
+        root = provider(P, gen, node).light_block(1)
+        sp = P.stateprovider.LightClientStateProvider(
+            gen.chain_id, ["fake://primary"], 1, bytes(root.hash()), TRUST_PERIOD_NS,
+            header_cache=cache, **P.on_device,
+        )
+        fetched_after_init = sp.primary.fetches
+        # app_hash(5) needs header 6, commit(6): both verified already
+        app_hash = sp.app_hash(5)
+        assert app_hash == bytes(node.block_store.load_block_meta(6).header.app_hash)
+        assert sp.commit(6).height == 6
+        assert sp.primary.fetches == fetched_after_init, "cached heights must not re-fetch"
+        stats = sp.cache_stats()
+        assert stats["hits"] > 0
+        # what statesync verifies is published for the sessions
+        before = cache.published
+        sp.commit(9)
+        assert cache.published > before
+        sp.close()
+        return app_hash, fetched_after_init, stats, cache.published - before
 
     both(case, chains)
 
