@@ -260,6 +260,43 @@ Phases, each printing one JSON line:
    tail window (statesync_max_abs_err), with its device time and bound
    at the provider ticket's width.
 
+15. lp2p, the fork's network plane, on phase 8's corpus, the device
+   route pinned, every Node on the lp2p switch (p2p.use_libp2p_equivalent:
+   one mux stream a channel over the secret connection) with the reactor
+   autopool (p2p.use_autopool) and PEX on: (a) four validator Nodes with
+   the app-side mempool (mempool.type_ "app", an AppMempoolKVStore each);
+   node 0 is the only address the others are given, in p2p.seeds, and
+   every node must reach its three peers through PEX before any tx goes
+   in; then 256 txs in at one node through AppMempoolReactor.submit_local,
+   and the net runs twelve more heights; every node must store the same
+   block at every height, every tx be committed exactly once and answer
+   from every app's store, and every vote wave a node's consensus reactor
+   receives go through its coalescer to the card (each dispatch launching
+   each kernel once); the time to the mesh, the median height wall
+   beside 11a's (beside_height_wall_median_s), bytes per node and each
+   autopool's processed count and largest size; (b) 11b's join over
+   lp2p, its depth cut to the corpus's first 512 blocks (16 windows of
+   the full width; phase 8 snapshots the corpus there while it mints):
+   the serving Node over those blocks in sqlite and a fresh joiner with
+   blocksync and adaptive_sync on; every block must enter the joiner's
+   started ConsensusState through ingest_verified_block, block 512 as a
+   CommitBlock catch-up, every state row and block ID equal the
+   source's; blocks/s to the last ingest beside 11b's
+   (beside_blocks_per_s), wire bytes a block, the span split, each mux's
+   inbound drops by channel and the connections killed by an overflow on
+   a request/response channel (0x40: must be none); (c) the serving node
+   stopped, the StubPeer on lp2p dials the joiner and plays the 150
+   validators for eight heights, the fourth with a forged precommit:
+   every vote the joiner's ConsensusReactor.receive takes must have come
+   through the autopool, each prevote and precommit wave be one 150-lane
+   PRIORITY_LIVE ticket on the card, the forged precommit be dropped and
+   that height commit on 149; per-height walls beside 11c's median and
+   the wave_log. The kernels line adds lp2p_launches (15a / 15b / 15c)
+   and each kernel against its plain version on 15c's first prevote
+   wave, the forged height's precommit wave and 15b's widest window
+   (lp2p_max_abs_err), with its device time and bound at the prevote
+   wave's width.
+
 The line before last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result line; a run that outlives RUN_LIMIT_S (1,140 s) ends non-zero
@@ -367,6 +404,12 @@ SS_MIN_RESTORED_KEYS = 131072
 SS_RETAIN = 64
 SS_TRUST_IN_WINDOW = 492
 SS_DEADLINE_S = 240
+# phase 15: the fork's network plane: 11a's four validators, 11b's join
+# and 11c's live heights again, every Node on lp2p with the autopool and
+# PEX, the four validators on the app-side mempool and meshed by PEX
+# from one seed. The join's depth is cut from 1,024 blocks to 512 (16
+# windows, width uncut) to hold the smoke's time
+LP2P_JOIN_BLOCKS = 512
 
 # card peaks: HBM bytes/s from the H100 SXM data sheet; 32-bit integer
 # results per clock per SM on sm_90 (IMAD, IADD, LOP, shifts: 64, the
@@ -1065,7 +1108,11 @@ def phase_replay(dev):
     src = build_node(gen, device=dev)
     src_rows: dict = {}
     _record_states(src, src_rows)
-    make_chain(gen, privs, REPLAY_BLOCKS, node=src)
+    # phase 15's join takes the corpus's first LP2P_JOIN_BLOCKS blocks:
+    # minted in two steps, the chain is the same block for block
+    make_chain(gen, privs, LP2P_JOIN_BLOCKS, node=src)
+    lp2p_corpus = (corpus_snapshot(src), src.block_store.height(), dict(src_rows))
+    make_chain(gen, privs, REPLAY_BLOCKS - LP2P_JOIN_BLOCKS, node=src)
     emit("replay_corpus", validators=REPLAY_VALS, blocks=REPLAY_BLOCKS, txs_per_block=1,
          seconds=time.perf_counter() - t0)
     top = src.block_store.height()
@@ -1185,8 +1232,9 @@ def phase_replay(dev):
         S.set_scheduler(None)
         sched.close()
     # the kernel items of the widest window dispatch and of the narrowest
-    # (the one-height tail), for phase 6; the corpus, for phase 10
-    return launches, {n: kept[n] for n in {max(kept), min(kept)}}, (gen, privs, src, src_rows)
+    # (the one-height tail), for phase 6; the corpus, for phase 10, and
+    # its first LP2P_JOIN_BLOCKS blocks, for phase 15
+    return launches, {n: kept[n] for n in {max(kept), min(kept)}}, (gen, privs, src, src_rows), lp2p_corpus
 
 
 # --- phase 9: light bisection ----------------------------------------------------
@@ -1690,6 +1738,82 @@ def _peer_bytes(node) -> dict:
             "peers": len(peers)}
 
 
+def _span_sums():
+    """(sums, observe): a tracer observer summing each span's count and
+    ms into ``sums``, and the state machine's finalize split into its
+    persist / wal / apply parts."""
+    from collections import defaultdict
+
+    sums = defaultdict(lambda: [0, 0.0])
+
+    def observe(name, dur_ns, args):
+        sums[name][0] += 1
+        sums[name][1] += dur_ns / 1e6
+        if name == "consensus.finalize":
+            for k in ("persist_ms", "wal_ms", "apply_ms"):
+                sums[f"consensus.finalize.{k[:-3]}"][0] += 1
+                sums[f"consensus.finalize.{k[:-3]}"][1] += args[k]
+
+    return sums, observe
+
+
+def _record_ingest(cs, ingested) -> None:
+    """Append (height, through a CommitBlock) to ``ingested`` for every
+    block ``cs`` takes through ingest_verified_block."""
+    real_ingest, real_cb = cs.ingest_verified_block, cs._handle_commit_block
+    in_cb = []
+
+    def ingest(block, parts, commit):
+        ingested.append((block.height, bool(in_cb)))
+        return real_ingest(block, parts, commit)
+
+    def commit_block(payload, peer_id):
+        in_cb.append(1)
+        try:
+            return real_cb(payload, peer_id)
+        finally:
+            in_cb.pop()
+
+    cs.ingest_verified_block, cs._handle_commit_block = ingest, commit_block
+
+
+async def _play_live(node, rows, stubs, stub, heights, sent, until, forge_at=None, tag="net"):
+    """Play ``heights`` to ``node`` from the stub peer: the proposal and
+    parts, the prevotes, the precommits (lane LIVE_FORGE_LANE's forged
+    at ``forge_at``); each height must store the stubs' block with the
+    shadow chain's state, and a forged precommit be dropped. ``sent``
+    gets each height's prevote and precommit sign bytes and forged
+    signatures; returns each height's walls and counts."""
+    cs = node.parts.cs
+    chain_id = stubs.chain_id
+    n_vals = len(stubs.by_addr)
+    res = []
+    for h in heights:
+        stubs.shadow.mempool.check_tx(b"%s%d=v%d" % (tag.encode(), h, h))
+        m = stubs.messages(h, forge=(LIVE_FORGE_LANE,) if h == forge_at else ())
+        sent[h] = (m.prevotes[0].sign_bytes(chain_id), m.precommits[0].sign_bytes(chain_id),
+                   [m.precommits[i].signature for i in m.forged])
+        walls = await stubs.play_height(cs, m, deliver=stub.deliver_for(m))
+        stubs.finish(m)
+        await until(lambda: sum(v is not None for v in cs.rs.last_commit.votes) >= n_vals - len(m.forged),
+                    f"{tag} height {h}: late precommits", timeout=30)
+        check(node.parts.block_store.load_block_meta(h).block_id
+              == stubs.shadow.block_store.load_block_meta(h).block_id,
+              f"{tag} height {h}: the stored block is not the stubs'")
+        check(rows[h] == _state_row(stubs.shadow.state), f"{tag} height {h}: state differs from the shadow chain")
+        seen = node.parts.block_store.load_seen_commit(h)
+        res.append({"height": h, "walls_s": walls,
+                    "precommits_in": sum(v is not None for v in cs.rs.last_commit.votes),
+                    "seen_commit_signatures": sum(not c.is_absent() for c in seen.signatures),
+                    "forged": list(m.forged)})
+        if m.forged:
+            i = m.forged[0]
+            check(cs.rs.last_commit.votes[i] is None, f"{tag} height {h}: the forged precommit was added")
+            check(seen.signatures[i].signature != m.precommits[i].signature,
+                  f"{tag} height {h}: the forged signature is in the seen commit")
+    return res
+
+
 def phase_network(dev, gen, privs, snapshot, top, src_rows):
     """Phase 11: (a) a four-validator net of Nodes over TCP, (b) the
     join of phase 8's corpus over TCP into an adaptive-sync Node, (c)
@@ -1700,7 +1824,6 @@ def phase_network(dev, gen, privs, snapshot, top, src_rows):
     height's precommit wave."""
     import asyncio
     import shutil
-    from collections import defaultdict
 
     from cometbft_tpu_torch import kernels
     from cometbft_tpu_torch.blocksync.reactor import VERIFY_WINDOW
@@ -1784,15 +1907,7 @@ def phase_network(dev, gen, privs, snapshot, top, src_rows):
                 "bytes": bytes_, "reactor_waves": waves, "wave_closes": closes, "loop_errors": errors,
                 "heights": net[0].height}
 
-    spans = defaultdict(lambda: [0, 0.0])
-
-    def observe(name, dur_ns, args):
-        spans[name][0] += 1
-        spans[name][1] += dur_ns / 1e6
-        if name == "consensus.finalize":
-            for k in ("persist_ms", "wal_ms", "apply_ms"):
-                spans[f"consensus.finalize.{k[:-3]}"][0] += 1
-                spans[f"consensus.finalize.{k[:-3]}"][1] += args[k]
+    spans, observe = _span_sums()
 
     serve_home = os.path.join(root, "serve")
     serve_cfg = config(serve_home, "serve", base__db_backend="sqlite")
@@ -1815,21 +1930,7 @@ def phase_network(dev, gen, privs, snapshot, top, src_rows):
         joiner["node"] = node
         cs = node.parts.cs
         _record_states(node.parts, rows, stamp)
-        real_ingest, real_cb = cs.ingest_verified_block, cs._handle_commit_block
-        in_cb = []
-
-        def ingest(block, parts, commit):
-            ingested.append((block.height, bool(in_cb)))
-            return real_ingest(block, parts, commit)
-
-        def commit_block(payload, peer_id):
-            in_cb.append(1)
-            try:
-                return real_cb(payload, peer_id)
-            finally:
-                in_cb.pop()
-
-        cs.ingest_verified_block, cs._handle_commit_block = ingest, commit_block
+        _record_ingest(cs, ingested)
         tracer = Tracer(name="join")
         tracer.add_observer(observe)
         cs.tracer = tracer
@@ -1846,35 +1947,6 @@ def phase_network(dev, gen, privs, snapshot, top, src_rows):
         return t0, wall, got, served
 
     sent = {}  # height -> (prevote sign bytes, precommit sign bytes, forged signatures)
-
-    async def live(stubs, stub, heights, forge_at=None):
-        node = joiner["node"]
-        cs = node.parts.cs
-        res = []
-        for h in heights:
-            stubs.shadow.mempool.check_tx(b"net%d=v%d" % (h, h))
-            m = stubs.messages(h, forge=(LIVE_FORGE_LANE,) if h == forge_at else ())
-            sent[h] = (m.prevotes[0].sign_bytes(gen.chain_id), m.precommits[0].sign_bytes(gen.chain_id),
-                       [m.precommits[i].signature for i in m.forged])
-            walls = await stubs.play_height(cs, m, deliver=stub.deliver_for(m))
-            stubs.finish(m)
-            await until(lambda: sum(v is not None for v in cs.rs.last_commit.votes) >= n_vals - len(m.forged),
-                        f"height {h}: late precommits", timeout=30)
-            check(node.parts.block_store.load_block_meta(h).block_id
-                  == stubs.shadow.block_store.load_block_meta(h).block_id,
-                  f"height {h}: the stored block is not the stubs'")
-            check(rows[h] == _state_row(stubs.shadow.state), f"height {h}: state differs from the shadow chain")
-            seen = node.parts.block_store.load_seen_commit(h)
-            res.append({"height": h, "walls_s": walls,
-                        "precommits_in": sum(v is not None for v in cs.rs.last_commit.votes),
-                        "seen_commit_signatures": sum(not c.is_absent() for c in seen.signatures),
-                        "forged": list(m.forged)})
-            if m.forged:
-                i = m.forged[0]
-                check(cs.rs.last_commit.votes[i] is None, f"height {h}: the forged precommit was added")
-                check(seen.signatures[i].signature != m.precommits[i].signature,
-                      f"height {h}: the forged signature is in the seen commit")
-        return res
 
     stub = None
     shadow = None
@@ -1973,7 +2045,8 @@ def phase_network(dev, gen, privs, snapshot, top, src_rows):
         dispatched = reactor.vote_verifier.dispatches
         kernels.reset_counts()
         with Recorder(sched) as rec:
-            res = loop.run_until_complete(live(stubs, stub, heights, forge_at=heights[NET_FORGE_AT]))
+            res = loop.run_until_complete(_play_live(node, rows, stubs, stub, heights, sent, until,
+                                                     forge_at=heights[NET_FORGE_AT]))
         launches_c = dict(kernels.LAUNCHES)
         tickets = rec.rows()
         closes = [e[2:] for e in reactor.wave_log]  # type, how, votes, to +2/3 s, to dispatch s
@@ -2018,7 +2091,7 @@ def phase_network(dev, gen, privs, snapshot, top, src_rows):
         heights = list(range(heights[-1] + 1, heights[-1] + 1 + NET_LIVE_HEIGHTS))
         reactor.wave_log.clear()
         with Recorder(sched) as rec:
-            res = loop.run_until_complete(live(stubs, stub, heights))
+            res = loop.run_until_complete(_play_live(node, rows, stubs, stub, heights, sent, until))
         tickets = rec.rows()
         check(cs.loop_errors.count == 0 and node.parts.app.app_hash == shadow.state.app_hash,
               "unforced live: errors or app hash")
@@ -3313,6 +3386,390 @@ def _wal_files(path):
     return _group_files(path)
 
 
+# --- phase 15: the fork's network plane (lp2p) ------------------------------------
+
+
+def _mux_drops(peers) -> dict:
+    """Inbound messages each muxer dropped on overflow, by channel, and
+    the connections it killed on a request/response channel's."""
+    from cometbft_tpu_torch.lp2p.switch import protocol_channel
+
+    drops, kills = {}, {}
+    for p in peers:
+        for st in p.mux.streams.values():
+            if st.dropped:
+                key = f"{protocol_channel(st.protocol):#04x}"
+                drops[key] = drops.get(key, 0) + st.dropped
+        for proto, n in p.mux.overflow_kills.items():
+            key = f"{protocol_channel(proto):#04x}"
+            kills[key] = kills.get(key, 0) + n
+    return {"dropped": drops, "killed": kills}
+
+
+def phase_lp2p(dev, gen, privs, snapshot, top, src_rows):
+    """Phase 15, the main path over the fork's network plane: (a) four
+    validator Nodes on lp2p with the autopool, the app-side mempool and
+    PEX from one seed, (b) the join of phase 8's corpus over lp2p into an
+    adaptive-sync Node, (c) eight live heights played over lp2p by the
+    stub peer with the device route pinned, one with a forged precommit.
+    Returns the launches of (a), (b) and (c) and, for phase 6, the
+    kernel items of (c)'s first prevote wave, of the forged height's
+    precommit wave and of (b)'s widest window."""
+    import asyncio
+    import shutil
+
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.abci.types import RequestQuery
+    from cometbft_tpu_torch.blocksync.reactor import VERIFY_WINDOW
+    from cometbft_tpu_torch.config.config import test_config
+    from cometbft_tpu_torch.consensus.reactor import VOTE_CHANNEL
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.lp2p import Lp2pSwitch
+    from cometbft_tpu_torch.mempool.reactor import AppMempoolReactor
+    from cometbft_tpu_torch.models.kvstore import AppMempoolKVStore
+    from cometbft_tpu_torch.node.inprocess import build_node, make_genesis, make_privvals
+    from cometbft_tpu_torch.node.node import Node
+    from cometbft_tpu_torch.trace import Tracer
+    from cometbft_tpu_torch.utils import log
+    from cometbft_tpu_torch.utils.chaingen import StubPeer, ValidatorStubs
+
+    n_vals = len(privs)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "lp2p")
+    shutil.rmtree(root, ignore_errors=True)
+    sched = S.VerifyScheduler()
+    S.set_scheduler(sched)
+    log.set_level("consensus:error,p2p:error,lp2p.mux:error,blocksync:error,*:info")
+    loop = asyncio.new_event_loop()
+    nodes = []  # every Node started here, stopped in the finally
+    out = {}
+
+    async def until(cond, what, timeout=NET_DEADLINE_S, poll=0.005):
+        deadline = asyncio.get_running_loop().time() + timeout
+        while not cond():
+            check(asyncio.get_running_loop().time() < deadline, f"timed out: {what}")
+            await asyncio.sleep(poll)
+
+    def config(home, moniker, **kw):
+        """test_config on lp2p with the autopool; PEX on (the default)."""
+        cfg = test_config(home)
+        cfg.base.moniker = moniker
+        cfg.blocksync.enable = False
+        cfg.p2p.use_libp2p_equivalent = True
+        cfg.p2p.use_autopool = True
+        for k, v in kw.items():
+            sec, _, name = k.partition("__")
+            setattr(getattr(cfg, sec), name, v)
+        check(cfg.p2p.pex, "lp2p: PEX is off")
+        return cfg
+
+    def pools(net):
+        return {n.config.base.moniker: {"processed": n.switch.autopool.processed,
+                                        "max_size": n.switch.autopool.max_size} for n in net}
+
+    async def net4():
+        g4, k4 = make_genesis(NET_VALS, chain_id="smoke-lp2p", seed=SEED + 15)
+        pv_root = os.path.join(root, "pv")
+        os.makedirs(pv_root)
+        pvs = make_privvals(k4, root=pv_root)
+        first = Node(config(".", "lp0", mempool__type_="app"), g4, privval=pvs[0], app=AppMempoolKVStore(),
+                     device=dev)
+        nodes.append(first)
+        await first.start()
+        seed = f"{first.node_key.node_id}@{first.listen_addr}"
+        net = [first] + [Node(config(".", f"lp{i}", mempool__type_="app", p2p__seeds=seed), g4, privval=pv,
+                              app=AppMempoolKVStore(), device=dev)
+                         for i, pv in enumerate(pvs[1:], start=1)]
+        nodes.extend(net[1:])
+        check(all(isinstance(n.switch, Lp2pSwitch) and isinstance(n.mempool_reactor, AppMempoolReactor)
+                  for n in net), "lp2p: a node without the lp2p switch or the app mempool")
+        for n in net[1:]:
+            await n.start()
+        t_pex = time.perf_counter()
+        await until(lambda: all(n.switch.num_peers() == NET_VALS - 1 for n in net), "the mesh through PEX")
+        mesh_s = time.perf_counter() - t_pex
+        books = {n.config.base.moniker: n.addr_book.size() for n in net}
+        txs = [b"lp%03d=v%03d" % (i, i) for i in range(NET_TXS)]
+        at = net[1]
+        check(all(at.mempool_reactor.submit_local(tx).is_ok() for tx in txs), "lp2p: a tx was refused")
+        start_h = max(n.height for n in net)
+        target = start_h + NET_HEIGHTS
+        seen = {}  # height -> first time node 0 stored it
+        t0 = time.perf_counter()
+
+        def progressed():
+            h = net[0].height
+            if h and h not in seen:
+                seen[h] = time.perf_counter()
+            return all(n.height >= target for n in net)
+
+        await until(progressed, f"height {target}")
+        wall = time.perf_counter() - t0
+        committed = [tx for h in range(1, net[0].height + 1) for tx in net[0].parts.block_store.load_block(h).data.txs]
+        for h in range(1, target + 1):
+            check(len({n.block_id_hash_at(h) for n in net}) == 1, f"lp2p net: nodes differ at height {h}")
+        queried = all(n.parts.proxy.query.query(RequestQuery(path="/store", data=tx.split(b"=")[0])).value
+                      == tx.split(b"=")[1] for n in net for tx in txs)
+        bytes_ = {n.config.base.moniker: _peer_bytes(n) for n in net}
+        pool = pools(net)
+        for n in net:
+            await n.stop()
+            nodes.remove(n)
+        waves = {n.config.base.moniker: n.consensus_reactor.vote_verifier.dispatches for n in net}
+        closes = {n.config.base.moniker: [e[3] for e in n.consensus_reactor.wave_log] for n in net}
+        errors = sum(n.parts.cs.loop_errors.count for n in net)
+        hs = sorted(h for h in seen if h > start_h)
+        walls = [seen[b] - seen[a] for a, b in zip(hs, hs[1:]) if b == a + 1]
+        return {"committed": committed, "txs": txs, "wall_s": wall, "height_walls_s": walls,
+                "bytes": bytes_, "reactor_waves": waves, "wave_closes": closes, "loop_errors": errors,
+                "heights": (start_h, target), "mesh_s": mesh_s, "books": books, "queried": queried,
+                "autopool": pool}
+
+    spans, observe = _span_sums()
+
+    serve_home = os.path.join(root, "serve")
+    serve_cfg = config(serve_home, "serve", base__db_backend="sqlite")
+    join_cfg = config(os.path.join(root, "join"), "join", blocksync__enable=True,
+                      blocksync__adaptive_sync=True, consensus__skip_timeout_commit=True,
+                      consensus__timeout_propose_s=30.0)
+    rows: dict = {}
+    stamp: dict = {}
+    ingested = []  # (height, through a CommitBlock)
+    joiner = {}
+    join_peers = []  # every peer the joiner registered, for its mux counters
+
+    async def join():
+        _sqlite_home(serve_home, snapshot)
+        serving = Node(serve_cfg, gen, home=serve_home, device=dev)
+        check(serving.height == top, f"serving node at {serving.height}")
+        nodes.append(serving)
+        await serving.start()
+        node = Node(join_cfg, gen, home=join_cfg.root_dir, device=dev)
+        nodes.append(node)
+        joiner["node"] = node
+        real_register = node.switch._register_peer
+
+        def register(peer):
+            join_peers.append(peer)
+            return real_register(peer)
+
+        node.switch._register_peer = register
+        cs = node.parts.cs
+        _record_states(node.parts, rows, stamp)
+        _record_ingest(cs, ingested)
+        tracer = Tracer(name="join")
+        tracer.add_observer(observe)
+        cs.tracer = tracer
+        node.blocksync_reactor.inner.tracer = tracer
+        await node.start()
+        t0 = time.perf_counter()
+        await node.dial(serving.listen_addr)
+        await until(lambda: cs.rs.height > top, f"the joiner at {top + 1}")
+        wall = time.perf_counter() - t0
+        await asyncio.sleep(0.2)  # the last acknowledgements
+        got, served = _peer_bytes(node), _peer_bytes(serving)
+        mux = {"joiner": _mux_drops(join_peers), "serving": _mux_drops(serving.switch.peers.values())}
+        pool = pools([serving, node])
+        await serving.stop()
+        nodes.remove(serving)
+        return t0, wall, got, served, mux, pool
+
+    sent = {}  # height -> (prevote sign bytes, precommit sign bytes, forged signatures)
+
+    stub = None
+    shadow = None
+    floor = batch._MIN_DEVICE_BATCH
+    try:
+        batch.set_min_device_batch(1)
+        t_phase = time.perf_counter()
+        # 15a: four validators on lp2p, a mesh through PEX from one seed
+        kernels.reset_counts()
+        with Recorder(sched) as rec:
+            a = loop.run_until_complete(net4())
+        launches_a = dict(kernels.LAUNCHES)
+        tickets = rec.rows()
+        counts = {tx: a["committed"].count(tx) for tx in a["txs"]}
+        check(all(c == 1 for c in counts.values()),
+              f"lp2p net: txs committed {sorted(set(counts.values()))} times, not once")
+        check(len(a["committed"]) == NET_TXS, f"lp2p net: {len(a['committed'])} txs committed")
+        check(a["queried"], "lp2p net: an app does not answer a committed tx's key")
+        check(a["loop_errors"] == 0, f"lp2p net: {a['loop_errors']} loop errors")
+        check(all(p["processed"] > 0 for p in a["autopool"].values()), f"lp2p net: autopools {a['autopool']}")
+        waves = [t for t in tickets if t[0] == "vote-wave"]
+        check(len(waves) == sum(a["reactor_waves"].values()) > 0, f"lp2p net: {len(waves)} wave tickets")
+        check(all(r == "device" and p == S.PRIORITY_LIVE for _, p, _, r, _ in waves),
+              "lp2p net: a wave left the card")
+        check(all(r == "device" for _, _, _, r, _ in tickets), "lp2p net: a ticket left the device route")
+        check(all(d["device"] == str(dev) and all(d["launches"][k] == 1 for k in SOURCES)
+                  for d in rec.dispatches), "lp2p net: a dispatch did not launch each kernel once")
+        check(all(launches_a[k] == len(rec.dispatches) == len(tickets) for k in SOURCES),
+              f"lp2p net: launches {launches_a} against {len(tickets)} tickets")
+        out["net"] = {
+            "validators": NET_VALS, "switch": "lp2p", "autopool": a["autopool"], "mempool": "app",
+            "mesh_through_pex_s": a["mesh_s"], "addr_book_sizes": a["books"],
+            "heights": a["heights"], "txs": NET_TXS, "txs_committed_once": True, "txs_queried_everywhere": True,
+            "wall_s": a["wall_s"], "height_wall_median_s": statistics.median(a["height_walls_s"]),
+            "beside_height_wall_median_s": EMITTED.get("network_net", {}).get("height_wall_median_s"),
+            "height_walls_s": a["height_walls_s"], "bytes": a["bytes"],
+            "tickets": len(tickets), "wave_tickets": len(waves),
+            "wave_closes": {m: {how: c.count(how) for how in ("whole", "grace")}
+                            for m, c in a["wave_closes"].items()},
+            "ticket_walls": {lb: ticket_walls([(n, r, w) for l2, _, n, r, w in tickets if l2 == lb])
+                             for lb in sorted({t[0] for t in tickets})},
+            "launches": launches_a,
+        }
+        emit("lp2p_net", **out["net"])
+
+        # 15b: the join over lp2p, the device route pinned
+        kernels.reset_counts()
+        with Recorder(sched) as rec:
+            t0, wall, got, served, mux, pool = loop.run_until_complete(join())
+        launches_b = dict(kernels.LAUNCHES)
+        tickets = rec.rows()
+        node = joiner["node"]
+        cs = node.parts.cs
+        heights = [h for h, _ in ingested]
+        check(heights == list(range(1, top + 1)),
+              f"lp2p join: ingested {heights[:3]}...{heights[-3:]} ({len(heights)})")
+        check(sorted(rows) == heights, "lp2p join: a block was applied outside ingest_verified_block")
+        check(ingested[-1] == (top, True), f"lp2p join: block {top} did not come as a CommitBlock")
+        # a state row holds the block ID it follows (last_block_id)
+        bad = [h for h in range(1, top + 1) if rows[h] != src_rows[h]]
+        check(not bad, f"lp2p join: state or block ID differs from the source at heights {bad[:5]}")
+        check(node.blocksync_reactor.inner.loop_errors.count == 0 and cs.loop_errors.count == 0,
+              f"lp2p join: {node.blocksync_reactor.inner.loop_errors!r} {cs.loop_errors!r}")
+        check(len(join_peers) == 1 and not any(mux[side]["killed"] for side in mux),
+              f"lp2p join: {len(join_peers)} connections, overflow kills {mux}")
+        windows = [t for t in tickets if t[0] != "commit"]
+        commits = [t for t in tickets if t[0] == "commit"]
+        check(commits and commits[-1][1:4] == (S.PRIORITY_LIVE, n_vals, "device"),
+              f"lp2p join: the catch-up commit ticket {commits[-1:]}")
+        check(all(r == "device" for _, _, _, r, _ in tickets), "lp2p join: a ticket left the device route")
+        check(all(d["device"] == str(dev) and all(d["launches"][k] == 1 for k in SOURCES)
+                  for d in rec.dispatches), "lp2p join: a dispatch did not launch each kernel once")
+        check(all(launches_b[k] == len(rec.dispatches) == len(tickets) for k in SOURCES),
+              f"lp2p join: launches {launches_b} against {len(tickets)} tickets")
+        window_items = max((w for lb, ws in rec.labelled.items() if lb != "commit" for w in ws), key=len,
+                           default=[])
+        check(window_items, "lp2p join: no window dispatched to the card")
+        to_last = stamp["last"] - t0
+        out["join"] = {
+            "validators": n_vals, "blocks": top, "window": VERIFY_WINDOW, "route": "device (pinned)",
+            "switch": "lp2p", "autopool": pool,
+            "to_last_ingest_s": to_last, "blocks_per_s": top / to_last, "wall_s": wall,
+            "beside_blocks_per_s": EMITTED.get("network_join", {}).get("blocks_per_s"),
+            "through_commit_block": [h for h, cb in ingested if cb],
+            "wire_bytes_served": served["sent"], "wire_bytes_per_block": served["sent"] / top,
+            "beside_wire_bytes_per_block": EMITTED.get("network_join", {}).get("wire_bytes_per_block"),
+            "bytes_received": got["received"], "wire_bytes_sent": got["sent"],
+            "mux_inbound_drops": {side: m["dropped"] for side, m in mux.items()},
+            "mux_overflow_kills": {side: m["killed"] for side, m in mux.items()},
+            "window_tickets": len(windows), "commit_tickets": len(commits),
+            "widest_window_lanes": len(window_items),
+            "ticket_walls": {lb: ticket_walls([(n, r, w) for l2, _, n, r, w in tickets if l2 == lb])
+                             for lb in sorted({t[0] for t in tickets})},
+            "dispatch_lanes": [d["lanes"] for d in rec.dispatches],
+            "pipeline_stats": node.blocksync_reactor.inner.pipeline_stats,
+            "spans_ms": {k: v[1] for k, v in spans.items() if not k.startswith("consensus.step")},
+            "span_counts": {k: v[0] for k, v in spans.items() if not k.startswith("consensus.step")},
+            "launches": launches_b,
+        }
+        emit("lp2p_join", **out["join"])
+
+        # 15c: live heights over lp2p through the autopool, pinned
+        cs.tracer = Tracer(name="join", enabled=False)
+        shadow = build_node(gen, config=serve_cfg, home=serve_home, device=dev)
+        stubs = ValidatorStubs(shadow, privs)
+        stub = StubPeer(gen.chain_id, switcher="lp2p")
+        loop.run_until_complete(stub.connect(node.listen_addr))
+        loop.run_until_complete(until(lambda: node.switch.num_peers() == 1, "the stub peer"))
+        heights = list(range(top + 1, top + 1 + NET_LIVE_HEIGHTS))
+        reactor = node.consensus_reactor
+        reactor.wave_log.clear()
+        dispatched = reactor.vote_verifier.dispatches
+        pool = node.switch.autopool
+        through = {"pooled": 0, "received": 0}
+        real_submit, real_receive = pool.submit, reactor.receive
+
+        def submit(fn, *args):
+            ok = real_submit(fn, *args)
+            if ok and args[0] is reactor and args[1] == VOTE_CHANNEL:
+                through["pooled"] += 1
+            return ok
+
+        def receive(chan_id, peer, msg):
+            if chan_id == VOTE_CHANNEL:
+                through["received"] += 1
+            return real_receive(chan_id, peer, msg)
+
+        pool.submit, reactor.receive = submit, receive
+        processed = pool.processed
+        kernels.reset_counts()
+        try:
+            with Recorder(sched) as rec:
+                res = loop.run_until_complete(_play_live(node, rows, stubs, stub, heights, sent, until,
+                                                         forge_at=heights[NET_FORGE_AT], tag="lp"))
+        finally:
+            del pool.submit, reactor.receive
+        launches_c = dict(kernels.LAUNCHES)
+        tickets = rec.rows()
+        closes = [e[2:] for e in reactor.wave_log]  # type, how, votes, to +2/3 s, to dispatch s
+        check(cs.loop_errors.count == 0, f"lp2p live: {cs.loop_errors!r}")
+        check(node.parts.app.app_hash == shadow.state.app_hash, "lp2p live: app hash != the shadow chain's")
+        check(through["received"] >= 2 * n_vals * NET_LIVE_HEIGHTS and through["pooled"] == through["received"],
+              f"lp2p live: votes received {through['received']}, through the autopool {through['pooled']}")
+        waves = [t for t in tickets if t[0] == "vote-wave"]
+        check(len(waves) == 2 * NET_LIVE_HEIGHTS and all(
+            p == S.PRIORITY_LIVE and n == n_vals and r == "device" for _, p, n, r, _ in waves),
+            f"lp2p live: vote waves {[(lb, p, n, r) for lb, p, n, r, _ in waves]}, closed {closes}")
+        check(reactor.vote_verifier.dispatches - dispatched == len(waves),
+              f"lp2p live: {reactor.vote_verifier.dispatches - dispatched} reactor dispatches, {len(waves)} waves")
+        check(all(r == "device" and p == S.PRIORITY_LIVE for _, p, _, r, _ in tickets),
+              "lp2p live: a ticket left the device route or the live class")
+        check(all(launches_c[k] == len(tickets) == len(rec.dispatches) for k in SOURCES),
+              f"lp2p live: launches {launches_c} against {len(tickets)} tickets")
+
+        def wave_of(sb):
+            found = [w for w in rec.labelled["vote-wave"] if {m for m, _, _ in w} == {sb}]
+            check(len(found) == 1, f"lp2p live: {len(found)} vote waves sign the message")
+            return found[0]
+
+        fh = heights[NET_FORGE_AT]
+        lp2p_items = {"prevote": wave_of(sent[heights[0]][0]), "precommit": wave_of(sent[fh][1]),
+                      "window": window_items}
+        check(set(sent[fh][2]) <= {sig for _, _, sig in lp2p_items["precommit"]},
+              "lp2p live: the forged precommit is not in its height's wave")
+        out["live"] = {
+            "heights": heights, "route": "device (pinned)", "switch": "lp2p", "per_height": res,
+            "commit_wall_s": [r["walls_s"]["stored"] for r in res],
+            "commit_wall_median_s": statistics.median(r["walls_s"]["stored"] for r in res),
+            "beside_commit_wall_median_s": EMITTED.get("network_live", {}).get("commit_wall_median_s"),
+            "votes_received": through["received"], "votes_through_autopool": through["pooled"],
+            "autopool": {"processed": pool.processed - processed, "size": pool.size, "max_size": pool.max_size},
+            "tickets": [(lb, n, r, w) for lb, _, n, r, w in tickets],
+            "ticket_walls": {lb: ticket_walls([(n, r, w) for l2, _, n, r, w in tickets if l2 == lb])
+                             for lb in sorted({t[0] for t in tickets})},
+            "wave_log": closes,
+            "stub_bytes_sent": stub.bytes_sent, "launches": launches_c,
+        }
+        emit("lp2p_live", **out["live"])
+        emit("lp2p_phase", seconds=time.perf_counter() - t_phase)
+    finally:
+        batch.set_min_device_batch(floor)
+        log.set_level("info")
+        if stub is not None:
+            loop.run_until_complete(stub.stop())
+        for n in nodes:
+            loop.run_until_complete(n.stop())
+        loop.close()
+        S.set_scheduler(None)
+        sched.close()
+        if shadow is not None:
+            shadow.close_stores()
+        shutil.rmtree(root, ignore_errors=True)
+    return {"15a": launches_a, "15b": launches_b, "15c": launches_c}, lp2p_items
+
+
 # --- timing and bounds --------------------------------------------------------
 
 
@@ -3513,7 +3970,7 @@ def main(argv) -> int:
     swap = lambda its: [(pk, m, s) for m, pk, s in its]  # noqa: E731
     launches = phase_dispatch(dev, window, swap(window_lanes), swap(commit_lanes), window_want,
                               pinned)
-    replay_launches, replay_items, corpus = phase_replay(dev)
+    replay_launches, replay_items, corpus, lp2p_corpus = phase_replay(dev)
     bisect_launches, bisect_items = phase_bisect(dev)
     # phase 11 serves the corpus as phase 8 built it: phase 10 extends it
     gen, privs, src, src_rows = corpus
@@ -3525,6 +3982,7 @@ def main(argv) -> int:
     serve_launches_bc, rpc_light_items = phase_rpc(dev, gen, privs, *net_corpus[:2])
     serve_launches = {"13a": serve_launches_a, **serve_launches_bc}
     ss_launches, ss_items = phase_statesync(dev, gen, privs)
+    lp2p_launches, lp2p_items = phase_lp2p(dev, gen, privs, *lp2p_corpus)
 
     # phase 6: each kernel against its plain version on the main paths'
     # own inputs (the window's lanes and the commit's; the replay's and
@@ -3574,16 +4032,25 @@ def main(argv) -> int:
     ss_calls = {k: stage_calls(xs) for k, xs in x_ss.items()}
     ss_errs = {k: compare(c) for k, c in ss_calls.items()}
     x_ssp, ssp_calls = x_ss["provider"], ss_calls["provider"]
+    # phase 15's own inputs: 15c's first prevote wave and the forged
+    # height's precommit wave, received over lp2p, and 15b's widest
+    # window; timed at the prevote wave
+    x_lp = {k: kernel_inputs(its, dev) for k, its in lp2p_items.items()}
+    lp_calls = {k: stage_calls(xl) for k, xl in x_lp.items()}
+    lp_errs = {k: compare(c) for k, c in lp_calls.items()}
+    x_lpp, lpp_calls = x_lp["prevote"], lp_calls["prevote"]
     emit("main_path_vs_plain", lanes=x["n"], commit_lanes=x_commit["n"],
          replay_lanes=list(x_replay), bisect_lanes=list(x_bisect),
          live_lanes={k: xw["n"] for k, xw in x_waves.items()},
          net_lanes={k: xn["n"] for k, xn in x_net.items()},
          evidence_lanes={k: xe["n"] for k, xe in x_ev.items()},
          serve_lanes={k: xs["n"] for k, xs in x_serve.items()},
-         statesync_lanes={k: xs["n"] for k, xs in x_ss.items()}, equal=True, max_abs_err=errs,
+         statesync_lanes={k: xs["n"] for k, xs in x_ss.items()},
+         lp2p_lanes={k: xl["n"] for k, xl in x_lp.items()}, equal=True, max_abs_err=errs,
          commit_max_abs_err=commit_errs, replay_max_abs_err=replay_errs,
          bisect_max_abs_err=bisect_errs, live_max_abs_err=live_errs, net_max_abs_err=net_errs,
-         evidence_max_abs_err=ev_errs, serve_max_abs_err=serve_errs, statesync_max_abs_err=ss_errs)
+         evidence_max_abs_err=ev_errs, serve_max_abs_err=serve_errs, statesync_max_abs_err=ss_errs,
+         lp2p_max_abs_err=lp_errs)
     rows = []
     for name in ("ladder", "decompress", "hash_digits"):
         f, plain = calls[name]
@@ -3596,6 +4063,7 @@ def main(argv) -> int:
         ev_err = {w: max(e[k] for k in parts) for w, e in ev_errs.items()}
         serve_err = {w: max(e[k] for k in parts) for w, e in serve_errs.items()}
         ss_err = {w: max(e[k] for k in parts) for w, e in ss_errs.items()}
+        lp_err = {w: max(e[k] for k in parts) for w, e in lp_errs.items()}
         err = max(max(errs[k], commit_errs[k]) for k in parts)
         b_ms, b_by = bound(name, x, int_rate)
         bc_ms, bc_by = bound(name, x_commit, int_rate)
@@ -3606,6 +4074,7 @@ def main(argv) -> int:
         be_ms, be_by = bound(name, x_evt, int_rate)
         bsv_ms, bsv_by = bound(name, x_sw, int_rate)
         bss_ms, bss_by = bound(name, x_ssp, int_rate)
+        blp_ms, blp_by = bound(name, x_lpp, int_rate)
         bb_ms, bb_by = bound(name, x_bulk, int_rate)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -3617,8 +4086,10 @@ def main(argv) -> int:
             "evidence_launches": {ph: ls[name] for ph, ls in evidence_launches.items()},
             "serve_launches": {ph: ls[name] for ph, ls in serve_launches.items()},
             "statesync_launches": {ph: ls[name] for ph, ls in ss_launches.items()},
+            "lp2p_launches": {ph: ls[name] for ph, ls in lp2p_launches.items()},
             "max_abs_err": max(err, replay_err, bisect_err, *live_err.values(), *net_err.values(),
-                               *ev_err.values(), *serve_err.values(), *ss_err.values()),
+                               *ev_err.values(), *serve_err.values(), *ss_err.values(),
+                               *lp_err.values()),
             "tolerance": 0,
             "ms": graph_ms(f), "call_ms": cuda_ms(f, 20),
             "plain_ms": cuda_ms(plain, 2, warm=0), "bound_ms": b_ms,
@@ -3665,6 +4136,12 @@ def main(argv) -> int:
             "statesync_call_ms": cuda_ms(ssp_calls[name][0], 20),
             "statesync_plain_ms": cuda_ms(ssp_calls[name][1], 2, warm=0),
             "statesync_bound_ms": bss_ms, "statesync_bound_by": bss_by,
+            "lp2p_lanes": {w: xl["n"] for w, xl in x_lp.items()},
+            "lp2p_max_abs_err": lp_err,
+            "lp2p_ms": graph_ms(lpp_calls[name][0]),
+            "lp2p_call_ms": cuda_ms(lpp_calls[name][0], 20),
+            "lp2p_plain_ms": cuda_ms(lpp_calls[name][1], 2, warm=0),
+            "lp2p_bound_ms": blp_ms, "lp2p_bound_by": blp_by,
             "bulk_lanes": N_BULK, "bulk_ms": bulk_ms[name], "bulk_call_ms": bulk_call_ms[name],
             "bulk_bound_ms": bb_ms, "bulk_bound_by": bb_by,
             "bulk_max_abs_err": max(bulk_errs[k] for k in parts),

@@ -4,8 +4,9 @@ The part of the JAX package's ``abci/client.py`` that a node with a
 local app uses: ``LocalClient`` serializes every call on one lock, as
 the reference's local client does with its mutex, and ``AppConns``
 names the logical connections over it (consensus, mempool, query and
-the snapshot connection statesync uses). Socket and gRPC clients are
-not ported.
+the snapshot connection statesync uses). The mempool connection
+forwards the fork's batched CheckTx and the app-side mempool's
+InsertTx / ReapTxs. Socket and gRPC clients are not ported.
 """
 
 from __future__ import annotations
@@ -55,6 +56,24 @@ class LocalClient:
     def check_tx(self, req):
         with self._lock:
             return self.app.check_tx(req)
+
+    def check_tx_batch(self, reqs):
+        """Batched CheckTx: one mutex acquisition for the whole batch.
+        Apps without the extension get the per-tx loop under the same
+        single acquisition."""
+        with self._lock:
+            fn = getattr(self.app, "check_tx_batch", None)
+            if fn is not None:
+                return fn(reqs)
+            return [self.app.check_tx(r) for r in reqs]
+
+    def insert_tx(self, tx: bytes) -> bool:
+        with self._lock:
+            return self.app.insert_tx(tx)
+
+    def reap_txs(self, max_bytes: int, max_gas: int):
+        with self._lock:
+            return self.app.reap_txs(max_bytes, max_gas)
 
     # info connection
     def info(self, req):

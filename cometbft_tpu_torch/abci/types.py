@@ -9,8 +9,11 @@ on), ProcessProposal, ExtendVote, VerifyVoteExtension, FinalizeBlock
 and the block evidence's ``Misbehavior``), Commit (with its
 ``retain_height``) and the snapshot connection statesync drives:
 ``Snapshot``, ListSnapshots, OfferSnapshot, LoadSnapshotChunk and
-ApplySnapshotChunk with their result constants. The app-side mempool
-waits for the slice that needs it.
+ApplySnapshotChunk with their result constants, and the fork's mempool
+extensions: batched CheckTx (``check_tx_batch``, a per-tx loop by
+default) and the app-side mempool's InsertTx / ReapTxs, which raise
+``NotImplementedError`` unless the app owns a pool, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -357,6 +360,19 @@ class Application:
 
     def check_tx(self, req: RequestCheckTx) -> ResponseCheckTx:
         return ResponseCheckTx()
+
+    # fork: batched CheckTx for the mempool ingest plane. The default
+    # is the per-tx loop, so every app supports the batch call and
+    # overriding it is purely an optimization.
+    def check_tx_batch(self, reqs: List[RequestCheckTx]) -> List[ResponseCheckTx]:
+        return [self.check_tx(r) for r in reqs]
+
+    # fork: app-side mempool (abci/types/application.go:16-17)
+    def insert_tx(self, tx: bytes) -> bool:
+        raise NotImplementedError("app-side mempool not supported")
+
+    def reap_txs(self, max_bytes: int, max_gas: int) -> List[bytes]:
+        raise NotImplementedError("app-side mempool not supported")
 
     def init_chain(self, req: RequestInitChain) -> ResponseInitChain:
         return ResponseInitChain()

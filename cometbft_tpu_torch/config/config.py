@@ -7,8 +7,8 @@ A copy of the JAX package's ``config/config.py`` cut to what
 whole; of ``BaseConfig`` the moniker and the store backend; of
 ``P2PConfig``, ``MempoolConfig`` and ``BlockSyncConfig`` the fields
 the port reads, which leaves out the JAX package's external address,
-peer caps, packet payload size, handshake and dial timeouts, mempool
-byte cap and async recheck; of ``RPCConfig`` the listen addresses and
+inbound peer cap, packet payload size, handshake and dial timeouts and
+mempool byte cap; of ``RPCConfig`` the listen addresses and
 ``unsafe``, of ``TxIndexConfig`` ``indexer`` (``"kv"`` or ``"null"``;
 the Postgres sink is not ported), ``StateSyncConfig`` whole, of
 ``StorageConfig`` the retention and snapshot fields (not
@@ -16,12 +16,11 @@ the Postgres sink is not ported), ``StateSyncConfig`` whole, of
 metrics, profiling and watchdog switches. Those sections take no other attribute (slots), so setting a
 field the port lacks raises ``AttributeError`` instead of doing
 nothing. ``Node`` refuses the settings whose planes the port does not
-have yet (gRPC, PEX, lp2p, the autopool, the metrics and debug
-servers) with ``NotImplementedError``. Two settings default
-differently from the JAX package: ``p2p.pex`` is off, so that a
-default ``Node`` builds, and ``rpc.laddr`` is empty, so that a node
-serves RPC only when asked (the JAX ``test_config`` gives every test
-node an ephemeral RPC port; here a test sets ``rpc.laddr`` itself).
+have yet (gRPC, the metrics and debug servers, the watchdog) with
+``NotImplementedError``. One setting defaults differently from the
+JAX package: ``rpc.laddr`` is empty, so that a node serves RPC only
+when asked (the JAX ``test_config`` gives every test node an ephemeral
+RPC port; here a test sets ``rpc.laddr`` itself; ROADMAP C10).
 ``test_config`` sets the reference's short test timeouts
 (config.TestConfig) and an ephemeral p2p port. The crypto and
 fleet sections and the TOML round trip are not ported.
@@ -63,12 +62,12 @@ class P2PConfig:
     laddr: str = "tcp://0.0.0.0:26656"
     seeds: str = ""
     persistent_peers: str = ""
+    # the PEX crawl's outbound target (p2p/pex.py)
+    max_num_outbound_peers: int = 10
     flush_throttle_ms: int = 10
     send_rate: int = 5_120_000
     recv_rate: int = 5_120_000
-    # the port has no PEX reactor: on makes Node raise (the JAX
-    # default is on)
-    pex: bool = False
+    pex: bool = True
     seed_mode: bool = False
     use_libp2p_equivalent: bool = False  # fork: lp2p transport selection
     use_autopool: bool = False  # fork: autopool reactor msg draining
@@ -102,6 +101,11 @@ class MempoolConfig:
     # before flushing a partial batch
     batch_max_txs: int = 256
     batch_flush_ms: float = 2.0
+    # post-commit recheck off the consensus critical section:
+    # update() snapshots and returns; verdicts apply in the
+    # background, height-guarded, with unrechecked txs masked from
+    # reap. Off = the reference's synchronous recheck-inside-update.
+    async_recheck: bool = True
 
 
 @dataclass(slots=True)

@@ -16,7 +16,10 @@ instead of taking another lane.
 
 Departure from the JAX package (the scheduler's, see
 ``crypto/scheduler.py``): when the dispatch fails, every future of the
-wave gets the exception; the wave is not re-verified on the host.
+wave gets the exception; the wave is not re-verified on the host. And
+``drain`` drops finished dispatches itself: the JAX one can spin without
+yielding when a dispatch has finished but its done callback has not run
+yet, which hangs a node's stop (ROADMAP C13).
 """
 
 from __future__ import annotations
@@ -171,3 +174,8 @@ class CoalescingVerifier:
         await self._dispatch(self._take())
         while self._inflight:
             await asyncio.gather(*list(self._inflight), return_exceptions=True)
+            # a finished dispatch leaves the set by a done callback that
+            # runs on the loop's next pass, and a gather of finished
+            # tasks completes without yielding: drop them here, or this
+            # loop spins and never yields (ROADMAP C13)
+            self._inflight.difference_update([t for t in self._inflight if t.done()])

@@ -1,18 +1,23 @@
-"""The transaction pool that block proposals reap and peers gossip
-(reference mempool/clist_mempool.go).
+"""Mempools: clist-equivalent, nop (ADR-111), app-side (fork feature).
 
-The part of the JAX package's ``CListMempool`` that the chain
-generator, the block executor and the p2p reactors call: ``check_tx``
-through the app's mempool connection with an LRU cache of tx keys and
-the senders of each tx (gossip echo suppression), the batched ingest
-path ``check_tx_batch`` (one cache pass, one ABCI batch call when the
-app connection has one, one pool pass; verdicts identical to serial
-``check_tx``), the insertion log the gossip routines read
-(``txs_after``, ``iter_txs``), ``reap_max_bytes_max_gas``,
-``lock``/``unlock`` around the commit, ``update`` (drop committed txs,
-then recheck the rest through the app), ``size`` and ``flush``. Tx keys hash with
-hashlib (the JAX package's native batch hasher is not ported), the
-recheck is synchronous, and the other mempool flavours are not ported.
+A copy of the JAX package's ``mempool/mempool.py``. CListMempool
+(reference mempool/clist_mempool.go): CheckTx through the mempool ABCI
+connection, an LRU cache of tx keys and the senders of each tx (gossip
+echo suppression), an ordered pool with the insertion log the gossip
+routines read (``txs_after``, ``iter_txs``), reap by max bytes/gas,
+``lock``/``unlock`` around the commit, the post-commit ``update`` and
+its recheck, ``txs_available`` and the ``notify`` hook. The batched
+ingest path ``check_tx_batch`` does one cache pass, one ABCI batch
+call when the app connection has one and one pool pass; verdicts are
+identical to serial ``check_tx``. With ``async_recheck`` (the config's
+default, as in the JAX package) ``update`` snapshots the pool and
+returns; a background thread rechecks the snapshot in chunks, verdicts
+apply height- and generation-guarded, txs not yet rechecked are masked
+from reap, and ``flush`` aborts a recheck in flight. ``NopMempool``
+disables the mempool; ``AppMempool`` relays InsertTx / ReapTxs to an
+app that owns its pool, behind a ``utils.guard.TTLGuard``. Tx keys hash
+with hashlib (the JAX package's native batch hasher is not ported) and
+the runtime sanitizer's lock wrappers are left out.
 """
 
 from __future__ import annotations
@@ -20,20 +25,28 @@ from __future__ import annotations
 import bisect
 import hashlib
 import threading
+import traceback
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..abci import types as abci
+from ..trace import NOOP as TRACE_NOOP
+
+
+def tx_key(tx: bytes) -> bytes:
+    return hashlib.sha256(tx).digest()
+
+
+# async recheck issues its ABCI batches in chunks of this many txs so
+# the shared app mutex is released between them (consensus' next
+# FinalizeBlock must not queue behind a whole-pool batch)
+_RECHECK_CHUNK = 256
 
 # cache-duplicate reject log, shared by the serial path and the
 # batch path's intra-batch duplicate resolution (matching on it
 # decides whether a duplicate re-enters the next round)
 _LOG_CACHE_DUP = "tx already in cache"
-
-
-def tx_key(tx: bytes) -> bytes:
-    return hashlib.sha256(tx).digest()
 
 
 def tx_keys(txs: Sequence[bytes]) -> List[bytes]:
@@ -42,7 +55,10 @@ def tx_keys(txs: Sequence[bytes]) -> List[bytes]:
 
 
 class TxCache:
-    """LRU of recently seen tx keys (reference mempool/cache.go)."""
+    """LRU of recently seen tx KEYS (reference mempool/cache.go).
+
+    Keyed API: callers hash once (tx_key / tx_keys) and pass the
+    32-byte key — the cache never rehashes the full tx."""
 
     def __init__(self, size: int = 10000):
         self.size = size
@@ -81,12 +97,57 @@ class TxCache:
 @dataclass
 class MempoolTx:
     tx: bytes
-    height: int  # height when it entered the pool
+    height: int  # height when entering the pool
     gas_wanted: int = 0
     senders: set = field(default_factory=set)
 
 
-class CListMempool:
+class Mempool:
+    """Interface (reference mempool/mempool.go Mempool)."""
+
+    # tracing plane (trace/): the node build swaps in the per-node
+    # tracer; class-level NOOP keeps every flavor's call sites
+    # unconditional
+    tracer = TRACE_NOOP
+
+    def check_tx(self, tx: bytes, sender: str = "") -> abci.ResponseCheckTx:
+        raise NotImplementedError
+
+    def check_tx_batch(
+        self, txs: List[bytes], senders: Optional[List[str]] = None
+    ) -> List[abci.ResponseCheckTx]:
+        """Default: the serial path per tx (flavors without a batched
+        ingest plane stay correct)."""
+        if senders is None:
+            senders = [""] * len(txs)
+        return [self.check_tx(t, s) for t, s in zip(txs, senders)]
+
+    def reap_max_bytes_max_gas(self, max_bytes: int, max_gas: int) -> List[bytes]:
+        raise NotImplementedError
+
+    def update(self, height, txs, results) -> None:
+        raise NotImplementedError
+
+    def lock(self):
+        raise NotImplementedError
+
+    def unlock(self):
+        raise NotImplementedError
+
+    def size(self) -> int:
+        raise NotImplementedError
+
+    def txs_available(self) -> threading.Event:
+        raise NotImplementedError
+
+    def flush(self) -> None:
+        raise NotImplementedError
+
+    def iter_txs(self) -> List[bytes]:
+        raise NotImplementedError
+
+
+class CListMempool(Mempool):
     def __init__(
         self,
         proxy_app,
@@ -95,6 +156,8 @@ class CListMempool:
         max_tx_bytes: int = 1024 * 1024,
         max_txs: int = 5000,
         recheck: bool = True,
+        notify: Optional[Callable[[], None]] = None,
+        async_recheck: bool = False,
     ):
         self.proxy = proxy_app
         self.height = height
@@ -108,11 +171,34 @@ class CListMempool:
         self.max_tx_bytes = max_tx_bytes
         self.max_txs = max_txs
         self.recheck = recheck
+        self.async_recheck = async_recheck
         self._lock = threading.RLock()
+        self._txs_available = threading.Event()
+        self._notify = notify
+        # async-recheck state, all guarded by self._lock: keys of the
+        # current recheck snapshot (masked from reap), the generation
+        # the snapshot belongs to (bumped every update/flush so a
+        # superseded recheck drops its verdicts wholesale), and the
+        # lazily-built single-thread executor the recheck runs on
+        self._recheck_pending: set = set()
+        self._recheck_gen = 0
+        self._recheck_executor = None
 
     # --- ingress ------------------------------------------------------
 
     def check_tx(self, tx: bytes, sender: str = "") -> abci.ResponseCheckTx:
+        tr = self.tracer
+        if not tr.enabled:
+            return self._check_tx(tx, sender)
+        with tr.span("mempool.insert", tid="mempool", bytes=len(tx)) as sp:
+            res = self._check_tx(tx, sender)
+            sp.set(ok=res.is_ok())
+        # unlocked len read (like update's counter): a size() here
+        # would re-take the pool lock once per tx just for the stamp
+        tr.counter("mempool.size", len(self.pool), tid="mempool")
+        return res
+
+    def _check_tx(self, tx: bytes, sender: str = "") -> abci.ResponseCheckTx:
         if len(tx) > self.max_tx_bytes:
             return abci.ResponseCheckTx(code=1, log="tx too large")
         key = tx_key(tx)
@@ -121,9 +207,16 @@ class CListMempool:
                 return self._cache_dup_locked(key, sender)
         res = self.proxy.check_tx(abci.RequestCheckTx(tx=tx))
         with self._lock:
-            return self._admit_locked(tx, key, sender, res)
+            res = self._admit_locked(tx, key, sender, res)
+        if res.is_ok():
+            self._txs_available.set()
+            if self._notify:
+                self._notify()
+        return res
 
-    def _cache_dup_locked(self, key: bytes, sender: str) -> abci.ResponseCheckTx:
+    def _cache_dup_locked(
+        self, key: bytes, sender: str
+    ) -> abci.ResponseCheckTx:
         """Cache-duplicate reject; caller holds self._lock. Records
         the extra sender for gossip echo suppression."""
         if sender:
@@ -146,6 +239,10 @@ class CListMempool:
             self.pool[key] = mt
             self._seq += 1
             self._log.append((self._seq, key))
+            # txs_available is set by the CALLER — once per tx on the
+            # serial path, once per BATCH on the batched one (Event.set
+            # takes a condition lock + notify_all; per-item it was ~25%
+            # of the serial ingest wall)
         else:
             self.cache.remove(key)
         return res
@@ -153,69 +250,100 @@ class CListMempool:
     def check_tx_batch(
         self, txs: List[bytes], senders: Optional[List[str]] = None
     ) -> List[abci.ResponseCheckTx]:
-        """Batched ingest: all keys in one pass, precheck under one
-        cache lock, ONE check_tx_batch ABCI call for the survivors
-        (per-tx fallback inside _proxy_check_tx_batch), admit under one
-        pool lock. Verdicts are identical to running check_tx serially
-        over the same txs."""
+        """Batched ingest: hash all keys in one pass, precheck under
+        one cache lock, ONE check_tx_batch ABCI call for the
+        survivors (per-tx fallback inside _proxy_check_tx_batch),
+        admit under one pool lock. Verdicts are identical to running
+        check_tx serially over the same txs."""
         n = len(txs)
         if n == 0:
             return []
         if senders is None:
             senders = [""] * n
-        out: List[Optional[abci.ResponseCheckTx]] = [None] * n
-        remaining: List[int] = []
-        for i, tx in enumerate(txs):
-            if len(tx) > self.max_tx_bytes:
-                out[i] = abci.ResponseCheckTx(code=1, log="tx too large")
-            else:
-                remaining.append(i)
-        keys: Dict[int, bytes] = dict(zip(remaining, tx_keys([txs[i] for i in remaining])))
-        # Round-based so verdicts are EXACTLY serial-equivalent even
-        # with intra-batch duplicates: the first occurrence of a key
-        # processes this round; later occurrences wait on its verdict —
-        # a cache-removing outcome (app reject / pool full) means the
-        # serial loop would have re-checked the duplicate through the
-        # app, so it re-enters the next round.
-        while remaining:
-            first_of: Dict[bytes, int] = {}
-            round_items: List[int] = []
-            deferred: List[int] = []
-            for i in remaining:
-                if keys[i] in first_of:
-                    deferred.append(i)
+        with self.tracer.span(
+            "mempool.batch", tid="mempool", txs=n
+        ) as sp:
+            out: List[Optional[abci.ResponseCheckTx]] = [None] * n
+            remaining: List[int] = []
+            for i, tx in enumerate(txs):
+                if len(tx) > self.max_tx_bytes:
+                    out[i] = abci.ResponseCheckTx(
+                        code=1, log="tx too large"
+                    )
                 else:
-                    first_of[keys[i]] = i
-                    round_items.append(i)
-            fresh = self.cache.push_many([keys[i] for i in round_items])
-            dups: List[int] = []
-            pending: List[int] = []
-            for i, f in zip(round_items, fresh):
-                (pending if f else dups).append(i)
-            results = (
-                self._proxy_check_tx_batch([abci.RequestCheckTx(tx=txs[i]) for i in pending])
-                if pending
-                else []
+                    remaining.append(i)
+            keys: Dict[int, bytes] = dict(
+                zip(remaining, tx_keys([txs[i] for i in remaining]))
             )
-            remaining = []
-            with self._lock:
-                for i in dups:
-                    out[i] = self._cache_dup_locked(keys[i], senders[i])
-                for i, res in zip(pending, results):
-                    out[i] = self._admit_locked(txs[i], keys[i], senders[i], res)
-                for i in deferred:
-                    pres = out[first_of[keys[i]]]
-                    if pres.is_ok() or pres.log == _LOG_CACHE_DUP:
-                        out[i] = self._cache_dup_locked(keys[i], senders[i])
+            n_ok = n_checked = 0
+            # Round-based so verdicts are EXACTLY serial-equivalent
+            # even with intra-batch duplicates: the first occurrence
+            # of a key processes this round; later occurrences wait
+            # on its verdict — a cache-removing outcome (app reject /
+            # pool full) means the serial loop would have re-checked
+            # the duplicate through the app, so it re-enters the next
+            # round. Real workloads resolve in one round; a batch of
+            # k identical rejected txs degrades to k rounds, i.e. to
+            # the serial cost, never worse.
+            while remaining:
+                first_of: Dict[bytes, int] = {}
+                round_items: List[int] = []
+                deferred: List[int] = []
+                for i in remaining:
+                    if keys[i] in first_of:
+                        deferred.append(i)
                     else:
-                        remaining.append(i)
+                        first_of[keys[i]] = i
+                        round_items.append(i)
+                fresh = self.cache.push_many(
+                    [keys[i] for i in round_items]
+                )
+                dups: List[int] = []
+                pending: List[int] = []
+                for i, f in zip(round_items, fresh):
+                    (pending if f else dups).append(i)
+                results = (
+                    self._proxy_check_tx_batch(
+                        [abci.RequestCheckTx(tx=txs[i]) for i in pending]
+                    )
+                    if pending
+                    else []
+                )
+                n_checked += len(pending)
+                remaining = []
+                with self._lock:
+                    for i in dups:
+                        out[i] = self._cache_dup_locked(
+                            keys[i], senders[i]
+                        )
+                    for i, res in zip(pending, results):
+                        out[i] = self._admit_locked(
+                            txs[i], keys[i], senders[i], res
+                        )
+                        if out[i].is_ok():
+                            n_ok += 1
+                    for i in deferred:
+                        pres = out[first_of[keys[i]]]
+                        if pres.is_ok() or pres.log == _LOG_CACHE_DUP:
+                            out[i] = self._cache_dup_locked(
+                                keys[i], senders[i]
+                            )
+                        else:
+                            remaining.append(i)
+            if n_ok:
+                self._txs_available.set()
+                if self._notify:
+                    self._notify()
+            sp.set(ok=n_ok, checked=n_checked)
+        self.tracer.counter("mempool.size", len(self.pool), tid="mempool")
         return out  # type: ignore[return-value]
 
     def _proxy_check_tx_batch(
         self, reqs: List[abci.RequestCheckTx]
     ) -> List[abci.ResponseCheckTx]:
         """One batched ABCI call when the proxy supports the fork
-        extension, an automatic per-tx fallback loop otherwise."""
+        extension, an automatic per-tx fallback loop otherwise
+        (mirrors how InsertTx/ReapTxs degrade in abci/types.py)."""
         fn = getattr(self.proxy, "check_tx_batch", None)
         if fn is not None:
             try:
@@ -225,9 +353,11 @@ class CListMempool:
             if res is not None:
                 if len(res) != len(reqs):
                     # a short list would silently zip-truncate
-                    # verdicts downstream — fail the batch loudly
+                    # verdicts downstream (None entries, unresolved
+                    # ingest futures) — fail the batch loudly instead
                     raise RuntimeError(
-                        f"check_tx_batch returned {len(res)} responses for {len(reqs)} requests"
+                        "check_tx_batch returned "
+                        f"{len(res)} responses for {len(reqs)} requests"
                     )
                 return res
         return [self.proxy.check_tx(r) for r in reqs]
@@ -236,16 +366,24 @@ class CListMempool:
 
     def reap_max_bytes_max_gas(self, max_bytes: int, max_gas: int) -> List[bytes]:
         out, total_b, total_g = [], 0, 0
-        with self._lock:
-            for mt in self.pool.values():
-                nb = total_b + len(mt.tx)
-                ng = total_g + mt.gas_wanted
-                if max_bytes >= 0 and nb > max_bytes:
-                    break
-                if max_gas >= 0 and ng > max_gas:
-                    break
-                out.append(mt.tx)
-                total_b, total_g = nb, ng
+        with self.tracer.span("mempool.reap", tid="mempool") as sp:
+            with self._lock:
+                pending = self._recheck_pending
+                for k, mt in self.pool.items():
+                    if pending and k in pending:
+                        # recheck verdict still in flight: a proposer
+                        # must not include a tx the app may be about
+                        # to invalidate post-commit
+                        continue
+                    nb = total_b + len(mt.tx)
+                    ng = total_g + mt.gas_wanted
+                    if max_bytes >= 0 and nb > max_bytes:
+                        break
+                    if max_gas >= 0 and ng > max_gas:
+                        break
+                    out.append(mt.tx)
+                    total_b, total_g = nb, ng
+            sp.set(txs=len(out), bytes=total_b)
         return out
 
     def iter_txs(self) -> List[bytes]:
@@ -275,10 +413,10 @@ class CListMempool:
         with self._lock:
             return len(self.pool)
 
-    def flush(self) -> None:
-        """Drop every pooled tx (the RPC's ``unsafe_flush_mempool``)."""
+    def recheck_pending(self) -> int:
+        """Txs masked from reap while their recheck is in flight."""
         with self._lock:
-            self.pool.clear()
+            return len(self._recheck_pending)
 
     # --- post-commit --------------------------------------------------
 
@@ -289,22 +427,238 @@ class CListMempool:
         self._lock.release()
 
     def update(self, height: int, txs: List[bytes], results) -> None:
-        """Called with the mempool locked, after FinalizeBlock and the
-        app's Commit (reference clist_mempool.go:583)."""
+        """Called with the mempool LOCKED, between FinalizeBlock and
+        releasing consensus (reference clist_mempool.go:583). With
+        async_recheck the recheck leaves the critical section: wall
+        time here no longer scales with the pooled tx count."""
         self.height = height
-        for key, res in zip(tx_keys(txs), results):
+        committed_keys = tx_keys(txs) if txs else []
+        for key, res in zip(committed_keys, results):
             if res.is_ok():
-                self.cache.push(key)  # committed txs stay in the cache
+                self.cache.push(key)  # keep committed txs in cache
             else:
                 self.cache.remove(key)
             self.pool.pop(key, None)
+        # any in-flight recheck is stale the moment a block commits:
+        # bump the generation so its verdicts are dropped wholesale
+        # and reset the reap mask (re-populated if we re-snapshot)
+        self._recheck_gen += 1
+        self._recheck_pending = set()
+        scheduled = False
         if self.recheck and self.pool:
-            for key, mt in list(self.pool.items()):
-                res = self.proxy.check_tx(
-                    abci.RequestCheckTx(tx=mt.tx, type_=abci.CHECK_TX_TYPE_RECHECK)
-                )
-                if not res.is_ok():
-                    self.pool.pop(key, None)
-                    self.cache.remove(key)
+            if self.async_recheck:
+                scheduled = self._schedule_recheck(height)
+            else:
+                self._recheck_txs()
         if len(self._log) > 4 * len(self.pool) + 1024:
             self._log = [e for e in self._log if e[1] in self.pool]
+        if scheduled:
+            # availability decided when the verdicts land (the whole
+            # pool is masked right now); an empty pool can't happen
+            # here — recheck only scheduled when self.pool is truthy
+            pass
+        elif self.pool:
+            self._txs_available.set()
+            if self._notify:
+                self._notify()
+        else:
+            self._txs_available.clear()
+        self.tracer.counter("mempool.size", len(self.pool), tid="mempool")
+
+    def _recheck_txs(self) -> None:
+        """Synchronous recheck (async_recheck off): one batched ABCI
+        call for the whole pool, still inside the consensus critical
+        section."""
+        snapshot = [(k, self.pool[k].tx) for k in self.pool.keys()]
+        results = self._proxy_check_tx_batch(
+            [
+                abci.RequestCheckTx(tx=tx, type_=abci.CHECK_TX_TYPE_RECHECK)
+                for _, tx in snapshot
+            ]
+        )
+        for (k, _), res in zip(snapshot, results):
+            if not res.is_ok():
+                mt = self.pool.pop(k, None)
+                if mt is not None:
+                    self.cache.remove(k)
+
+    def _schedule_recheck(self, height: int) -> bool:
+        """Snapshot the pool, mask it from reap, and hand the batch to
+        the background executor. Caller holds self._lock (update runs
+        inside the consensus critical section)."""
+        snapshot = [(k, mt.tx) for k, mt in self.pool.items()]
+        self._recheck_pending = {k for k, _ in snapshot}
+        ex = self._recheck_executor
+        if ex is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            ex = self._recheck_executor = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="mempool-recheck"
+            )
+        ex.submit(self._run_recheck, self._recheck_gen, height, snapshot)
+        return True
+
+    def _run_recheck(
+        self, gen: int, height: int, snapshot: List[Tuple[bytes, bytes]]
+    ) -> None:
+        """Background half of the async recheck. Height/generation
+        guarded: if another update (or flush) landed while an ABCI
+        chunk was in flight, the remaining verdicts are stale — the
+        newer update's own recheck owns the pool — so they are
+        dropped wholesale and the pending mask is left to the newer
+        owner. The snapshot is rechecked in CHUNKS so the shared app
+        mutex is released between them: one whole-pool batch would
+        head-of-line-block the next height's FinalizeBlock for the
+        full recheck wall (the stall this plane exists to kill).
+        Verdicts apply per chunk, so reap unmasks progressively."""
+        try:
+            with self.tracer.span(
+                "mempool.recheck", tid="mempool",
+                txs=len(snapshot), height=height,
+            ) as sp:
+                removed = 0
+                for lo in range(0, len(snapshot), _RECHECK_CHUNK):
+                    chunk = snapshot[lo:lo + _RECHECK_CHUNK]
+                    try:
+                        results = self._proxy_check_tx_batch(
+                            [
+                                abci.RequestCheckTx(
+                                    tx=tx,
+                                    type_=abci.CHECK_TX_TYPE_RECHECK,
+                                )
+                                for _, tx in chunk
+                            ]
+                        )
+                    except Exception:
+                        # app unreachable mid-recheck: fail open
+                        # (keep these txs, unmask them) — the next
+                        # update rechecks again
+                        traceback.print_exc()
+                        results = [abci.ResponseCheckTx()] * len(chunk)
+                    with self._lock:
+                        if gen != self._recheck_gen or height != self.height:
+                            sp.set(stale=True)
+                            return
+                        for (k, _), res in zip(chunk, results):
+                            self._recheck_pending.discard(k)
+                            if not res.is_ok():
+                                mt = self.pool.pop(k, None)
+                                if mt is not None:
+                                    self.cache.remove(k)
+                                    removed += 1
+                with self._lock:
+                    if gen != self._recheck_gen or height != self.height:
+                        sp.set(stale=True)
+                        return
+                    self._recheck_pending = set()
+                    has_txs = bool(self.pool)
+                    # availability decided UNDER the lock: a clear()
+                    # outside it could clobber the event a concurrent
+                    # admission just set
+                    if has_txs:
+                        self._txs_available.set()
+                    else:
+                        self._txs_available.clear()
+                sp.set(removed=removed)
+            if has_txs and self._notify:
+                self._notify()
+            self.tracer.counter(
+                "mempool.size", len(self.pool), tid="mempool"
+            )
+        except Exception:  # pragma: no cover - belt and braces
+            # executor futures swallow exceptions silently; a recheck
+            # crash must at least leave a trace and unmask the pool
+            traceback.print_exc()
+            with self._lock:
+                if gen == self._recheck_gen:
+                    self._recheck_pending = set()
+
+    def txs_available(self) -> threading.Event:
+        return self._txs_available
+
+    def flush(self) -> None:
+        with self._lock:
+            self.pool.clear()
+            self._recheck_gen += 1  # abort any in-flight recheck
+            self._recheck_pending = set()
+            self._txs_available.clear()
+
+
+class NopMempool(Mempool):
+    """ADR-111: mempool disabled (reference mempool/nop_mempool.go)."""
+
+    def check_tx(self, tx, sender=""):
+        return abci.ResponseCheckTx(code=1, log="mempool disabled")
+
+    def reap_max_bytes_max_gas(self, max_bytes, max_gas):
+        return []
+
+    def update(self, height, txs, results):
+        pass
+
+    def lock(self):
+        pass
+
+    def unlock(self):
+        pass
+
+    def size(self):
+        return 0
+
+    def txs_available(self) -> threading.Event:
+        return threading.Event()  # never set
+
+    def flush(self):
+        pass
+
+    def iter_txs(self):
+        return []
+
+
+class AppMempool(Mempool):
+    """Fork feature: the application owns the pool; the node only relays
+    InsertTx / ReapTxs (reference mempool/app_mempool.go:23-50) with a
+    TTL'd dedup guard in front (internal/guard)."""
+
+    def __init__(self, proxy_app, guard_ttl_s: float = 60.0, guard_size: int = 100_000):
+        from ..utils.guard import TTLGuard
+
+        self.proxy = proxy_app
+        self.guard = TTLGuard(ttl_s=guard_ttl_s, max_size=guard_size)
+        self._txs_available = threading.Event()
+
+    def check_tx(self, tx: bytes, sender: str = "") -> abci.ResponseCheckTx:
+        if not self.guard.check_and_set(tx_key(tx)):
+            return abci.ResponseCheckTx(code=1, log="duplicate (guard)")
+        ok = self.proxy.insert_tx(tx)
+        if ok:
+            self._txs_available.set()
+        return abci.ResponseCheckTx(
+            code=abci.CODE_TYPE_OK if ok else 1
+        )
+
+    def reap_max_bytes_max_gas(self, max_bytes, max_gas):
+        return self.proxy.reap_txs(max_bytes, max_gas)
+
+    def update(self, height, txs, results):
+        self._txs_available.clear()
+
+    def lock(self):
+        pass
+
+    def unlock(self):
+        pass
+
+    def size(self):
+        return -1  # unknown: app-owned
+
+    def txs_available(self) -> threading.Event:
+        return self._txs_available
+
+    def flush(self):
+        pass
+
+    def iter_txs(self):
+        # the JAX class defines iter_txs twice and the second, this one,
+        # is the one that runs: the app's own pool, reaped without caps
+        return self.proxy.reap_txs(-1, -1)

@@ -12,8 +12,9 @@ ABCI call; the full CheckTx path still gates propagation, so invalid
 txs never re-gossip.
 
 A copy of the JAX package's ``mempool/reactor.py``: ``MempoolReactor``
-whole. ``AppMempoolReactor`` waits for the app-side mempool, which is
-not ported. Outbound messages go out unstamped (``Switch.stamp_msg``).
+and ``AppMempoolReactor`` (the app-side mempool's flood with dedup,
+InsertTx off the loop). Outbound messages go out unstamped
+(``Switch.stamp_msg``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from ..p2p import tracewire
 from ..p2p.node_info import ChannelDescriptor
 from ..p2p.reactor import Reactor
 from . import codec
+from ..utils.tasks import spawn
 from .ingest import IngestQueue
 from .mempool import tx_key
 
@@ -205,3 +207,56 @@ class MempoolReactor(Reactor):
             self.mempool.check_tx(tx, sender=sender)
         except Exception:
             pass  # invalid txs are dropped, not fatal to the peer
+
+
+class AppMempoolReactor(Reactor):
+    """Fork feature: gossip for the app-side mempool (reference
+    mempool/app_reactor.go). The app owns tx storage, so there is no
+    pool to walk — relaying is flood-with-dedup: a tx accepted by
+    InsertTx (guard-deduplicated) is forwarded to every OTHER peer
+    exactly once."""
+
+    name = "mempool"
+
+    def __init__(self, mempool, broadcast: bool = True):
+        super().__init__()
+        self.mempool = mempool  # AppMempool
+        self.broadcast = broadcast
+
+    def get_channels(self):
+        return [
+            ChannelDescriptor(MEMPOOL_CHANNEL, priority=5, max_msg_size=1 << 20)
+        ]
+
+    def submit_local(self, tx: bytes):
+        """Entry for locally-submitted txs (RPC broadcast_tx path)."""
+        res = self.mempool.check_tx(tx)
+        if res.is_ok() and self.broadcast and self.switch is not None:
+            self.switch.broadcast(MEMPOOL_CHANNEL, tx, tkind="txs")
+        return res
+
+    def receive(self, chan_id: int, peer, msg: bytes) -> None:
+        # InsertTx is a sync ABCI call: run it off-loop, forward on ok
+        # (guard stops loops) — receive itself never blocks
+        spawn(
+            self._receive_async(peer.peer_id, msg),
+            name="app-mempool-receive",
+        )
+
+    async def _receive_async(self, sender: str, msg: bytes) -> None:
+        try:
+            res = await asyncio.to_thread(
+                self.mempool.check_tx, msg, sender
+            )
+        except asyncio.CancelledError:
+            raise
+        except Exception:
+            return
+        if res.is_ok() and self.broadcast and self.switch is not None:
+            # forward to everyone but the sender (guard stops loops);
+            # encode once — stamp_msg escapes a magic-prefixed raw tx
+            # (attacker-shaped bytes) so receivers never mutate it
+            wire = self.switch.stamp_msg(MEMPOOL_CHANNEL, msg, "txs")
+            for p in self.switch.peers.values():
+                if p.peer_id != sender:
+                    p.try_send(MEMPOOL_CHANNEL, wire)

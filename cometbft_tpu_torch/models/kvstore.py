@@ -35,6 +35,10 @@ advisory: the blob's hash at the last chunk decides the restore. An
 app without the option (the default, and every JAX app) reads no
 metadata, and a corrupt chunk rejects the whole snapshot at the end,
 as in the JAX package.
+
+``AppMempoolKVStore`` owns its mempool (the fork's app-side mempool:
+InsertTx / ReapTxs), as the JAX package's does: Commit drops a pooled
+tx only while its ``k=v`` is still in the state (ROADMAP C).
 """
 
 from __future__ import annotations
@@ -399,3 +403,35 @@ class KVStoreApplication(abci.Application):
             self.state = {bytes.fromhex(k): bytes.fromhex(v) for k, v in st["state"].items()}
             self.app_hash = self._hash_state(self.height, self.state)
         return abci.ResponseApplySnapshotChunk(result=abci.APPLY_CHUNK_ACCEPT)
+
+
+class AppMempoolKVStore(KVStoreApplication):
+    """kvstore variant owning its mempool (fork feature: InsertTx/ReapTxs,
+    reference mempool/app_mempool.go)."""
+
+    def __init__(self):
+        super().__init__()
+        self.pool: List[bytes] = []
+
+    def insert_tx(self, tx: bytes) -> bool:
+        if not self._valid_tx(tx) or tx in self.pool:
+            return False
+        self.pool.append(tx)
+        return True
+
+    def reap_txs(self, max_bytes: int, max_gas: int) -> List[bytes]:
+        out, total = [], 0
+        for tx in self.pool:
+            if max_bytes >= 0 and total + len(tx) > max_bytes:
+                break
+            out.append(tx)
+            total += len(tx)
+        return out
+
+    def commit(self):
+        resp = super().commit()
+        committed = set()
+        for k, v in self.state.items():
+            committed.add(k + b"=" + v)
+        self.pool = [tx for tx in self.pool if tx not in committed]
+        return resp

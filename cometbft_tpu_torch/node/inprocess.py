@@ -3,7 +3,9 @@
 The part of the JAX package's ``node/inprocess.py`` that replay and
 in-process consensus need (reference consensus/common_test.go
 randConsensusNet): ``build_node`` wires the kv stores, the kvstore app
-behind a local ABCI client, the mempool, the block executor, the ABCI
+behind a local ABCI client, the mempool (``config.mempool.type_``:
+``clist``, with ``async_recheck``; ``app``, the app-side mempool; or
+``nop``), the block executor, the ABCI
 handshake, the event bus (which the executor publishes each block's
 events on), the tx and block indexers with their ``IndexerService``
 when ``config.tx_index.indexer`` is ``"kv"`` (one kv db,
@@ -49,7 +51,7 @@ from ..consensus.state import ConsensusState
 from ..crypto.keys import Ed25519PrivKey
 from ..device import resolve
 from ..evidence.pool import EvidencePool
-from ..mempool.mempool import CListMempool
+from ..mempool.mempool import AppMempool, CListMempool, Mempool, NopMempool
 from ..models.kvstore import KVStoreApplication
 from ..privval import FilePV
 from ..state.execution import BlockExecutor
@@ -75,7 +77,7 @@ class NodeParts:
     block_store: BlockStore
     state_store: StateStore
     state: State
-    mempool: CListMempool
+    mempool: Mempool
     block_exec: BlockExecutor
     device: object
     config: Optional[Config] = None
@@ -183,13 +185,20 @@ def build_node(
             f"tx_index.indexer={config.tx_index.indexer!r} is not ported (ROADMAP A8, the psql sink's gate)"
         )
     evpool = EvidencePool(kv.MemKV(), state_store, block_store, device=device)
-    mempool = CListMempool(
-        proxy.mempool,
-        cache_size=config.mempool.cache_size,
-        max_tx_bytes=config.mempool.max_tx_bytes,
-        max_txs=config.mempool.size,
-        recheck=config.mempool.recheck,
-    )
+    # mempool flavor by config: clist | app (fork) | nop (ADR-111)
+    if config.mempool.type_ == "app":
+        mempool = AppMempool(proxy.mempool)
+    elif config.mempool.type_ == "nop":
+        mempool = NopMempool()
+    else:
+        mempool = CListMempool(
+            proxy.mempool,
+            cache_size=config.mempool.cache_size,
+            max_tx_bytes=config.mempool.max_tx_bytes,
+            max_txs=config.mempool.size,
+            recheck=config.mempool.recheck,
+            async_recheck=config.mempool.async_recheck,
+        )
     block_exec = BlockExecutor(
         state_store,
         proxy.consensus,

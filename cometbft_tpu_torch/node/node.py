@@ -30,11 +30,18 @@ consensus state machine, the consensus reactor's vote waves, the
 blocksync windows and the evidence pool all take it. The evidence
 reactor gossips the pool on channel 0x38; ``add_evidence`` hands the
 pool evidence directly, where the JAX node's RPC ``broadcast_evidence``
-does, with the reactor's retry when the verify route fails (C3). Not
-ported, and refused with ``NotImplementedError`` when the config asks
-for them (ROADMAP A8, A10): lp2p, PEX and seeds, gRPC, the app and nop
-mempools, the reactor autopool, the metrics and profiling servers and
-the stuck-task watchdog. The obs plane's loop watchdog and staged
+does, with the reactor's retry when the verify route fails (C3). The
+fork's network plane, as in the JAX node: ``p2p.use_libp2p_equivalent``
+picks the lp2p switch (``lp2p/``, stream-multiplexed, with the node's
+send and receive rates), ``p2p.use_autopool`` drains reactor messages
+through the autopool on either switch, ``mempool.type_ = "app"`` runs
+the app-side mempool behind an ``AppMempoolReactor``, and the address
+book (``<home>/addrbook.json``, seeded from ``p2p.seeds``) is the
+switch's ``addr_book``, crawled by a ``PexReactor`` on channel 0x00
+when ``p2p.pex`` is on (the default). Not ported, and refused with
+``NotImplementedError`` when the config asks for them (ROADMAP A8,
+A10): gRPC, the metrics and profiling servers and the stuck-task
+watchdog. The obs plane's loop watchdog and staged
 shutdown guard (A10) are replaced by plain per-stage timeouts in
 ``_shutdown``.
 """
@@ -42,6 +49,7 @@ shutdown guard (A10) are replaced by plain per-stage timeouts in
 from __future__ import annotations
 
 import asyncio
+import os
 import traceback
 from typing import Optional
 
@@ -50,9 +58,9 @@ from ..config import Config
 from ..consensus.reactor import ConsensusReactor
 from ..device import resolve
 from ..evidence.reactor import EvidenceReactor
-from ..mempool.reactor import MempoolReactor
+from ..mempool.reactor import AppMempoolReactor, MempoolReactor
 from ..obs import QueueRegistry
-from ..p2p import NodeInfo, NodeKey, Switch, TCPTransport
+from ..p2p import AddrBook, NodeInfo, NodeKey, PexReactor, Switch, TCPTransport
 from ..statesync.reactor import StateSyncReactor
 from ..types.genesis import GenesisDoc
 from ..utils.log import get_logger
@@ -77,12 +85,7 @@ def _refuse_unported(config: Config) -> None:
     """NotImplementedError for a setting whose plane the port lacks,
     naming the ROADMAP item that carries it."""
     asked = [
-        (config.p2p.use_libp2p_equivalent, "p2p.use_libp2p_equivalent (lp2p)", "A8"),
-        (config.p2p.pex, "p2p.pex (the PEX reactor)", "A8"),
-        (config.p2p.seeds or config.p2p.seed_mode, "p2p.seeds / p2p.seed_mode (PEX)", "A8"),
-        (config.p2p.use_autopool, "p2p.use_autopool (the reactor autopool)", "A8"),
         (config.rpc.grpc_laddr, "rpc.grpc_laddr (the gRPC broadcast API)", "A8"),
-        (config.mempool.type_ != "clist", f"mempool.type_={config.mempool.type_!r}", "A8"),
         (config.instrumentation.prometheus, "instrumentation.prometheus (the metrics server)", "A10"),
         (config.instrumentation.pprof_laddr, "instrumentation.pprof_laddr (the debug server)", "A10"),
         (config.instrumentation.watchdog_stall_s > 0, "instrumentation.watchdog_stall_s", "A10"),
@@ -133,16 +136,31 @@ class Node:
             "slow_interval_s": config.p2p.reconnect_slow_interval_s,
             "starvation_s": config.p2p.starvation_s,
         }
-        self.switch = Switch(
-            self.transport,
-            self.node_info,
-            mconn_config={
-                "send_rate": config.p2p.send_rate,
-                "recv_rate": config.p2p.recv_rate,
-                "flush_throttle_s": config.p2p.flush_throttle_ms / 1000.0,
-            },
-            reconnect_config=reconnect_config,
-        )
+        if config.p2p.use_libp2p_equivalent:
+            # fork feature: alternative stream-multiplexed switcher
+            # (reference lp2p selection at node/node.go:476-575)
+            from ..lp2p import Lp2pSwitch
+
+            self.switch = Lp2pSwitch(
+                self.transport,
+                self.node_info,
+                send_rate=config.p2p.send_rate,
+                recv_rate=config.p2p.recv_rate,
+                use_autopool=config.p2p.use_autopool,
+                reconnect_config=reconnect_config,
+            )
+        else:
+            self.switch = Switch(
+                self.transport,
+                self.node_info,
+                mconn_config={
+                    "send_rate": config.p2p.send_rate,
+                    "recv_rate": config.p2p.recv_rate,
+                    "flush_throttle_s": config.p2p.flush_throttle_ms / 1000.0,
+                },
+                use_autopool=config.p2p.use_autopool,
+                reconnect_config=reconnect_config,
+            )
         self.switch.min_peers = config.p2p.min_peers
         # a reactor's failed verify route counts where the state
         # machine's do (C3)
@@ -160,12 +178,15 @@ class Node:
             self.parts.block_store,
             wait_sync=sync_pending,
         )
-        self.mempool_reactor = MempoolReactor(
-            self.parts.mempool,
-            broadcast=config.mempool.broadcast,
-            batch_max_txs=config.mempool.batch_max_txs,
-            batch_flush_ms=config.mempool.batch_flush_ms,
-        )
+        if config.mempool.type_ == "app":
+            self.mempool_reactor = AppMempoolReactor(self.parts.mempool, broadcast=config.mempool.broadcast)
+        else:
+            self.mempool_reactor = MempoolReactor(
+                self.parts.mempool,
+                broadcast=config.mempool.broadcast,
+                batch_max_txs=config.mempool.batch_max_txs,
+                batch_flush_ms=config.mempool.batch_flush_ms,
+            )
         self.evidence_reactor = EvidenceReactor(self.parts.evpool)
         self.blocksync_reactor = BlockSyncNetReactor(
             self.parts.state,
@@ -181,11 +202,32 @@ class Node:
         # serve floor: a chunk being streamed to a joiner pins its
         # height against pruning
         self.statesync_reactor.retention = self.parts.retention
+        self.addr_book = AddrBook(
+            os.path.join(home, "addrbook.json") if home else None,
+            our_id=self.node_key.node_id,
+        )
+        for seed in (config.p2p.seeds or "").split(","):
+            if seed.strip():
+                self.addr_book.add_address(seed.strip())
+        # the reconnect plane consults the book for re-learned
+        # addresses and records dial/conn failures into it
+        self.switch.addr_book = self.addr_book
+        self.pex_reactor = (
+            PexReactor(
+                self.addr_book,
+                seed_mode=config.p2p.seed_mode,
+                target_outbound=config.p2p.max_num_outbound_peers,
+            )
+            if config.p2p.pex
+            else None
+        )
         self.switch.add_reactor("consensus", self.consensus_reactor)
         self.switch.add_reactor("mempool", self.mempool_reactor)
         self.switch.add_reactor("evidence", self.evidence_reactor)
         self.switch.add_reactor("blocksync", self.blocksync_reactor)
         self.switch.add_reactor("statesync", self.statesync_reactor)
+        if self.pex_reactor is not None:
+            self.switch.add_reactor("pex", self.pex_reactor)
         self._adaptive = adaptive
         self._cs_started = False
         self.rpc_server = None

@@ -10,17 +10,19 @@ The port of the JAX package's ``p2p/`` (reference -> here):
 - p2p/switch.go           -> switch.py (+ reconnect.py: the
   self-healing never-give-up redial plane, fork addition)
 - p2p/base_reactor.go     -> reactor.py
+- p2p/pex/                -> pex.py (addrbook + PEX reactor)
 
 Wire layouts, channel ids and handshakes are the JAX package's, byte
-for byte: a port node and a JAX node peer with each other. PEX, the
-lp2p switcher, connection fuzzing, the reactor autopool and trace
-stamping are not ported (``tracewire.py`` keeps only the stamp
-framing a receiver must peel).
+for byte: a port node and a JAX node peer with each other. The lp2p
+switcher is the package ``lp2p/`` beside this one. Connection fuzzing
+and trace stamping are not ported (``tracewire.py`` keeps only the
+stamp framing a receiver must peel).
 """
 
 from .key import NodeKey, node_id_from_pubkey
 from .node_info import ChannelDescriptor, NodeInfo
 from .peer import Peer
+from .pex import AddrBook, KnownAddress, PexReactor
 from .reactor import Reactor
 from .reconnect import ReconnectPlane
 from .switch import Switch
@@ -32,6 +34,9 @@ __all__ = [
     "NodeInfo",
     "ChannelDescriptor",
     "Peer",
+    "AddrBook",
+    "KnownAddress",
+    "PexReactor",
     "Reactor",
     "ReconnectPlane",
     "Switch",

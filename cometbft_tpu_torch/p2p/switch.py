@@ -19,13 +19,15 @@ Responsibilities (mirroring the reference):
   misbehaving peer (and everything re-routes through reconnect logic)
 - max peer caps + dedup by node ID.
 
-A copy of the JAX package's ``p2p/switch.py`` with four cuts: the
-runtime sanitizer's loop-affinity hooks, trace stamping (outbound
+A copy of the JAX package's ``p2p/switch.py`` with two cuts: the
+runtime sanitizer's loop-affinity hooks and trace stamping (outbound
 messages go out unstamped; ``p2p/tracewire.py`` still peels a peer's
-stamp and escapes a magic-prefixed payload, as the JAX switch does),
-the reactor autopool (messages dispatch inline) and the lp2p switcher.
+stamp and escapes a magic-prefixed payload, as the JAX switch does).
 ``broadcast`` and ``stamp_msg`` keep their signatures, so the reactors
-stay copies.
+stay copies. With ``use_autopool`` reactor messages drain through an
+``utils.autopool.AutoPool`` (2 to 16 workers, started and stopped with
+the switch); a saturated pool dispatches inline. The lp2p switcher
+(``lp2p/switch.py``) subclasses this one.
 
 Departure (ROADMAP C3): a reactor whose ``receive`` raises
 ``crypto.scheduler.DeviceRouteError`` (a verify route that failed,
@@ -72,8 +74,14 @@ class Switch:
         node_info: NodeInfo,
         max_peers: int = DEFAULT_MAX_PEERS,
         mconn_config: Optional[dict] = None,
+        use_autopool: bool = False,
         reconnect_config: Optional[dict] = None,
     ):
+        # fork feature: reactor messages can be drained by an
+        # auto-scaling worker pool (reference lp2p/reactor_set.go +
+        # internal/autopool) instead of inline dispatch
+        self._autopool = None
+        self._use_autopool = use_autopool
         self.transport = transport
         self.node_info = node_info
         self.reactors: Dict[str, Reactor] = {}
@@ -88,7 +96,7 @@ class Switch:
         self._accept_task: Optional[asyncio.Task] = None
         self._stopped = False
         # self-healing connectivity plane (p2p/reconnect.py): owns all
-        # persistent-peer redial
+        # persistent-peer redial; Lp2pSwitch inherits it unchanged
         self.reconnect = ReconnectPlane(self, **(reconnect_config or {}))
         # PEX address book, set by node wiring when PEX is on: the
         # reconnect plane consults it for re-learned addresses and
@@ -127,6 +135,11 @@ class Switch:
     async def start(self) -> None:
         for r in self.reactors.values():
             await r.start()
+        if self._use_autopool:
+            from ..utils.autopool import AutoPool
+
+            self._autopool = AutoPool(min_workers=2, max_workers=16)
+            self._autopool.start()
         self._accept_task = asyncio.create_task(self._accept_routine())
         self.reconnect.start()
 
@@ -137,6 +150,11 @@ class Switch:
         if self._accept_task:
             self._accept_task.cancel()
         self.reconnect.stop()
+        if self._autopool is not None:
+            try:
+                await asyncio.wait_for(self._autopool.stop(), 5.0)
+            except asyncio.TimeoutError:
+                pass
         for r in self.reactors.values():
             try:
                 # 12s: strictly ABOVE the largest per-plane bound a
@@ -437,7 +455,19 @@ class Switch:
                 peer, ValueError(f"msg on unclaimed channel {chan_id:#x}")
             )
             return
+        if self._autopool is not None:
+            if not self._autopool.submit(self._dispatch, reactor, chan_id, peer, msg):
+                # saturated pool: dispatch inline rather than dropping
+                # (a lost vote/part can stall a consensus round)
+                self._dispatch(reactor, chan_id, peer, msg)
+            return
         self._dispatch(reactor, chan_id, peer, msg)
+
+    @property
+    def autopool(self):
+        """The reactor worker pool while the switch runs with
+        ``use_autopool``, else None."""
+        return self._autopool
 
     def _dispatch(self, reactor, chan_id: int, peer: Peer, msg: bytes):
         try:

@@ -6,7 +6,7 @@ chunks in order (refetch / sender-rejection honored) -> verify app
 Info against the trusted app hash -> return the light-verified State
 + commit for store bootstrap.
 
-A copy of the JAX package's ``statesync/syncer.py``, with two
+A copy of the JAX package's ``statesync/syncer.py``, with three
 additions. A snapshot's key includes its ``metadata``, as the
 reference's ``snapshot.Key()`` does, and the offered snapshot carries
 it (the JAX syncer keys by height, format, chunks and hash and offers
@@ -16,7 +16,14 @@ snapshot is banned by that whole key, so a peer that advertises an
 honest snapshot with made-up metadata, or a made-up chunk count, can
 get only its own advertisement rejected. ``last_sync`` keeps the
 walls of the last successful restore: light checks, chunk fetch and
-apply, chunks and bytes. An exception from the state provider escapes
+apply, chunks and bytes. The fetchers take chunks in order, the lowest
+index that is neither received nor in flight (the reference's
+``chunkQueue.Allocate``), where each JAX fetcher walks the wanted list
+with a counter of its own: that walk leaves a chunk behind for up to
+~0.85 of the snapshot's chunks at a time, and its fetchers ask for the
+same chunk of the same peer, so a reply goes to one of them and the
+others wait out the chunk timeout; on a slower host the apply loop's
+own chunk timeout then ends the attempt (ROADMAP C16). An exception from the state provider escapes
 ``_sync_one`` and ``sync_any`` unchanged, as in the JAX syncer: a
 failed verify route (``crypto.scheduler.DeviceRouteError``) ends the
 sync with no snapshot banned or rejected for it (ROADMAP C3)."""
@@ -224,9 +231,10 @@ class Syncer:
 
         queue = ChunkQueue(key.chunks)
         applied_bytes = 0
+        in_flight: Set[int] = set()  # chunk indexes some fetcher is asking for
         fetchers = [
             asyncio.create_task(
-                self._fetch_routine(queue, key, list(peers))
+                self._fetch_routine(queue, key, list(peers), in_flight)
             )
             for _ in range(min(MAX_CHUNK_FETCHERS, max(1, len(peers))))
         ]
@@ -316,9 +324,8 @@ class Syncer:
             queue.discard(idx)
 
     async def _fetch_routine(
-        self, queue: ChunkQueue, key: SnapshotKey, peers: List[str]
+        self, queue: ChunkQueue, key: SnapshotKey, peers: List[str], in_flight: Set[int]
     ) -> None:
-        i = 0
         # full-jitter exponential backoff per fetcher: a flaky peer
         # retries fast at first, and a thundering re-request herd
         # after a shared failure spreads out (utils/backoff.py)
@@ -337,13 +344,13 @@ class Syncer:
                     # can complete it — let the apply loop time out
                     # and reject the snapshot
                     return
-                wanted = sorted(queue.wanted() - set(queue.chunks))
-                if not wanted:
+                free = queue.wanted() - set(queue.chunks) - in_flight
+                if not free:
                     await asyncio.sleep(0.05)
                     continue
-                index = wanted[i % len(wanted)]
-                i += 1
+                index = min(free)
                 peer = alive[index % len(alive)]
+                in_flight.add(index)
                 try:
                     chunk = await asyncio.wait_for(
                         self.request_chunk(
@@ -356,6 +363,8 @@ class Syncer:
                 except Exception:
                     await asyncio.sleep(backoff.next_delay())
                     continue
+                finally:
+                    in_flight.discard(index)
                 if chunk is not None:
                     backoff.reset()
                     queue.add(index, chunk, peer)

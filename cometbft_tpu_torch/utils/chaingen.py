@@ -539,24 +539,40 @@ class StubPeer:
     peer's gossip routine re-sends the ones the node has not
     acknowledged. A ``StubEvidenceReactor`` holds the evidence channel:
     ``send_evidence`` sends a piece of evidence as a peer's evidence
-    reactor does."""
+    reactor does. ``switcher`` is the stack the stub speaks: ``"tcp"``,
+    the p2p ``Switch`` over MConnection, or ``"lp2p"``, an
+    ``lp2p.Lp2pSwitch`` (one mux stream a channel) for a node with
+    ``p2p.use_libp2p_equivalent``; either at a node's default rates."""
 
-    def __init__(self, chain_id: str):
+    def __init__(self, chain_id: str, switcher: str = "tcp"):
         self.node_key = NodeKey.generate()
         self.node_info = NodeInfo(node_id=self.node_key.node_id, network=chain_id, moniker="stubs")
-        # a node's MConnection rates ([p2p] send_rate / recv_rate): the
-        # connection's own defaults are ten times lower, and the node's
-        # vote relays back to the stub would pace the stub at them
+        # a node's rates ([p2p] send_rate / recv_rate): MConnection's
+        # own defaults are ten times lower, and the node's vote relays
+        # back to the stub would pace the stub at them
         p2p = P2PConfig()
-        self.switch = Switch(
-            TCPTransport(self.node_key, self.node_info),
-            self.node_info,
-            mconn_config={
-                "send_rate": p2p.send_rate,
-                "recv_rate": p2p.recv_rate,
-                "flush_throttle_s": p2p.flush_throttle_ms / 1000.0,
-            },
-        )
+        transport = TCPTransport(self.node_key, self.node_info)
+        if switcher == "lp2p":
+            from ..lp2p import Lp2pSwitch
+
+            # the stub's reactors only count: they take messages
+            # inline, not through a worker pool
+            self.switch = Lp2pSwitch(
+                transport, self.node_info, use_autopool=False,
+                send_rate=p2p.send_rate, recv_rate=p2p.recv_rate,
+            )
+        elif switcher == "tcp":
+            self.switch = Switch(
+                transport,
+                self.node_info,
+                mconn_config={
+                    "send_rate": p2p.send_rate,
+                    "recv_rate": p2p.recv_rate,
+                    "flush_throttle_s": p2p.flush_throttle_ms / 1000.0,
+                },
+            )
+        else:
+            raise ValueError(f"unknown switcher {switcher!r}")
         self.reactor = StubConsensusReactor()
         self.switch.add_reactor("consensus", self.reactor)
         self.evidence = StubEvidenceReactor()

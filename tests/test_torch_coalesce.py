@@ -191,3 +191,33 @@ def test_dispatch_failure_reaches_every_future(plane, monkeypatch):
     assert len(got) == 6
     assert all(isinstance(e, RuntimeError) and "CUDA error" in str(e) for e in got)
     assert len(plane) == 1 and plane[0].oks == [False] * 6
+
+
+def test_drain_returns_with_a_finished_dispatch_not_yet_dropped():
+    """A dispatch that has finished, whose done callback (which drops it
+    from the in-flight set) has not run yet, must not keep ``drain``
+    from returning: a gather of finished tasks completes without
+    yielding, so a drain that waited for the callback would spin on the
+    loop forever (a node's stop hung so). The drain runs on a loop in a
+    thread of its own, so a spin fails this test instead of the run."""
+    import threading
+
+    out = {}
+
+    def run():
+        async def main():
+            v = CoalescingVerifier(device="cpu")
+            done = asyncio.get_running_loop().create_future()
+            done.set_result(None)
+            v._inflight.add(done)
+            done.add_done_callback(v._inflight.discard)  # runs on the next pass
+            await asyncio.wait_for(v.drain(), 5)
+            out["left"] = len(v._inflight)
+
+        asyncio.run(main())
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(10)
+    assert not t.is_alive(), "drain spun on the loop without yielding"
+    assert out == {"left": 0}

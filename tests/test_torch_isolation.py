@@ -21,10 +21,11 @@
   stub peer) are among the modules the probe imports. ``Node`` runs on
   the card by default: it raises on a machine without one unless given
   ``device="cpu"``, and its reactors take its device. The settings
-  whose planes the port lacks (lp2p, PEX, gRPC, the app mempool, the
-  autopool, the metrics and debug servers) make ``Node`` raise
-  ``NotImplementedError`` naming the ROADMAP item; ``rpc.laddr`` makes
-  it serve RPC.
+  whose planes the port lacks (gRPC, the metrics and debug servers)
+  make ``Node`` raise ``NotImplementedError`` naming the ROADMAP item;
+  ``rpc.laddr`` makes it serve RPC. Every field the port's config shares
+  with the JAX package's defaults to the JAX value, ``rpc.laddr`` aside
+  (ROADMAP C10), and a field the port lacks cannot be set.
 - The RPC and light serving slice's modules (``rpc/``, the indexer,
   the queue telemetry, the serving plane, the HTTP provider and the
   proxy) are among the modules the probe imports, and the serving
@@ -34,6 +35,11 @@
   the light-client state provider raises without a GPU unless given
   ``device="cpu"``, and ``Node`` takes ``statesync.enable`` (its
   provider then runs on the node's device).
+- The fork's network plane (``lp2p/``, ``p2p/pex.py``, the autopool,
+  the TTL guard) is among the modules the probe imports, and ``Node``
+  takes each of its settings on ``device="cpu"``: the lp2p switch, the
+  PEX reactor, a seed in the address book, the autopool, and the app
+  and nop mempools.
 """
 
 import subprocess
@@ -88,6 +94,9 @@ NETWORK_MODULES = [
     "statesync", "statesync.chunks", "statesync.snapshots", "statesync.syncer",
     "statesync.stateprovider", "statesync.reactor", "store.retention", "state.rollback",
     "node.bootstrap",
+    # the fork's network plane
+    "lp2p", "lp2p.mux", "lp2p.host", "lp2p.switch", "p2p.pex", "utils.autopool",
+    "utils.guard",
 ]
 
 
@@ -321,12 +330,7 @@ def test_node_raises_without_a_gpu_and_takes_its_device(no_gpu):
 @pytest.mark.parametrize(
     "section, name, value, item",
     [
-        ("p2p", "use_libp2p_equivalent", True, "A8"),
-        ("p2p", "pex", True, "A8"),
-        ("p2p", "seeds", "id@127.0.0.1:26656", "A8"),
-        ("p2p", "use_autopool", True, "A8"),
         ("rpc", "grpc_laddr", "127.0.0.1:9090", "A8"),
-        ("mempool", "type_", "app", "A8"),
         ("instrumentation", "prometheus", True, "A10"),
         ("instrumentation", "pprof_laddr", "127.0.0.1:6060", "A10"),
     ],
@@ -347,9 +351,9 @@ def test_node_refuses_settings_it_does_not_have(section, name, value, item):
     "section, name",
     [
         ("p2p", "external_address"), ("p2p", "max_num_inbound_peers"),
-        ("p2p", "max_num_outbound_peers"), ("p2p", "max_packet_msg_payload_size"),
+        ("p2p", "max_packet_msg_payload_size"),
         ("p2p", "handshake_timeout_s"), ("p2p", "dial_timeout_s"),
-        ("mempool", "max_txs_bytes"), ("mempool", "async_recheck"),
+        ("mempool", "max_txs_bytes"),
         ("instrumentation", "prometheus_listen_addr"),
         ("storage", "discard_abci_responses"),
     ],
@@ -362,6 +366,96 @@ def test_config_takes_no_setting_the_port_ignores(section, name):
     cfg = make_test_cfg(".")
     with pytest.raises(AttributeError):
         setattr(getattr(cfg, section), name, 1)
+
+
+SEED_ADDR = "ab" * 20 + "@127.0.0.1:26656"
+
+
+def _fork_setting_took(node, setting):
+    from cometbft_tpu_torch.lp2p import Lp2pSwitch
+    from cometbft_tpu_torch.mempool.mempool import AppMempool, NopMempool
+    from cometbft_tpu_torch.mempool.reactor import AppMempoolReactor
+    from cometbft_tpu_torch.p2p.pex import PexReactor
+    from cometbft_tpu_torch.utils.autopool import AutoPool
+
+    if setting == "lp2p":
+        return isinstance(node.switch, Lp2pSwitch)
+    if setting == "pex":
+        return isinstance(node.switch.reactor("pex"), PexReactor) and node.switch.addr_book is node.addr_book
+    if setting == "seeds":
+        return node.addr_book.addrs["ab" * 20].addr == SEED_ADDR
+    if setting == "seed_mode":
+        return node.pex_reactor.seed_mode
+    if setting == "autopool":
+        return isinstance(node.switch.autopool, AutoPool)
+    if setting == "app":
+        return isinstance(node.parts.mempool, AppMempool) and isinstance(node.mempool_reactor, AppMempoolReactor)
+    return isinstance(node.parts.mempool, NopMempool) and node.mempool_reactor.mempool is node.parts.mempool
+
+
+@pytest.mark.parametrize(
+    "section, name, value, setting",
+    [
+        ("p2p", "use_libp2p_equivalent", True, "lp2p"),
+        ("p2p", "pex", True, "pex"),
+        ("p2p", "seeds", SEED_ADDR, "seeds"),
+        ("p2p", "seed_mode", True, "seed_mode"),
+        ("p2p", "use_autopool", True, "autopool"),
+        ("mempool", "type_", "app", "app"),
+        ("mempool", "type_", "nop", "nop"),
+    ],
+)
+def test_node_takes_the_fork_network_settings(section, name, value, setting):
+    """The settings the port once refused, naming A8, now build and run:
+    each takes its plane, on a Node that starts and stops on the CPU."""
+    import asyncio
+
+    from cometbft_tpu_torch.config.config import test_config as make_test_cfg
+    from cometbft_tpu_torch.node.inprocess import make_genesis
+    from cometbft_tpu_torch.node.node import Node
+
+    gen, _ = make_genesis(1, chain_id="iso-fork")
+    cfg = make_test_cfg(".")
+    setattr(getattr(cfg, section), name, value)
+    node = Node(cfg, gen, device="cpu")
+
+    async def main():
+        await node.start()
+        try:
+            return _fork_setting_took(node, setting)
+        finally:
+            await node.stop()
+
+    assert asyncio.run(asyncio.wait_for(main(), 60))
+
+
+def _config_sections():
+    import dataclasses
+
+    from cometbft_tpu_torch.config.config import Config
+
+    return [f.name for f in dataclasses.fields(Config) if f.name != "root_dir"]
+
+
+@pytest.mark.parametrize("section", _config_sections())
+@pytest.mark.parametrize("make", ["default_config", "test_config"])
+def test_config_defaults_equal_jax(make, section):
+    """Every field of the port's config defaults to the JAX package's
+    value, apart from rpc.laddr (ROADMAP C10)."""
+    import dataclasses
+
+    from cometbft_tpu.config import config as jconfig
+    from cometbft_tpu_torch.config import config as pconfig
+
+    port = getattr(getattr(pconfig, make)("."), section)
+    jax = getattr(getattr(jconfig, make)("."), section)
+    fields = [f.name for f in dataclasses.fields(port)]
+    assert fields
+    differ = {n: (getattr(port, n), getattr(jax, n)) for n in fields if getattr(port, n) != getattr(jax, n)}
+    if section == "rpc":
+        assert differ == {"laddr": ("", jax.laddr)}
+    else:
+        assert differ == {}
 
 
 def test_serving_entry_points_raise_without_a_gpu(no_gpu):

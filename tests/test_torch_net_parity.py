@@ -13,8 +13,8 @@
 - A mixed net: two JAX Nodes and two port Nodes (``device="cpu"``) are
   one 4-validator net over TCP; they reach height 4 with the same block
   at every height, and a tx submitted at a port node is committed. The
-  JAX nodes share the port's event loop; their PEX reactor is off (the
-  port has none) and their RPC server unused.
+  JAX nodes share the port's event loop; their PEX reactor is off and
+  their RPC server unused.
 - Replay cross-check: the blocks a 4-validator port net makes over TCP
   replay through the JAX package's BlockSyncReactor with the port
   nodes' states and app hashes at every height.

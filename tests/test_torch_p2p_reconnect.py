@@ -1,6 +1,6 @@
 """The port's self-healing connectivity plane (p2p/reconnect.py and the
-switch's duplicate-connection resolution): the native-switch cases of
-the JAX package's tests/test_p2p_reconnect.py, on cometbft_tpu_torch.p2p.
+switch's duplicate-connection resolution): every case of the JAX
+package's tests/test_p2p_reconnect.py, on cometbft_tpu_torch.p2p.
 
 1. Lane mechanics: fast-lane budget -> slow-lane park -> the sweep
    reconnects after heal; backoff reset on success; counters and the
@@ -9,6 +9,11 @@ the JAX package's tests/test_p2p_reconnect.py, on cometbft_tpu_torch.p2p.
 3. Incarnation-safe dialing: a restarted remote's fresh dial evicts the
    zombie entry; an acceptor's redial beats a long-established zombie;
    simultaneous cross-dials resolve deterministically.
+4. Starvation: the next dial success fires a PEX request that bypasses
+   the rate limit.
+5. lp2p parity: the healed-minority scenario over ``Lp2pSwitch``, which
+   inherits the plane.
+6. The RPC ``health`` route's connectivity verdict.
 
 The JAX tests partition links with the chaos harness's ``LinkTable``;
 here a small dial-side partition table takes its place (the port has
@@ -18,6 +23,7 @@ scenarios kill live connections themselves, as the JAX ones do.
 
 import asyncio
 
+from cometbft_tpu_torch.lp2p import Lp2pSwitch
 from cometbft_tpu_torch.p2p import ChannelDescriptor, MemoryTransport, NodeInfo, NodeKey, Reactor, Switch
 from cometbft_tpu_torch.trace import Tracer
 from torch_hard_limit import hard_limit  # noqa: F401
@@ -76,11 +82,11 @@ class SinkReactor(Reactor):
         self.removed.append(peer.peer_id)
 
 
-def _mem_switch(table=None, chain="reconnect-test"):
+def _mem_switch(table=None, chain="reconnect-test", cls=Switch):
     nk = NodeKey.generate()
     info = NodeInfo(node_id=nk.node_id, network=chain)
     tr = MemoryTransport(nk, info, link_hook=table)
-    sw = Switch(tr, info, reconnect_config=dict(FAST_RECONNECT))
+    sw = cls(tr, info, reconnect_config=dict(FAST_RECONNECT))
     sw.add_reactor("sink", SinkReactor())
     sw.tracer = Tracer(name=nk.node_id[:8])
     sw.spans = []
@@ -119,14 +125,14 @@ def _kill_all_conns(sw):
         peer.inject_error(ConnectionError("pong timeout (injected)"))
 
 
-def test_healed_minority_reconverges_native_switch():
+def _minority_scenario(cls):
     """Partition the minority off, kill its conns (pong-timeout style),
     let every fast lane exhaust into the slow lane, heal — the sweep
     must reconverge the full mesh."""
 
     async def main():
         table = Partition()
-        sws = [_mem_switch(table) for _ in range(3)]
+        sws = [_mem_switch(table, cls=cls) for _ in range(3)]
         try:
             await _mesh(sws)
             minority = sws[2]
@@ -159,6 +165,15 @@ def test_healed_minority_reconverges_native_switch():
                 await sw.stop()
 
     run(main())
+
+
+def test_healed_minority_reconverges_native_switch():
+    _minority_scenario(Switch)
+
+
+def test_healed_minority_reconverges_lp2p_switch():
+    # parity: Lp2pSwitch inherits the same plane (shared lifecycle)
+    _minority_scenario(Lp2pSwitch)
 
 
 def test_boot_dial_failure_routes_to_plane():
@@ -277,5 +292,84 @@ def test_simultaneous_cross_dial_resolves_deterministically():
         assert winner_dialed_by_a == (low == aid)
         await a.stop()
         await b.stop()
+
+    run(main())
+
+
+def test_starvation_triggers_pex_relearn():
+    """Zero peers past the starvation threshold: the next dial success
+    must fire a rate-limit-bypassing PEX request so the minority
+    re-learns moved addresses immediately."""
+
+    class PexStub(Reactor):
+        name = "pex"
+
+        def __init__(self):
+            super().__init__()
+            self.requested = []
+
+        def get_channels(self):
+            return []
+
+        def request_now(self, peer):
+            self.requested.append(peer.peer_id)
+
+        def receive(self, chan_id, peer, msg):
+            pass
+
+    async def main():
+        a = _mem_switch()
+        b = _mem_switch()
+        stub = a.add_reactor("pex", PexStub())
+        for sw in (a, b):
+            await sw.transport.listen()
+            await sw.start()
+        # a is meant to be connected (boot config names b) but has
+        # zero peers past the threshold: starving
+        bid = b.node_info.node_id
+        a.persistent_addrs[bid] = f"mem://{bid}"
+        await asyncio.sleep(0.3)
+        assert a.reconnect.starving()
+        # a switch with nothing to dial is not starving
+        assert not b.reconnect.starving()
+        await a.dial_peer(f"{bid}@mem://{bid}", persistent=True)
+        assert stub.requested == [bid]
+        assert not a.reconnect.starving()
+        # the starvation clock accumulated the episode
+        assert a.reconnect.starvation_seconds() >= 0.3
+        await a.stop()
+        await b.stop()
+
+    run(main())
+
+
+def test_health_connectivity_verdict():
+    """rpc health: ok for a node with nothing to dial; degraded (with
+    reconnect detail) once it expects peers it does not have."""
+    from cometbft_tpu_torch.rpc import core
+    from cometbft_tpu_torch.rpc.env import Environment
+
+    class StubStore:
+        def height(self):
+            return 0
+
+        def load_block_meta(self, h):
+            return None
+
+    async def main():
+        sw = _mem_switch()
+        env = Environment(block_store=StubStore(), switch=sw)
+        h = core.health(env)
+        # no persistent peers, empty book, no flaps: no expectation
+        assert h["connectivity"]["status"] == "ok"
+        assert h["status"] == "ok"
+        # now the node is meant to be connected and is not
+        sw.persistent_addrs["deadbeef"] = "mem://deadbeef"
+        h = core.health(env)
+        conn = h["connectivity"]
+        assert conn["status"] == "degraded"
+        assert conn["n_peers"] == 0 and conn["min_peers"] >= 1
+        assert any("connectivity" in r for r in h["reasons"]), h["reasons"]
+        assert h["status"] == "degraded"
 
     run(main())

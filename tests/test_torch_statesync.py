@@ -259,7 +259,7 @@ def test_port_joiner_restores_from_jax_sources():
         for i, p in enumerate(jpvs):
             cfg = jax_test_cfg(".")
             cfg.base.moniker = f"jval{i}"
-            cfg.p2p.pex = False  # the port has no PEX channel
+            cfg.p2p.pex = False  # the JAX validators crawl nothing
             cfg.blocksync.enable = False
             srcs.append(JaxNode(cfg, jgen, privval=p))
         joiner = None

@@ -10,6 +10,11 @@ queue's wanted set) must be equal, exactly. An eighth case restores real
 kvstore snapshots with one corrupting peer: the port's checksumming
 kvstore (``chunk_hashes=True``) bans it and restores, where the JAX
 kvstore, and the port's without chunk hashes, reject the snapshot.
+
+One case holds a departure (ROADMAP C16): the port's fetchers take
+chunks in order, so a restore whose fetches are slow against the chunk
+timeout completes, where the JAX fetchers leave a chunk behind for most
+of the snapshot and the apply loop's chunk timeout ends the attempt.
 """
 
 import asyncio
@@ -388,3 +393,54 @@ def test_poisoned_metadata_bans_no_honest_peer(joiner):
         # the poisoned snapshot rejected at its last chunk, banned by its key
         assert got[:2] == ("restored", []) and got[3]
         assert len(got[2]) == 1 and got[2][0] == b"\x5a" * len(got[2][0]) != b""
+
+
+@pytest.mark.parametrize("n_peers", [1, 3])
+def test_fetchers_take_chunks_in_order(n_peers):
+    """400 chunks fetched 5 ms apiece against a 0.25 s chunk timeout:
+    the port's fetchers take the lowest chunk neither received nor in
+    flight, so the apply loop never waits on more than a round of
+    fetches and the restore completes; each JAX fetcher walks the
+    wanted list with its own counter, leaves a chunk behind for most of
+    the walk, and the attempt times out."""
+    n = 400
+    chunks = [b"c%d" % i for i in range(n)]
+
+    def scenario(pkg):
+        class SnapshotConn:
+            def __init__(self):
+                self.applied = []
+
+            def offer_snapshot(self, snap, app_hash):
+                return pkg.abci.ResponseOfferSnapshot(result=pkg.abci.OFFER_SNAPSHOT_ACCEPT)
+
+            def apply_snapshot_chunk(self, index, chunk, sender):
+                assert chunk == chunks[index]
+                self.applied.append(index)
+                return pkg.abci.ResponseApplySnapshotChunk(result=pkg.abci.APPLY_CHUNK_ACCEPT)
+
+        class QueryConn:
+            def info(self, req):
+                return pkg.abci.ResponseInfo(last_block_height=10, last_block_app_hash=b"\x22" * 32)
+
+        proxy = SimpleNamespace(snapshot=SnapshotConn(), query=QueryConn())
+
+        async def request_chunk(peer, height, fmt, index):
+            await asyncio.sleep(0.005)
+            return chunks[index]
+
+        async def main():
+            syncer = pkg.Syncer(proxy, _Provider(), request_chunk=request_chunk, chunk_timeout_s=0.25,
+                                rng=random.Random(7))
+            key = pkg.SnapshotKey(height=10, format=1, chunks=n, hash=SNAP_HASH)
+            try:
+                await syncer._sync_one(key, {f"peer{i}" for i in range(n_peers)})
+            except asyncio.TimeoutError:
+                return "timed out", len(proxy.snapshot.applied)
+            return "restored", proxy.snapshot.applied
+
+        return run(main())
+
+    assert scenario(PKGS["port"]) == ("restored", list(range(n)))
+    jax, applied = scenario(PKGS["jax"])
+    assert jax == "timed out" and applied < n
