@@ -297,6 +297,49 @@ Phases, each printing one JSON line:
    (lp2p_max_abs_err), with its device time and bound at the prevote
    wave's width.
 
+16. the operator's node, the device route pinned in this process: (a)
+   four validators whose homes the port's own ``testnet`` subcommand
+   wrote, read back through load_toml and built by cmd.main's
+   node_from_home as ``start`` builds them; each app a kvstore in an
+   ``abci-server`` child (three on the socket, one on gRPC), each key
+   with a ``signer`` child dialing the node's priv_validator_laddr;
+   256 txs in at node 0 through GRPCBroadcastClient.broadcast_tx from
+   16 client threads, then twelve more heights; after height 6 one
+   signer child is killed and started again two heights later. Every
+   node must store the same block at every height, every tx be
+   committed exactly once (its BroadcastTx answer naming its block) and
+   answer from every app child through a SocketClient or GRPCClient
+   query, the killed validator leave unsigned no precommit outside the
+   outage and sign no vote twice (no evidence anywhere), and every vote
+   wave go through the reactor's coalescer to the card (each dispatch
+   launching each kernel once); the median height wall beside 11a's and
+   15a's, the median sign round trip, the outage in heights and the
+   median ABCI round trip a block (FinalizeBlock + Commit) for each
+   transport; (b) ``python -m cometbft_tpu_torch --home H start`` as a
+   child, with no --device, a full node with its own app child and
+   node 0 as its persistent peer: it must blocksync and follow the net
+   to its tip (its RPC status), its blocks' hashes equal node 0's at
+   every height, it be among nvidia-smi's compute apps (by its pid,
+   or, where nvidia-smi shows every process of the container as pid 1,
+   as one app more than before it started) with the card's device
+   files open, its log name the card, and SIGTERM end it with exit
+   code 0; (c) 15b's join
+   over TCP (the corpus's first 512 blocks) into an adaptive-sync
+   joiner whose kvstore is an ``abci-server`` child on the socket, then
+   11c's eight live heights from the stub peer with the forged
+   precommit at the fourth: every state row and block ID equal the
+   source's (the app hash the child computes included), every block
+   through ingest_verified_block, every live wave one 150-lane
+   PRIORITY_LIVE ticket on the card, the forged precommit dropped;
+   blocks/s beside 11b's and 15b's, the ABCI socket's share of the
+   finalize span and of the wall, the per-height walls beside 11c's
+   median. The kernels line adds operator_launches (16a / 16b, the
+   validators' waves while the child synced / 16c) and each kernel
+   against its plain version on 16c's first prevote wave, the forged
+   height's precommit wave and its widest window
+   (operator_max_abs_err), with its device time and bound at the
+   prevote wave's width.
+
 The line before last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result line; a run that outlives RUN_LIMIT_S (1,140 s) ends non-zero
@@ -3770,6 +3813,679 @@ def phase_lp2p(dev, gen, privs, snapshot, top, src_rows):
     return {"15a": launches_a, "15b": launches_b, "15c": launches_c}, lp2p_items
 
 
+# --- phase 16: the operator's node --------------------------------------------
+
+# 16a: four validators from the port's own testnet homes, each app a
+# kvstore in an abci-server child (one on gRPC), each key with a signer
+# child; 256 txs through the gRPC broadcast API from 16 client threads,
+# then twelve more heights; after height 6 one signer child is killed
+# and started again two heights later
+OP_VALS = 4
+OP_TXS = 256
+OP_CLIENTS = 16
+OP_HEIGHTS = 12
+OP_KILL_AT = 6
+OP_OUTAGE_HEIGHTS = 2
+OP_GRPC_APP = 3  # the validator whose app runs on gRPC
+OP_KILLED = 2  # the validator whose signer is killed
+OP_DEADLINE_S = 240
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _free_run(n: int) -> int:
+    """The first of ``n`` consecutive free loopback ports."""
+    import random
+    import socket
+
+    for _ in range(200):
+        base = random.randrange(20000, 60000 - n)
+        try:
+            socks = []
+            for p in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError(f"no run of {n} free ports")
+
+
+def _cli(args, log_path):
+    """``python -m cometbft_tpu_torch ARGS`` in a fresh interpreter of
+    its own process group, output to ``log_path``."""
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen([sys.executable, "-m", "cometbft_tpu_torch", *args], cwd=here,
+                            stdout=open(log_path, "w"), stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def _end(proc, timeout=15):
+    """Stop a child's process group (SIGTERM, then SIGKILL); its code."""
+    import signal
+    import subprocess
+
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGTERM)
+        except ProcessLookupError:
+            pass
+    try:
+        return proc.wait(timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        return proc.wait()
+
+
+def _listening(addr: str, what: str, timeout: float = 60.0) -> None:
+    """Wait until something accepts TCP connections at ``addr``."""
+    import socket
+
+    host, _, port = addr.replace("tcp://", "").rpartition(":")
+    deadline = time.perf_counter() + timeout
+    while True:
+        try:
+            socket.create_connection((host, int(port)), timeout=1.0).close()
+            return
+        except OSError:
+            check(time.perf_counter() < deadline, f"{what} is not listening at {addr}")
+            time.sleep(0.1)
+
+
+def _card_apps() -> list:
+    """The pids nvidia-smi lists as the card's compute apps."""
+    import subprocess
+
+    return subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=30).stdout.split()
+
+
+def _card_fds(pid: int) -> list:
+    """The card's device files (/dev/nvidia*) process ``pid`` holds open."""
+    fds = []
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            fds.append(target)
+    return sorted(set(fds))
+
+
+def _timed(obj, name, into):
+    """Wrap ``obj.name`` so each call's wall (ms) is appended to ``into``."""
+    real = getattr(obj, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        r = real(*args, **kw)
+        into.append((time.perf_counter() - t0) * 1e3)
+        return r
+
+    setattr(obj, name, timed)
+
+
+def phase_operator(dev, gen, privs, snapshot, top, src_rows):
+    """Phase 16, the main path through the operator's node: (a) four
+    validators built from the command line's testnet homes as ``start``
+    builds them, their apps and keys in child processes, 256 txs through
+    the gRPC broadcast API and a signer killed and restarted; (b) a full
+    node started through the command line that blocksyncs and follows
+    (a)'s net; (c) phase 8's corpus joined over TCP by an adaptive-sync
+    Node whose app is an abci-server child on the socket, then eight
+    live heights from the stub peer with a forged precommit. Returns the
+    launches of (a), (b) and (c) and, for phase 6, the kernel items of
+    (c)'s first prevote wave, of the forged height's precommit wave and
+    of (c)'s widest window."""
+    import asyncio
+    import dataclasses
+    import shutil
+    import signal
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.abci.socket_client import GRPCClient, SocketClient
+    from cometbft_tpu_torch.abci.types import RequestInfo, RequestQuery
+    from cometbft_tpu_torch.blocksync.reactor import VERIFY_WINDOW
+    from cometbft_tpu_torch.cmd.main import node_from_home
+    from cometbft_tpu_torch.config.config import load_toml, test_config, write_toml
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.node.inprocess import build_node
+    from cometbft_tpu_torch.node.node import Node
+    from cometbft_tpu_torch.privval.signer import RetrySignerClient
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+    from cometbft_tpu_torch.rpc.grpc_api import GRPCBroadcastClient
+    from cometbft_tpu_torch.trace import Tracer
+    from cometbft_tpu_torch.types.vote import PRECOMMIT
+    from cometbft_tpu_torch.utils import log
+    from cometbft_tpu_torch.utils.chaingen import StubPeer, ValidatorStubs
+
+    n_vals = len(privs)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "operator")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    sched = S.VerifyScheduler()
+    S.set_scheduler(sched)
+    levels = "consensus:error,p2p:error,blocksync:error,*:info"
+    log.set_level(levels)
+    loop = asyncio.new_event_loop()
+    nodes = []  # every Node started here, stopped in the finally
+    children = []  # every child process, ended in the finally
+    out = {}
+    short = test_config(".").consensus
+
+    async def until(cond, what, timeout=OP_DEADLINE_S, poll=0.005):
+        deadline = asyncio.get_running_loop().time() + timeout
+        while not cond():
+            check(asyncio.get_running_loop().time() < deadline, f"timed out: {what}")
+            await asyncio.sleep(poll)
+
+    def home_config(home, **kw):
+        """The home's config.toml with ``kw`` (section__field) and the
+        short test timeouts, written back: the node reads it as
+        ``start`` does."""
+        path = os.path.join(home, "config", "config.toml")
+        cfg = load_toml(path)
+        cfg.consensus = dataclasses.replace(short)
+        cfg.base.log_level = levels
+        for k, v in kw.items():
+            sec, _, name = k.partition("__")
+            setattr(getattr(cfg, sec), name, v)
+        write_toml(cfg, path)
+        return load_toml(path)
+
+    # 16a: the testnet's four validators
+    net_dir = os.path.join(root, "net")
+    subprocess.run([sys.executable, "-m", "cometbft_tpu_torch", "testnet", "--v", str(OP_VALS), "--o", net_dir,
+                    "--chain-id", "smoke-operator", "--starting-port", str(_free_run(2 * OP_VALS))],
+                   cwd=os.path.dirname(os.path.abspath(__file__)), check=True, capture_output=True)
+    homes = [os.path.join(net_dir, f"node{i}") for i in range(OP_VALS)]
+    apps, signers, transports = [], [], []
+    for i, home in enumerate(homes):
+        transport = "grpc" if i == OP_GRPC_APP else "socket"
+        kw = {"base__proxy_app": f"tcp://127.0.0.1:{_free_port()}", "base__abci": transport,
+              "base__priv_validator_laddr": f"tcp://127.0.0.1:{_free_port()}"}
+        if i == 0:
+            kw["rpc__grpc_laddr"] = f"tcp://127.0.0.1:{_free_port()}"
+        cfg = home_config(home, **kw)
+        transports.append(transport)
+        apps.append((cfg.base.proxy_app, _cli(["--home", home, "abci-server", "-a", cfg.base.proxy_app,
+                                               "-t", transport], os.path.join(root, f"app{i}.log"))))
+        signers.append(cfg.base.priv_validator_laddr)
+    children.extend(p for _, p in apps)
+
+    def start_signer(i):
+        p = _cli(["--home", homes[i], "signer", "-a", signers[i]], os.path.join(root, f"signer{i}.log"))
+        children.append(p)
+        return p
+
+    signer_procs = [start_signer(i) for i in range(OP_VALS)]
+    for i, (addr, _) in enumerate(apps):
+        _listening(addr, f"app child {i}")
+
+    sign_ms = []  # each remote sign round trip
+    signed = []  # (validator, height, round, type, block hash, signature, when)
+    abci_ms = {"socket": [], "grpc": []}  # FinalizeBlock + Commit a block
+
+    def instrument(i, node):
+        pv = node.parts.privval
+        check(isinstance(pv, RetrySignerClient), f"operator: node {i} signs with {type(pv).__name__}")
+        client = pv.client
+        real = client.sign_vote
+
+        def sign_vote(chain_id, vote):
+            t0 = time.perf_counter()
+            real(chain_id, vote)
+            sign_ms.append((time.perf_counter() - t0) * 1e3)
+            signed.append((i, vote.height, vote.round, vote.type_, bytes(vote.block_id.hash),
+                           bytes(vote.signature), time.perf_counter()))
+
+        client.sign_vote = sign_vote
+        conn = node.parts.proxy.consensus
+        fin, com = [], []
+        _timed(conn, "finalize_block", fin)
+        _timed(conn, "commit", com)
+        return fin, com
+
+    timings = []
+    grpc_results = []
+    kill = {}
+
+    async def net4():
+        net = []
+        for i, home in enumerate(homes):
+            n = node_from_home(home, dev, out=lambda *_: None)
+            check(n.device == dev and n.parts.app is None, f"operator: node {i} on {n.device}, app {n.parts.app}")
+            nodes.append(n)
+            net.append(n)
+            timings.append(instrument(i, n))
+        for n in net:
+            await n.start()
+        # the testnet's persistent peers mesh the net
+        await until(lambda: all(n.switch.num_peers() == OP_VALS - 1 for n in net), "the testnet's mesh")
+        txs = [b"op%03d=v%03d" % (i, i) for i in range(OP_TXS)]
+        cli = GRPCBroadcastClient(f"127.0.0.1:{net[0].grpc_server.port}")
+        pool = ThreadPoolExecutor(OP_CLIENTS, thread_name_prefix="grpc-client")
+
+        def send(chunk):
+            return [(tx, cli.broadcast_tx(tx)) for tx in chunk]
+
+        t_txs = time.perf_counter()
+        sends = [asyncio.get_running_loop().run_in_executor(pool, send, txs[k::OP_CLIENTS])
+                 for k in range(OP_CLIENTS)]
+        seen = {}  # height -> first time node 0 stored it
+
+        def progressed(target):
+            h = net[0].height
+            if h and h not in seen:
+                seen[h] = time.perf_counter()
+            return all(n.height >= target for n in net)
+
+        # the signer outage: kill after height OP_KILL_AT, restart two
+        # heights later, then wait for its first precommit
+        await until(lambda: progressed(OP_KILL_AT), f"height {OP_KILL_AT}")
+        kill["height"] = net[0].height
+        os.killpg(signer_procs[OP_KILLED].pid, signal.SIGKILL)
+        signer_procs[OP_KILLED].wait()
+        kill["killed_at"] = time.perf_counter()
+        await until(lambda: progressed(kill["height"] + OP_OUTAGE_HEIGHTS), "the outage's heights")
+        kill["restart_height"] = net[0].height
+        signer_procs[OP_KILLED] = start_signer(OP_KILLED)
+        kill["restarted_at"] = time.perf_counter()
+        await until(lambda: progressed(0) and any(s[0] == OP_KILLED and s[6] > kill["restarted_at"]
+                                                  for s in signed), "the restarted signer's first vote")
+        kill["back_height"] = net[0].height
+        for chunk in await asyncio.gather(*sends):
+            grpc_results.extend(chunk)
+        txs_s = time.perf_counter() - t_txs
+        pool.shutdown()
+        cli.close()
+        start_h = max(n.height for n in net)
+        target = start_h + OP_HEIGHTS
+        t0 = time.perf_counter()
+        await until(lambda: progressed(target), f"height {target}")
+        wall = time.perf_counter() - t0
+        hs = sorted(h for h in seen if h > start_h)
+        walls = [seen[b] - seen[a] for a, b in zip(hs, hs[1:]) if b == a + 1]
+        return {"net": net, "txs": txs, "txs_s": txs_s, "wall_s": wall, "height_walls_s": walls,
+                "heights": (start_h, target)}
+
+    spans, observe = _span_sums()
+    serve_home = os.path.join(root, "serve")
+    serve_cfg = test_config(serve_home)
+    serve_cfg.base.moniker = "serve"
+    serve_cfg.base.db_backend = "sqlite"
+    serve_cfg.blocksync.enable = False
+    rows: dict = {}
+    stamp: dict = {}
+    ingested = []  # (height, through a CommitBlock)
+    joiner = {}
+    join_abci = {"finalize": [], "commit": []}
+
+    async def join(app_addr):
+        _sqlite_home(serve_home, snapshot)
+        serving = Node(serve_cfg, gen, home=serve_home, device=dev)
+        check(serving.height == top, f"serving node at {serving.height}")
+        nodes.append(serving)
+        await serving.start()
+        cfg = test_config(os.path.join(root, "join"))
+        cfg.base.moniker = "join"
+        cfg.base.proxy_app, cfg.base.abci = app_addr, "socket"
+        cfg.blocksync.adaptive_sync = True
+        cfg.consensus.skip_timeout_commit = True
+        cfg.consensus.timeout_propose_s = 30.0
+        node = Node(cfg, gen, home=cfg.root_dir, device=dev)
+        nodes.append(node)
+        joiner["node"] = node
+        check(node.parts.app is None and isinstance(node.parts.proxy.consensus, SocketClient),
+              "operator join: the joiner's app is not out of process")
+        _timed(node.parts.proxy.consensus, "finalize_block", join_abci["finalize"])
+        _timed(node.parts.proxy.consensus, "commit", join_abci["commit"])
+        cs = node.parts.cs
+        _record_states(node.parts, rows, stamp)
+        _record_ingest(cs, ingested)
+        tracer = Tracer(name="join")
+        tracer.add_observer(observe)
+        cs.tracer = tracer
+        node.blocksync_reactor.inner.tracer = tracer
+        await node.start()
+        t0 = time.perf_counter()
+        await node.dial(serving.listen_addr)
+        await until(lambda: cs.rs.height > top, f"the joiner at {top + 1}")
+        wall = time.perf_counter() - t0
+        await asyncio.sleep(0.2)  # the last acknowledgements
+        await serving.stop()
+        nodes.remove(serving)
+        return t0, wall
+
+    sent = {}  # height -> (prevote sign bytes, precommit sign bytes, forged signatures)
+    stub = None
+    shadow = None
+    floor = batch._MIN_DEVICE_BATCH
+    try:
+        batch.set_min_device_batch(1)
+        t_phase = time.perf_counter()
+        # 16a
+        kernels.reset_counts()
+        with Recorder(sched) as rec:
+            a = loop.run_until_complete(net4())
+        launches_a = dict(kernels.LAUNCHES)
+        tickets = rec.rows()
+        net = a["net"]
+        for h in range(1, a["heights"][1] + 1):
+            check(len({n.block_id_hash_at(h) for n in net}) == 1, f"operator net: nodes differ at height {h}")
+        committed = {}
+        for h in range(1, net[0].height + 1):
+            for tx in net[0].parts.block_store.load_block(h).data.txs:
+                committed.setdefault(tx, []).append(h)
+        check(sorted(committed) == sorted(a["txs"]) and all(len(v) == 1 for v in committed.values()),
+              f"operator net: {len(committed)} distinct txs committed, not each of {OP_TXS} once")
+        check(len(grpc_results) == OP_TXS and all(
+            r["check_tx"]["code"] == 0 and r["tx_result"]["code"] == 0 and committed[tx] == [int(r["height"])]
+            for tx, r in grpc_results), "operator net: a BroadcastTx answer disagrees with the chain")
+        waves = [t for t in tickets if t[0] == "vote-wave"]
+        check(waves and all(r == "device" and p == S.PRIORITY_LIVE for _, p, _, r, _ in waves),
+              "operator net: a wave left the card")
+        check(len(waves) == sum(n.consensus_reactor.vote_verifier.dispatches for n in net),
+              f"operator net: {len(waves)} wave tickets")
+        check(all(r == "device" for _, _, _, r, _ in tickets), "operator net: a ticket left the device route")
+        check(all(d["device"] == str(dev) and all(d["launches"][k] == 1 for k in SOURCES)
+                  for d in rec.dispatches), "operator net: a dispatch did not launch each kernel once")
+        check(all(launches_a[k] == len(rec.dispatches) == len(tickets) > 0 for k in SOURCES),
+              f"operator net: launches {launches_a} against {len(tickets)} tickets")
+        # the signer outage: the killed validator signed a precommit at
+        # every height but the outage's, and no vote twice
+        precommits = {h for v, h, _, t, _, _, _ in signed if v == OP_KILLED and t == PRECOMMIT}
+        missed = [h for h in range(2, a["heights"][1]) if h not in precommits]
+        addr = net[OP_KILLED].parts.privval.pub_key().address()
+        absent = [h for h in range(1, a["heights"][1])
+                  if not any(cs_.validator_address == addr and not cs_.is_absent()
+                             for cs_ in net[0].parts.block_store.load_block(h + 1).last_commit.signatures)]
+        check(all(kill["height"] <= h <= kill["back_height"] + 1 for h in missed),
+              f"operator net: validator {OP_KILLED} missed heights {missed}, outage "
+              f"{kill['height']}-{kill['back_height']}")
+        votes = {}
+        for v, h, r, t, bh, sig, _ in signed:
+            votes.setdefault((v, h, r, t), set()).add(bh)
+        double = [k for k, bhs in votes.items() if len(bhs) > 1]
+        check(not double, f"operator net: double-signed votes {double[:3]}")
+        evidence = sum(len(net[0].parts.block_store.load_block(h).evidence) for h in range(1, net[0].height + 1))
+        pending = sum(n.parts.evpool.size() for n in net)
+        check(evidence == 0 and pending == 0, f"operator net: evidence {evidence} committed, {pending} pending")
+        check(sum(n.parts.cs.loop_errors.count for n in net) == 0, "operator net: loop errors")
+        per_block = {}
+        for i, (fin, com) in enumerate(timings):
+            per_block.setdefault(transports[i], []).extend(f + c for f, c in zip(fin, com))
+        out["net"] = {
+            "validators": OP_VALS, "homes": "testnet + load_toml", "apps": transports,
+            "signers": "remote (RetrySignerClient over the secret connection)",
+            "heights": a["heights"], "txs": OP_TXS, "grpc_clients": OP_CLIENTS, "txs_committed_once": True,
+            "txs_wall_s": a["txs_s"], "wall_s": a["wall_s"],
+            "height_wall_median_s": statistics.median(a["height_walls_s"]),
+            "beside_height_wall_median_s": {ph: EMITTED.get(ph, {}).get("height_wall_median_s")
+                                            for ph in ("network_net", "lp2p_net")},
+            "height_walls_s": a["height_walls_s"],
+            "sign_round_trip_median_ms": statistics.median(sign_ms), "sign_round_trips": len(sign_ms),
+            "signer_killed": {"validator": OP_KILLED, **{k: v for k, v in kill.items() if k.endswith("height")},
+                              "outage_s": kill["restarted_at"] - kill["killed_at"],
+                              "missed_precommit_heights": missed, "outage_heights": len(missed),
+                              "absent_from_commits": absent},
+            "abci_round_trip_median_ms": {t: statistics.median(v) for t, v in per_block.items() if v},
+            "abci_blocks": {t: len(v) for t, v in per_block.items()},
+            "tickets": len(tickets), "wave_tickets": len(waves),
+            "ticket_walls": {lb: ticket_walls([(n, r, w) for l2, _, n, r, w in tickets if l2 == lb])
+                             for lb in sorted({t[0] for t in tickets})},
+            "launches": launches_a,
+        }
+        # every tx answers from every out-of-process app
+        for i, (addr, _) in enumerate(apps):
+            client = GRPCClient(addr) if transports[i] == "grpc" else SocketClient(addr)
+            try:
+                bad = [tx for tx in a["txs"]
+                       if client.query(RequestQuery(path="/store", data=tx.split(b"=")[0])).value
+                       != tx.split(b"=")[1]]
+            finally:
+                client.close()
+            check(not bad, f"operator net: app {i} ({transports[i]}) does not answer {len(bad)} txs")
+        out["net"]["txs_queried_at_every_app"] = True
+        emit("operator_net", **out["net"])
+
+        # 16b: a full node started through the command line, following
+        # the live net from its own home and its own app child
+        home_b = os.path.join(root, "cli")
+        subprocess.run([sys.executable, "-m", "cometbft_tpu_torch", "--home", home_b, "init"],
+                       cwd=os.path.dirname(os.path.abspath(__file__)), check=True, capture_output=True)
+        shutil.copy(os.path.join(homes[0], "config", "genesis.json"), os.path.join(home_b, "config"))
+        rpc_port = _free_port()
+        cfg_b = home_config(home_b, p2p__laddr="tcp://127.0.0.1:0", rpc__laddr=f"tcp://127.0.0.1:{rpc_port}",
+                            p2p__persistent_peers=f"{net[0].node_key.node_id}@{net[0].listen_addr}",
+                            base__proxy_app=f"tcp://127.0.0.1:{_free_port()}", base__abci="socket")
+        check(cfg_b.blocksync.enable, "operator cli: blocksync off")
+        app_b = _cli(["--home", home_b, "abci-server", "-a", cfg_b.base.proxy_app], os.path.join(root, "app_cli.log"))
+        children.append(app_b)
+        _listening(cfg_b.base.proxy_app, "the CLI node's app child")
+        log_b = os.path.join(root, "cli.log")
+        apps_before = _card_apps()
+        kernels.reset_counts()
+        t_b = time.perf_counter()
+        proc = _cli(["--home", home_b, "start"], log_b)  # no --device: the card
+        children.append(proc)
+
+        async def follow():
+            rpc = HTTPClient(f"http://127.0.0.1:{rpc_port}")
+            try:
+                started = None
+                while started is None:
+                    check(proc.poll() is None, f"operator cli: exited {proc.returncode}: "
+                                                + open(log_b).read()[-2000:])
+                    check(time.perf_counter() - t_b < OP_DEADLINE_S, "operator cli: RPC never answered")
+                    try:
+                        await rpc.status()
+                        started = time.perf_counter()
+                    except Exception:
+                        await asyncio.sleep(0.2)
+                goal = net[0].height + 2
+                h = 0
+                while h < goal:
+                    check(proc.poll() is None, "operator cli: the node exited")
+                    check(time.perf_counter() - started < OP_DEADLINE_S, f"operator cli: at {h} of {goal}")
+                    h = int((await rpc.status())["sync_info"]["latest_block_height"])
+                    await asyncio.sleep(0.1)
+                hashes = {hh: (await rpc.block(hh))["block_id"]["hash"] for hh in range(1, goal + 1)}
+                return started, time.perf_counter(), goal, hashes
+            finally:
+                await rpc.close()
+
+        started, caught, goal, hashes = loop.run_until_complete(follow())
+        launches_b = dict(kernels.LAUNCHES)
+        differ = [hh for hh, x in hashes.items() if x.lower() != net[0].block_id_hash_at(hh).hex()]
+        check(not differ, f"operator cli: block hashes differ from node 0's at {differ[:5]}")
+        apps_on_card = _card_apps()
+        card_fds = _card_fds(proc.pid)
+        # the child holds a context on the card: it is among the card's
+        # compute apps (by pid, or, where nvidia-smi sees the container's
+        # processes all as pid 1, by one more app than before it
+        # started) and has the card's device files open
+        listed = str(proc.pid) in apps_on_card or (
+            set(apps_on_card) == {"1"} and len(apps_on_card) == len(apps_before) + 1)
+        check(listed and card_fds, f"operator cli: pid {proc.pid} not among the card's compute apps "
+                                   f"{apps_on_card} (before it: {apps_before}), its card files {card_fds}")
+        text = open(log_b).read()
+        check(f"started on device {dev.type}" in text and torch.cuda.get_device_name(dev) in text,
+              "operator cli: the log names no device: " + text[-1000:])
+        t_stop = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(60)
+        stop_s = time.perf_counter() - t_stop
+        check(rc == 0, f"operator cli: SIGTERM gave exit code {rc}: " + open(log_b).read()[-1000:])
+        out["cli"] = {
+            "command": "python -m cometbft_tpu_torch --home H start", "device_in_log": True,
+            "to_rpc_s": started - t_b, "to_tip_s": caught - started, "tip": goal,
+            "blocks_compared": len(hashes), "on_card": True, "card_compute_apps": apps_on_card,
+            "card_compute_apps_before": apps_before, "card_files_open": card_fds,
+            "sigterm_exit_code": rc, "stop_s": stop_s,
+            "validators_launches": launches_b,
+        }
+        emit("operator_cli", **out["cli"])
+        _end(app_b)
+        for n in net:
+            loop.run_until_complete(n.stop())
+            nodes.remove(n)
+            n.parts.privval.close()
+        for p in list(children):
+            _end(p)
+
+        # 16c: the join over TCP into a joiner whose app is an
+        # abci-server child on the socket, the device route pinned
+        app_addr = f"tcp://127.0.0.1:{_free_port()}"
+        app_c = _cli(["--home", root, "abci-server", "-a", app_addr], os.path.join(root, "app_join.log"))
+        children.append(app_c)
+        _listening(app_addr, "the joiner's app child")
+        kernels.reset_counts()
+        with Recorder(sched) as rec:
+            t0, wall = loop.run_until_complete(join(app_addr))
+        launches_c = dict(kernels.LAUNCHES)
+        tickets = rec.rows()
+        node = joiner["node"]
+        cs = node.parts.cs
+        heights = [h for h, _ in ingested]
+        check(heights == list(range(1, top + 1)),
+              f"operator join: ingested {heights[:3]}...{heights[-3:]} ({len(heights)})")
+        check(sorted(rows) == heights, "operator join: a block was applied outside ingest_verified_block")
+        check(ingested[-1] == (top, True), f"operator join: block {top} did not come as a CommitBlock")
+        bad = [h for h in range(1, top + 1) if rows[h] != src_rows[h]]
+        check(not bad, f"operator join: state or block ID differs from the source at heights {bad[:5]}")
+        check(node.blocksync_reactor.inner.loop_errors.count == 0 and cs.loop_errors.count == 0,
+              f"operator join: {node.blocksync_reactor.inner.loop_errors!r} {cs.loop_errors!r}")
+        windows = [t for t in tickets if t[0] != "commit"]
+        commits = [t for t in tickets if t[0] == "commit"]
+        check(commits and commits[-1][1:4] == (S.PRIORITY_LIVE, n_vals, "device"),
+              f"operator join: the catch-up commit ticket {commits[-1:]}")
+        check(all(r == "device" for _, _, _, r, _ in tickets), "operator join: a ticket left the device route")
+        check(all(d["device"] == str(dev) and all(d["launches"][k] == 1 for k in SOURCES)
+                  for d in rec.dispatches), "operator join: a dispatch did not launch each kernel once")
+        check(all(launches_c[k] == len(rec.dispatches) == len(tickets) for k in SOURCES),
+              f"operator join: launches {launches_c} against {len(tickets)} tickets")
+        window_items = max((w for lb, ws in rec.labelled.items() if lb != "commit" for w in ws), key=len,
+                           default=[])
+        check(window_items, "operator join: no window dispatched to the card")
+        to_last = stamp["last"] - t0
+        abci_total = sum(join_abci["finalize"]) + sum(join_abci["commit"])
+        span_ms = {k: v[1] for k, v in spans.items() if not k.startswith("consensus.step")}
+        out["join"] = {
+            "validators": n_vals, "blocks": top, "window": VERIFY_WINDOW, "route": "device (pinned)",
+            "app": "abci-server child over the socket",
+            "to_last_ingest_s": to_last, "blocks_per_s": top / to_last, "wall_s": wall,
+            "beside_blocks_per_s": {ph: EMITTED.get(ph, {}).get("blocks_per_s")
+                                    for ph in ("network_join", "lp2p_join")},
+            "abci_socket_ms": abci_total, "abci_finalize_ms": sum(join_abci["finalize"]),
+            "abci_commit_ms": sum(join_abci["commit"]), "abci_calls": len(join_abci["finalize"]),
+            "abci_share_of_finalize_apply": abci_total / span_ms.get("consensus.finalize.apply", float("nan")),
+            "abci_share_of_wall": abci_total / 1e3 / to_last,
+            "through_commit_block": [h for h, cb in ingested if cb],
+            "window_tickets": len(windows), "commit_tickets": len(commits),
+            "widest_window_lanes": len(window_items),
+            "ticket_walls": {lb: ticket_walls([(n, r, w) for l2, _, n, r, w in tickets if l2 == lb])
+                             for lb in sorted({t[0] for t in tickets})},
+            "dispatch_lanes": [d["lanes"] for d in rec.dispatches],
+            "pipeline_stats": node.blocksync_reactor.inner.pipeline_stats,
+            "spans_ms": span_ms,
+            "span_counts": {k: v[0] for k, v in spans.items() if not k.startswith("consensus.step")},
+            "launches": launches_c,
+        }
+        emit("operator_join", **out["join"])
+
+        # 16c, live: the stub peer plays the 150 validators over TCP
+        cs.tracer = Tracer(name="join", enabled=False)
+        shadow = build_node(gen, config=serve_cfg, home=serve_home, device=dev)
+        stubs = ValidatorStubs(shadow, privs)
+        stub = StubPeer(gen.chain_id)
+        loop.run_until_complete(stub.connect(node.listen_addr))
+        loop.run_until_complete(until(lambda: node.switch.num_peers() == 1, "the stub peer"))
+        heights = list(range(top + 1, top + 1 + NET_LIVE_HEIGHTS))
+        reactor = node.consensus_reactor
+        reactor.wave_log.clear()
+        dispatched = reactor.vote_verifier.dispatches
+        kernels.reset_counts()
+        with Recorder(sched) as rec:
+            res = loop.run_until_complete(_play_live(node, rows, stubs, stub, heights, sent, until,
+                                                     forge_at=heights[NET_FORGE_AT], tag="op"))
+        launches_live = dict(kernels.LAUNCHES)
+        tickets = rec.rows()
+        closes = [e[2:] for e in reactor.wave_log]
+        check(cs.loop_errors.count == 0, f"operator live: {cs.loop_errors!r}")
+        check(node.parts.proxy.query.info(RequestInfo()).last_block_app_hash == shadow.state.app_hash,
+              "operator live: the app child's hash != the shadow chain's")
+        waves = [t for t in tickets if t[0] == "vote-wave"]
+        check(len(waves) == 2 * NET_LIVE_HEIGHTS and all(
+            p == S.PRIORITY_LIVE and n == n_vals and r == "device" for _, p, n, r, _ in waves),
+            f"operator live: vote waves {[(lb, p, n, r) for lb, p, n, r, _ in waves]}, closed {closes}")
+        check(reactor.vote_verifier.dispatches - dispatched == len(waves),
+              f"operator live: {reactor.vote_verifier.dispatches - dispatched} dispatches, {len(waves)} waves")
+        check(all(r == "device" and p == S.PRIORITY_LIVE for _, p, _, r, _ in tickets),
+              "operator live: a ticket left the device route or the live class")
+        check(all(launches_live[k] == len(tickets) == len(rec.dispatches) for k in SOURCES),
+              f"operator live: launches {launches_live} against {len(tickets)} tickets")
+
+        def wave_of(sb):
+            found = [w for w in rec.labelled["vote-wave"] if {m for m, _, _ in w} == {sb}]
+            check(len(found) == 1, f"operator live: {len(found)} vote waves sign the message")
+            return found[0]
+
+        fh = heights[NET_FORGE_AT]
+        op_items = {"prevote": wave_of(sent[heights[0]][0]), "precommit": wave_of(sent[fh][1]),
+                    "window": window_items}
+        check(set(sent[fh][2]) <= {sig for _, _, sig in op_items["precommit"]},
+              "operator live: the forged precommit is not in its height's wave")
+        out["live"] = {
+            "heights": heights, "route": "device (pinned)", "app": "abci-server child over the socket",
+            "per_height": res,
+            "commit_wall_s": [r["walls_s"]["stored"] for r in res],
+            "commit_wall_median_s": statistics.median(r["walls_s"]["stored"] for r in res),
+            "beside_commit_wall_median_s": EMITTED.get("network_live", {}).get("commit_wall_median_s"),
+            "tickets": [(lb, n, r, w) for lb, _, n, r, w in tickets],
+            "wave_log": closes, "launches": launches_live,
+        }
+        emit("operator_live", **out["live"])
+        emit("operator_phase", seconds=time.perf_counter() - t_phase)
+    finally:
+        batch.set_min_device_batch(floor)
+        log.set_level("info")
+        if stub is not None:
+            loop.run_until_complete(stub.stop())
+        for n in nodes:
+            loop.run_until_complete(n.stop())
+            close = getattr(n.parts.privval, "close", None)
+            if close is not None:
+                close()
+        loop.close()
+        for p in children:
+            _end(p)
+        S.set_scheduler(None)
+        sched.close()
+        if shadow is not None:
+            shadow.close_stores()
+        shutil.rmtree(root, ignore_errors=True)
+    launches_c = {k: launches_c[k] + launches_live[k] for k in SOURCES}
+    return {"16a": launches_a, "16b": launches_b, "16c": launches_c}, op_items
+
+
 # --- timing and bounds --------------------------------------------------------
 
 
@@ -3983,6 +4699,7 @@ def main(argv) -> int:
     serve_launches = {"13a": serve_launches_a, **serve_launches_bc}
     ss_launches, ss_items = phase_statesync(dev, gen, privs)
     lp2p_launches, lp2p_items = phase_lp2p(dev, gen, privs, *lp2p_corpus)
+    op_launches, op_items = phase_operator(dev, gen, privs, *lp2p_corpus)
 
     # phase 6: each kernel against its plain version on the main paths'
     # own inputs (the window's lanes and the commit's; the replay's and
@@ -4039,6 +4756,13 @@ def main(argv) -> int:
     lp_calls = {k: stage_calls(xl) for k, xl in x_lp.items()}
     lp_errs = {k: compare(c) for k, c in lp_calls.items()}
     x_lpp, lpp_calls = x_lp["prevote"], lp_calls["prevote"]
+    # phase 16's own inputs: 16c's first prevote wave and the forged
+    # height's precommit wave, received by a node whose app is out of
+    # process, and 16c's widest join window; timed at the prevote wave
+    x_op = {k: kernel_inputs(its, dev) for k, its in op_items.items()}
+    op_calls = {k: stage_calls(xo) for k, xo in x_op.items()}
+    op_errs = {k: compare(c) for k, c in op_calls.items()}
+    x_opp, opp_calls = x_op["prevote"], op_calls["prevote"]
     emit("main_path_vs_plain", lanes=x["n"], commit_lanes=x_commit["n"],
          replay_lanes=list(x_replay), bisect_lanes=list(x_bisect),
          live_lanes={k: xw["n"] for k, xw in x_waves.items()},
@@ -4046,11 +4770,12 @@ def main(argv) -> int:
          evidence_lanes={k: xe["n"] for k, xe in x_ev.items()},
          serve_lanes={k: xs["n"] for k, xs in x_serve.items()},
          statesync_lanes={k: xs["n"] for k, xs in x_ss.items()},
-         lp2p_lanes={k: xl["n"] for k, xl in x_lp.items()}, equal=True, max_abs_err=errs,
+         lp2p_lanes={k: xl["n"] for k, xl in x_lp.items()},
+         operator_lanes={k: xo["n"] for k, xo in x_op.items()}, equal=True, max_abs_err=errs,
          commit_max_abs_err=commit_errs, replay_max_abs_err=replay_errs,
          bisect_max_abs_err=bisect_errs, live_max_abs_err=live_errs, net_max_abs_err=net_errs,
          evidence_max_abs_err=ev_errs, serve_max_abs_err=serve_errs, statesync_max_abs_err=ss_errs,
-         lp2p_max_abs_err=lp_errs)
+         lp2p_max_abs_err=lp_errs, operator_max_abs_err=op_errs)
     rows = []
     for name in ("ladder", "decompress", "hash_digits"):
         f, plain = calls[name]
@@ -4064,6 +4789,7 @@ def main(argv) -> int:
         serve_err = {w: max(e[k] for k in parts) for w, e in serve_errs.items()}
         ss_err = {w: max(e[k] for k in parts) for w, e in ss_errs.items()}
         lp_err = {w: max(e[k] for k in parts) for w, e in lp_errs.items()}
+        op_err = {w: max(e[k] for k in parts) for w, e in op_errs.items()}
         err = max(max(errs[k], commit_errs[k]) for k in parts)
         b_ms, b_by = bound(name, x, int_rate)
         bc_ms, bc_by = bound(name, x_commit, int_rate)
@@ -4075,6 +4801,7 @@ def main(argv) -> int:
         bsv_ms, bsv_by = bound(name, x_sw, int_rate)
         bss_ms, bss_by = bound(name, x_ssp, int_rate)
         blp_ms, blp_by = bound(name, x_lpp, int_rate)
+        bop_ms, bop_by = bound(name, x_opp, int_rate)
         bb_ms, bb_by = bound(name, x_bulk, int_rate)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -4087,9 +4814,10 @@ def main(argv) -> int:
             "serve_launches": {ph: ls[name] for ph, ls in serve_launches.items()},
             "statesync_launches": {ph: ls[name] for ph, ls in ss_launches.items()},
             "lp2p_launches": {ph: ls[name] for ph, ls in lp2p_launches.items()},
+            "operator_launches": {ph: ls[name] for ph, ls in op_launches.items()},
             "max_abs_err": max(err, replay_err, bisect_err, *live_err.values(), *net_err.values(),
                                *ev_err.values(), *serve_err.values(), *ss_err.values(),
-                               *lp_err.values()),
+                               *lp_err.values(), *op_err.values()),
             "tolerance": 0,
             "ms": graph_ms(f), "call_ms": cuda_ms(f, 20),
             "plain_ms": cuda_ms(plain, 2, warm=0), "bound_ms": b_ms,
@@ -4142,6 +4870,12 @@ def main(argv) -> int:
             "lp2p_call_ms": cuda_ms(lpp_calls[name][0], 20),
             "lp2p_plain_ms": cuda_ms(lpp_calls[name][1], 2, warm=0),
             "lp2p_bound_ms": blp_ms, "lp2p_bound_by": blp_by,
+            "operator_lanes": {w: xo["n"] for w, xo in x_op.items()},
+            "operator_max_abs_err": op_err,
+            "operator_ms": graph_ms(opp_calls[name][0]),
+            "operator_call_ms": cuda_ms(opp_calls[name][0], 20),
+            "operator_plain_ms": cuda_ms(opp_calls[name][1], 2, warm=0),
+            "operator_bound_ms": bop_ms, "operator_bound_by": bop_by,
             "bulk_lanes": N_BULK, "bulk_ms": bulk_ms[name], "bulk_call_ms": bulk_call_ms[name],
             "bulk_bound_ms": bb_ms, "bulk_bound_by": bb_by,
             "bulk_max_abs_err": max(bulk_errs[k] for k in parts),

@@ -6,7 +6,8 @@ the reference's local client does with its mutex, and ``AppConns``
 names the logical connections over it (consensus, mempool, query and
 the snapshot connection statesync uses). The mempool connection
 forwards the fork's batched CheckTx and the app-side mempool's
-InsertTx / ReapTxs. Socket and gRPC clients are not ported.
+InsertTx / ReapTxs. The socket and gRPC clients, with the same
+surface, are in ``socket_client.py``.
 """
 
 from __future__ import annotations
@@ -76,6 +77,10 @@ class LocalClient:
             return self.app.reap_txs(max_bytes, max_gas)
 
     # info connection
+    def echo(self, msg):
+        with self._lock:
+            return self.app.echo(msg)
+
     def info(self, req):
         with self._lock:
             return self.app.info(req)

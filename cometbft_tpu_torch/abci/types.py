@@ -1,10 +1,10 @@
 """ABCI requests, responses and the Application interface (subset).
 
 The part of the JAX package's ``abci/types.py`` that block execution,
-the handshake and the consensus round send (reference
-abci/types/application.go): Info, Query, InitChain, CheckTx,
-PrepareProposal (with ``ExtendedCommitInfo`` when vote extensions are
-on), ProcessProposal, ExtendVote, VerifyVoteExtension, FinalizeBlock
+the handshake, the consensus round and the ABCI command line send
+(reference abci/types/application.go): Info, Echo, Query, InitChain,
+CheckTx, PrepareProposal (with ``ExtendedCommitInfo`` when vote
+extensions are on), ProcessProposal, ExtendVote, VerifyVoteExtension, FinalizeBlock
 (with ``ExecTxResult``, ``Event``, ``CommitInfo``, validator updates
 and the block evidence's ``Misbehavior``), Commit (with its
 ``retain_height``) and the snapshot connection statesync drives:
@@ -354,6 +354,9 @@ class Application:
 
     def info(self, req: RequestInfo) -> ResponseInfo:
         return ResponseInfo()
+
+    def echo(self, msg: str) -> str:
+        return msg
 
     def query(self, req: RequestQuery) -> ResponseQuery:
         return ResponseQuery()

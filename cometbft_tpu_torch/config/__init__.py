@@ -3,5 +3,7 @@ from .config import (  # noqa: F401
     Config,
     ConsensusConfig,
     default_config,
+    load_toml,
     test_config,
+    write_toml,
 )

@@ -1,52 +1,79 @@
 """Node configuration (reference config/config.go): the parts a node
-reads.
+reads, with the TOML round trip the command line uses.
 
 A copy of the JAX package's ``config/config.py`` cut to what
-``node.inprocess.build_node``, ``consensus.state.ConsensusState`` and
-``node.node.Node`` read, with the JAX defaults: ``ConsensusConfig``
-whole; of ``BaseConfig`` the moniker and the store backend; of
+``node.inprocess.build_node``, ``consensus.state.ConsensusState``,
+``node.node.Node`` and ``cmd/`` read, with the JAX defaults:
+``ConsensusConfig`` whole; ``BaseConfig`` whole: the moniker, the
+store backend, the log level, the remote signer's listen address
+(``priv_validator_laddr``), the app's kind (``abci``: ``kvstore``,
+``kvstore-appmem``, ``socket`` or ``grpc``) and its address when it
+runs out of process (``proxy_app``), and the file layout fields
+(``db_dir``, ``genesis_file``, the key and state files) and
+``filter_peers``, which neither package reads (the command line keeps
+the fixed home layout) but both write in ``config.toml``; of
 ``P2PConfig``, ``MempoolConfig`` and ``BlockSyncConfig`` the fields
-the port reads, which leaves out the JAX package's external address,
-inbound peer cap, packet payload size, handshake and dial timeouts and
-mempool byte cap; of ``RPCConfig`` the listen addresses and
-``unsafe``, of ``TxIndexConfig`` ``indexer`` (``"kv"`` or ``"null"``;
-the Postgres sink is not ported), ``StateSyncConfig`` whole, of
-``StorageConfig`` the retention and snapshot fields (not
+the port reads, which leaves out the JAX package's external address, inbound peer cap,
+packet payload size, handshake and dial timeouts and mempool byte cap;
+of ``RPCConfig`` the listen addresses (``grpc_laddr`` serves the gRPC
+broadcast API), ``unsafe`` and the broadcast commit timeout, of
+``TxIndexConfig`` ``indexer`` (``"kv"``, ``"null"`` or ``"psql"``,
+whose sink needs ``psycopg2``) and ``psql_conn``, ``StateSyncConfig``
+whole, of ``StorageConfig`` the retention and snapshot fields (not
 ``discard_abci_responses``) and of ``InstrumentationConfig`` the
-metrics, profiling and watchdog switches. Those sections take no other attribute (slots), so setting a
-field the port lacks raises ``AttributeError`` instead of doing
-nothing. ``Node`` refuses the settings whose planes the port does not
-have yet (gRPC, the metrics and debug servers, the watchdog) with
-``NotImplementedError``. One setting defaults differently from the
-JAX package: ``rpc.laddr`` is empty, so that a node serves RPC only
-when asked (the JAX ``test_config`` gives every test node an ephemeral
-RPC port; here a test sets ``rpc.laddr`` itself; ROADMAP C10).
+metrics, profiling and watchdog switches. Those sections take no other
+attribute (slots), so setting a field the port lacks raises
+``AttributeError`` instead of doing nothing, and ``load_toml`` raises
+``ValueError`` on a key or section the port lacks (the JAX loader skips
+it). ``Node`` refuses the settings whose planes the port does not have
+yet (the metrics and debug servers, the watchdog) with
+``NotImplementedError``. One setting defaults differently from the JAX
+package: ``rpc.laddr`` is empty, so that a node serves RPC only when
+asked (the JAX ``test_config`` gives every test node an ephemeral RPC
+port; here a test sets ``rpc.laddr`` itself; ROADMAP C10).
 ``test_config`` sets the reference's short test timeouts
-(config.TestConfig) and an ephemeral p2p port. The crypto and
-fleet sections and the TOML round trip are not ported.
+(config.TestConfig) and an ephemeral p2p port. The crypto, fuzz and
+fleet sections are not ported.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass, field
+import tomllib
+from dataclasses import asdict, dataclass, field, fields
 from typing import List
 
 
-@dataclass
+@dataclass(slots=True)
 class BaseConfig:
     chain_id: str = ""
     moniker: str = "tpu-node"
     db_backend: str = "sqlite"
+    db_dir: str = "data"
+    log_level: str = "info"
+    genesis_file: str = "config/genesis.json"
+    priv_validator_key_file: str = "config/priv_validator_key.json"
+    priv_validator_state_file: str = "data/priv_validator_state.json"
+    node_key_file: str = "config/node_key.json"
+    # when set, keys live with a remote signer that dials in here
+    # (reference PrivValidatorListenAddr)
+    priv_validator_laddr: str = ""
+    abci: str = "kvstore"
+    # out-of-process app: the address of an abci.server.ABCIServer or
+    # GRPCServer (reference proxy_app); when set the node dials it
+    # (over gRPC when abci is "grpc") instead of building an app
+    proxy_app: str = ""
+    filter_peers: bool = False
 
 
 @dataclass(slots=True)
 class RPCConfig:
     # empty: no RPC server (the JAX default is "tcp://127.0.0.1:26657")
     laddr: str = ""
-    # the gRPC broadcast API is not ported: a listen address makes
-    # Node raise
+    # the gRPC broadcast API (Ping, BroadcastTx) beside JSON-RPC
+    # (reference GRPCListenAddress, rpc/grpc/api.go); "" = disabled
     grpc_laddr: str = ""
+    timeout_broadcast_tx_commit_s: float = 10.0
     # expose the unsafe route set (reference --rpc.unsafe: dial_seeds,
     # dial_peers, unsafe_flush_mempool); never enable on public nodes
     unsafe: bool = False
@@ -54,7 +81,10 @@ class RPCConfig:
 
 @dataclass(slots=True)
 class TxIndexConfig:
-    indexer: str = "kv"  # kv | null
+    indexer: str = "kv"  # kv | null | psql
+    # connection string for the psql sink (reference [tx-index]
+    # psql-conn); required when indexer = "psql"
+    psql_conn: str = ""
 
 
 @dataclass(slots=True)
@@ -262,3 +292,51 @@ def test_config(root_dir: str = ".") -> Config:
     c.base.db_backend = "memdb"
     c.p2p.laddr = "tcp://127.0.0.1:0"  # ephemeral port per test node
     return c
+
+
+_SECTIONS = (
+    "base", "rpc", "p2p", "mempool", "statesync", "blocksync", "consensus",
+    "storage", "tx_index", "instrumentation",
+)
+
+
+def load_toml(path: str) -> Config:
+    """The config a ``config.toml`` holds (``root_dir`` two levels up,
+    as in ``<home>/config/config.toml``); absent keys keep their
+    defaults. A section or key the port lacks raises ``ValueError``."""
+    with open(path, "rb") as f:
+        raw = tomllib.load(f)
+    c = default_config(os.path.dirname(os.path.dirname(path)) or ".")
+    unknown = sorted(set(raw) - set(_SECTIONS))
+    if unknown:
+        raise ValueError(f"{path}: sections {unknown} are not in cometbft_tpu_torch's config")
+    for section, values in raw.items():
+        obj = getattr(c, section)
+        names = {f.name for f in fields(obj)}
+        for k, v in values.items():
+            if k not in names:
+                raise ValueError(f"{path}: [{section}] {k} is not in cometbft_tpu_torch's config")
+            setattr(obj, k, v)
+    return c
+
+
+def write_toml(cfg: Config, path: str) -> None:
+    """Write every section's fields as TOML (the JAX writer's format)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+
+    def emit(name, obj):
+        lines = [f"[{name}]"]
+        for k, v in asdict(obj).items():
+            if isinstance(v, bool):
+                lines.append(f"{k} = {'true' if v else 'false'}")
+            elif isinstance(v, (int, float)):
+                lines.append(f"{k} = {v}")
+            elif isinstance(v, list):
+                inner = ", ".join(f'"{x}"' for x in v)
+                lines.append(f"{k} = [{inner}]")
+            else:
+                lines.append(f'{k} = "{v}"')
+        return "\n".join(lines)
+
+    with open(path, "w") as f:
+        f.write("\n\n".join(emit(n, getattr(cfg, n)) for n in _SECTIONS) + "\n")

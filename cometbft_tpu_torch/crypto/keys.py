@@ -84,6 +84,10 @@ class Ed25519PrivKey:
     seed: bytes
 
     @classmethod
+    def generate(cls) -> "Ed25519PrivKey":
+        return cls(os.urandom(32))
+
+    @classmethod
     def from_seed(cls, seed: bytes) -> "Ed25519PrivKey":
         if len(seed) != 32:
             raise ValueError("ed25519 seed must be 32 bytes")

@@ -6,7 +6,12 @@ build takes seconds), loaded with ``ctypes``. All sources are built
 together, in parallel, the first time any kernel is asked for; the
 libraries go to ``build/kernels/`` at the repository root (listed in
 ``.gitignore``) and are rebuilt when a source is newer than its
-library.
+library. Several processes may share one checkout (a testnet's nodes
+on one card): each ``nvcc`` writes a temporary file that ``os.replace``
+moves into place, so a library at its final path is always whole, and a
+build runs under an ``fcntl.flock`` on ``BUILD_DIR/.build.lock`` and
+checks staleness again under it, so two processes never build at once
+and the second finds the first one's libraries.
 
 Each C entry point returns ``cudaGetLastError()``; :func:`launch`
 raises on anything but 0. ``BUILD_INFO`` keeps, per kernel, what
@@ -18,7 +23,9 @@ show which kernels it went through.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import importlib.util
 import os
 import re
@@ -197,39 +204,67 @@ def nvcc_command(src: Path, lib: Path, nvcc: str | None = None) -> list:
     return [nvcc or _nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(lib), str(src)]
 
 
+@contextlib.contextmanager
+def _checkout_lock():
+    """An exclusive ``flock`` on ``BUILD_DIR/.build.lock``, which every
+    process building into ``BUILD_DIR`` takes."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(force: bool = False) -> dict:
-    """Build every stale source, one nvcc per source, all at once.
-    Returns BUILD_INFO: per kernel its seconds and ptxas summary.
-    Raises with nvcc's output when a build fails."""
+    """Build every stale source, one nvcc per source, all at once, each
+    into a temporary file moved into place when it is whole. Returns
+    BUILD_INFO: per kernel its seconds and ptxas summary. Raises with
+    nvcc's output when a build fails."""
     with _lock:
-        todo = [n for n in SOURCES if force or _stale(n)]
-        if not todo:
+        # a library at its final path is whole (os.replace), so fresh
+        # ones load without the checkout's lock
+        if not force and not any(_stale(n) for n in SOURCES):
             return BUILD_INFO
         nvcc = _nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        procs = {}
-        t0 = time.perf_counter()
-        for name in todo:
-            procs[name] = subprocess.Popen(
-                nvcc_command(CSRC / SOURCES[name], _lib_path(name), nvcc),
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            )
-        failed = []
-        logs = []
-        for name, proc in procs.items():
-            out, _ = proc.communicate()
-            secs = time.perf_counter() - t0
-            logs.append(f"== {name} ({secs:.1f}s, rc={proc.returncode})\n{out}")
-            if proc.returncode != 0:
-                failed.append(name)
-            BUILD_INFO[name] = {"seconds": round(secs, 2),
-                                "ptxas": _ptxas_summary(out)}
-        (BUILD_DIR / "build.log").write_text("\n".join(logs))
-        if failed:
-            raise RuntimeError(
-                f"nvcc failed for {failed}:\n" + "\n".join(logs)[-8000:]
-            )
+        with _checkout_lock():
+            return _build(force, nvcc)
+
+
+def _build(force: bool, nvcc: str) -> dict:
+    """The build itself, under both locks: staleness checked again, as
+    another process may have built meanwhile."""
+    todo = [n for n in SOURCES if force or _stale(n)]
+    if not todo:
         return BUILD_INFO
+    procs = {}
+    t0 = time.perf_counter()
+    for name in todo:
+        tmp = BUILD_DIR / f".lib{name}.{os.getpid()}.tmp.so"
+        procs[name] = (subprocess.Popen(
+            nvcc_command(CSRC / SOURCES[name], tmp, nvcc),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ), tmp)
+    failed = []
+    logs = []
+    for name, (proc, tmp) in procs.items():
+        out, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        logs.append(f"== {name} ({secs:.1f}s, rc={proc.returncode})\n{out}")
+        if proc.returncode != 0:
+            failed.append(name)
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, _lib_path(name))
+        BUILD_INFO[name] = {"seconds": round(secs, 2),
+                            "ptxas": _ptxas_summary(out)}
+    (BUILD_DIR / "build.log").write_text("\n".join(logs))
+    if failed:
+        raise RuntimeError(
+            f"nvcc failed for {failed}:\n" + "\n".join(logs)[-8000:]
+        )
+    return BUILD_INFO
 
 
 def load(name: str, on_load=None) -> ctypes.CDLL:

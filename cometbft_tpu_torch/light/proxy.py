@@ -12,8 +12,8 @@ merkle root against the next trusted header's LastResultsHash,
 :382-424). Unverifiable routes (tx submission) pass through to the
 primary.
 
-A copy of the JAX package's ``light/proxy.py`` without its CLI mode
-(ROADMAP A8, ``cmd/``), with one departure (ROADMAP C3, "on the serving
+A copy of the JAX package's ``light/proxy.py`` (its CLI mode is the
+command line's ``light --laddr``, ``cmd/main.py``), with one departure (ROADMAP C3, "on the serving
 path"): a request whose verification met a failed verify route
 (``DeviceRouteError``) is answered with JSON-RPC error ``-32603``, as
 the JAX proxy answers any other failure, with a message that names the

@@ -8,9 +8,8 @@ state out-of-band (e.g. from their own backup).
 
 A copy of the JAX package's ``node/bootstrap.py``; the light checks
 run on ``device`` (None is the GPU, and raises without one), and the
-stores it opens are closed when it returns. The
-command line that calls it in the JAX package (``cmd/``) is not ported
-(ROADMAP A8).
+stores it opens are closed when it returns. The command line's
+``bootstrap-state`` calls it (``cmd/main.py``).
 """
 
 from __future__ import annotations

@@ -18,7 +18,12 @@ writes through (and which an injected app without one is given), and
 the storage lifecycle plane (``retention``, ``store/retention.py``),
 always built and idle until a ``[storage]`` knob is set; with one set,
 the default kvstore keeps its state in ``<home>/app_state.json``, so a
-pruned node's restart replays only its retained tail;
+pruned node's restart replays only its retained tail. With
+``config.base.proxy_app`` set and no app given, the app runs out of
+process: the node dials it (``abci/socket_client.connect_app_conns``,
+over gRPC when ``base.abci`` is ``"grpc"``, else four sockets) and
+``parts.app`` is None; ``tx_index.indexer = "psql"`` goes through the
+Postgres sink's gate (``state/psql_sink.py``);
 ``LocalNet`` connects
 N nodes' state machines by in-memory delivery; ``make_genesis`` makes a genesis whose
 keys come from a seeded ``np.random.default_rng``, as ``bench.py``'s
@@ -96,10 +101,16 @@ class NodeParts:
     snapshot_store: Optional[SnapshotStore] = None
 
     def close_stores(self) -> None:
-        """Release the store handles. Idempotent."""
+        """Release the store handles and a remote app's connections.
+        Idempotent."""
         for db in (self.block_db, self.state_db, self.index_db):
             if db is not None:
                 db.close()
+        for conn in {id(c): c for c in (self.proxy.consensus, self.proxy.mempool, self.proxy.query,
+                                        self.proxy.snapshot)}.values():
+            close = getattr(conn, "close", None)
+            if close is not None:
+                close()
 
 
 def build_node(
@@ -136,24 +147,32 @@ def build_node(
             os.path.join(home, "snapshots") if home else tempfile.mkdtemp(prefix="snapshots_"),
             keep_recent=storage.snapshot_keep_recent,
         )
-    if app is None:
-        # a pruned node cannot replay from block 1 at its handshake: the
-        # blocks below its base are gone. With a lifecycle knob on, the
-        # default app keeps its committed state on disk, so a restart
-        # replays only the retained tail
-        lifecycle_on = bool(
-            storage.retain_blocks or storage.retain_states or storage.retain_index
-            or storage.snapshot_interval
-        )
-        app = KVStoreApplication(
-            persist_path=os.path.join(home, "app_state.json") if home and lifecycle_on else None,
-            snapshot_store=snapshot_store,
-        )
-    elif snapshot_store is not None and getattr(app, "snapshot_store", False) is None:
-        # an injected kvstore-style app with the seam unset gets the
-        # node's store
-        app.snapshot_store = snapshot_store
-    proxy = AppConns.local(app)
+    if app is None and config.base.proxy_app:
+        # out-of-process app (reference proxy_app, node/setup.go:119
+        # createAndStartProxyAppConns)
+        from ..abci.socket_client import connect_app_conns
+
+        transport = "grpc" if config.base.abci == "grpc" else "socket"
+        proxy = connect_app_conns(config.base.proxy_app, transport)
+    else:
+        if app is None:
+            # a pruned node cannot replay from block 1 at its handshake:
+            # the blocks below its base are gone. With a lifecycle knob
+            # on, the default app keeps its committed state on disk, so
+            # a restart replays only the retained tail
+            lifecycle_on = bool(
+                storage.retain_blocks or storage.retain_states or storage.retain_index
+                or storage.snapshot_interval
+            )
+            app = KVStoreApplication(
+                persist_path=os.path.join(home, "app_state.json") if home and lifecycle_on else None,
+                snapshot_store=snapshot_store,
+            )
+        elif snapshot_store is not None and getattr(app, "snapshot_store", False) is None:
+            # an injected kvstore-style app with the seam unset gets the
+            # node's store
+            app.snapshot_store = snapshot_store
+        proxy = AppConns.local(app)
 
     def open_db(name: str) -> kv.KV:
         if db_backend == "memdb":
@@ -180,10 +199,12 @@ def build_node(
         block_indexer = BlockIndexer(index_db)
         indexer_service = IndexerService(tx_indexer, block_indexer, event_bus)
         indexer_service.start()
+    elif config.tx_index.indexer == "psql":
+        from ..state.psql_sink import PsqlSink
+
+        PsqlSink(config.tx_index.psql_conn, genesis.chain_id)  # raises: only the gate is ported
     elif config.tx_index.indexer != "null":
-        raise NotImplementedError(
-            f"tx_index.indexer={config.tx_index.indexer!r} is not ported (ROADMAP A8, the psql sink's gate)"
-        )
+        raise ValueError(f"unknown tx_index.indexer {config.tx_index.indexer!r}")
     evpool = EvidencePool(kv.MemKV(), state_store, block_store, device=device)
     # mempool flavor by config: clist | app (fork) | nop (ADR-111)
     if config.mempool.type_ == "app":

@@ -38,12 +38,15 @@ through the autopool on either switch, ``mempool.type_ = "app"`` runs
 the app-side mempool behind an ``AppMempoolReactor``, and the address
 book (``<home>/addrbook.json``, seeded from ``p2p.seeds``) is the
 switch's ``addr_book``, crawled by a ``PexReactor`` on channel 0x00
-when ``p2p.pex`` is on (the default). Not ported, and refused with
-``NotImplementedError`` when the config asks for them (ROADMAP A8,
-A10): gRPC, the metrics and profiling servers and the stuck-task
-watchdog. The obs plane's loop watchdog and staged
-shutdown guard (A10) are replaced by plain per-stage timeouts in
-``_shutdown``.
+when ``p2p.pex`` is on (the default). With ``rpc.grpc_laddr`` set the
+node serves the gRPC broadcast API (``rpc/grpc_api.py``) on the same
+RPC environment, whose ``CommitWaiterMap`` its BroadcastTx waits on,
+with or without JSON-RPC; with ``base.proxy_app`` set its app runs out
+of process (``build_node`` dials it). Not ported, and refused with
+``NotImplementedError`` when the config asks for them (ROADMAP A10):
+the metrics and profiling servers and the stuck-task watchdog. The obs
+plane's loop watchdog and staged shutdown guard (A10) are replaced by
+plain per-stage timeouts in ``_shutdown``.
 """
 
 from __future__ import annotations
@@ -85,7 +88,6 @@ def _refuse_unported(config: Config) -> None:
     """NotImplementedError for a setting whose plane the port lacks,
     naming the ROADMAP item that carries it."""
     asked = [
-        (config.rpc.grpc_laddr, "rpc.grpc_laddr (the gRPC broadcast API)", "A8"),
         (config.instrumentation.prometheus, "instrumentation.prometheus (the metrics server)", "A10"),
         (config.instrumentation.pprof_laddr, "instrumentation.pprof_laddr (the debug server)", "A10"),
         (config.instrumentation.watchdog_stall_s > 0, "instrumentation.watchdog_stall_s", "A10"),
@@ -232,6 +234,7 @@ class Node:
         self._cs_started = False
         self.rpc_server = None
         self.rpc_env = None
+        self.grpc_server = None
         self._statesync_task = None
         self.statesync_error = None
         # the last restore's LightClientStateProvider (its client's
@@ -396,6 +399,20 @@ class Node:
             self.rpc_env = Environment.from_node(self)
             self.rpc_server = RPCServer(self.rpc_env)
             await self.rpc_server.start(_strip_proto(self.config.rpc.laddr))
+        if self.config.rpc.grpc_laddr:
+            # the gRPC broadcast API, with or without JSON-RPC, on the
+            # env's CommitWaiterMap (the JSON-RPC route's waiters)
+            from ..rpc import Environment
+            from ..rpc.grpc_api import GRPCBroadcastServer
+
+            self.rpc_env = self.rpc_env or Environment.from_node(self)
+            self.grpc_server = GRPCBroadcastServer(
+                self.rpc_env,
+                _strip_proto(self.config.rpc.grpc_laddr),
+                asyncio.get_running_loop(),
+                timeout_s=self.config.rpc.timeout_broadcast_tx_commit_s,
+            )
+            self.grpc_server.start()
         # consensus starts now unless a sync phase must complete first
         if self.config.statesync.enable:
             self._statesync_task = asyncio.create_task(self._statesync_routine())
@@ -434,6 +451,8 @@ class Node:
         budget = SHUTDOWN_STAGE_BUDGET_S
         if self._statesync_task is not None:
             self._statesync_task.cancel()
+        if self.grpc_server is not None:
+            self.grpc_server.stop()  # returns at once; grace 0.5 s
         if self.rpc_server is not None:
             await self._stage("rpc", self.rpc_server.stop(), budget)
         if self.rpc_env is not None:

@@ -17,29 +17,36 @@ for byte: a port node and a JAX node peer with each other. The lp2p
 switcher is the package ``lp2p/`` beside this one. Connection fuzzing
 and trace stamping are not ported (``tracewire.py`` keeps only the
 stamp framing a receiver must peel).
+
+The names below load their modules on first use, so that a process
+that needs only the node key or the secret connection (the command
+line's ``init`` and ``signer``) does not import the switch, and with it
+the verify scheduler and torch.
 """
 
-from .key import NodeKey, node_id_from_pubkey
-from .node_info import ChannelDescriptor, NodeInfo
-from .peer import Peer
-from .pex import AddrBook, KnownAddress, PexReactor
-from .reactor import Reactor
-from .reconnect import ReconnectPlane
-from .switch import Switch
-from .transport import MemoryTransport, TCPTransport
+import importlib
 
-__all__ = [
-    "NodeKey",
-    "node_id_from_pubkey",
-    "NodeInfo",
-    "ChannelDescriptor",
-    "Peer",
-    "AddrBook",
-    "KnownAddress",
-    "PexReactor",
-    "Reactor",
-    "ReconnectPlane",
-    "Switch",
-    "TCPTransport",
-    "MemoryTransport",
-]
+_WHERE = {
+    "NodeKey": "key",
+    "node_id_from_pubkey": "key",
+    "NodeInfo": "node_info",
+    "ChannelDescriptor": "node_info",
+    "Peer": "peer",
+    "AddrBook": "pex",
+    "KnownAddress": "pex",
+    "PexReactor": "pex",
+    "Reactor": "reactor",
+    "ReconnectPlane": "reconnect",
+    "Switch": "switch",
+    "TCPTransport": "transport",
+    "MemoryTransport": "transport",
+}
+
+__all__ = list(_WHERE)
+
+
+def __getattr__(name):
+    mod = _WHERE.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f".{mod}", __name__), name)

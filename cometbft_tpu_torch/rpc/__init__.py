@@ -1,7 +1,7 @@
 """JSON-RPC API layer (reference rpc/): HTTP + WebSocket server over
 the node's internals, and the matching client library, on ``aiohttp``
-as in the JAX package. The gRPC broadcast API is not ported (ROADMAP
-A8)."""
+as in the JAX package; the gRPC broadcast API (Ping, BroadcastTx) is
+``grpc_api.py``."""
 
 from .client import HTTPClient
 from .env import Environment

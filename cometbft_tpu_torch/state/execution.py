@@ -21,6 +21,8 @@ with the finalize pass's flattened and encoded events, which the
 indexer and the RPC fan-out read. The app's Commit ``retain_height``
 goes to the retention plane's ``retention_hook`` when the node has one
 (``_prune``, reference :527-545), else prunes blocks and states inline.
+The crash points around FinalizeBlock, the stored response and Commit
+are the JAX package's (``utils/fail.py``, reference :313-363).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from ..types.part_set import PartSet
 from ..types.signature_cache import SignatureCache
 from ..types.validator_set import Validator
 from ..utils import codec, proto
+from ..utils.fail import fail_point
 from . import native_finalize
 from .state_types import BLOCK_VERSION, State
 from .validation import validate_block
@@ -386,6 +389,7 @@ class BlockExecutor:
             proposer_address=block.header.proposer_address,
         )
         resp = self.proxy.finalize_block(req)
+        fail_point("exec-after-finalize")  # reference execution.go:313
         if len(resp.tx_results) != len(block.data.txs):
             raise RuntimeError("app returned wrong number of tx results")
         return resp
@@ -397,6 +401,7 @@ class BlockExecutor:
         self.store.save_finalize_block_response(
             block.height, encode_finalize_response(resp, artifacts)
         )
+        fail_point("exec-after-save-response")  # :320
         return self._update_state(state, block_id, block, resp, artifacts), artifacts
 
     def apply_complete(
@@ -444,7 +449,9 @@ class BlockExecutor:
     def _commit(self, block: Block, resp) -> None:
         self.mempool.lock()
         try:
+            fail_point("exec-before-abci-commit")  # :355
             cres = self.proxy.commit()
+            fail_point("exec-after-abci-commit")  # :363
             self.mempool.update(block.height, block.data.txs, resp.tx_results)
             self._retain_height = getattr(cres, "retain_height", 0)
         finally:

@@ -1,12 +1,18 @@
 """Module-scoped logfmt records with levels and lazy values.
 
-The part of the JAX package's ``utils/log.py`` that the port uses: one
-logfmt line on stderr per record (``ts=... level=error
-module=crypto.sched msg="..." lanes=150``), a level chosen globally and
-per module (``set_level("consensus:debug,*:info")``, or the
-``CMT_LOG_LEVEL`` environment variable; default ``info``), and
-:class:`Lazy` values rendered only when a record is written. Bound
-fields and a pluggable writer are not ported.
+The JAX package's ``utils/log.py`` (reference libs/log) but for its
+``lazy_hex`` helper and its cache of loggers, which nothing here uses:
+one logfmt line per record (``ts=... level=error module=crypto.sched
+msg="..." lanes=150``; bytes as hex, booleans as ``true``/``false``), a
+level chosen globally and per module
+(``set_level("consensus:debug,*:info")``, which the command line's
+``--log-level`` and ``base.log_level`` call, or the ``CMT_LOG_LEVEL``
+environment variable; default ``info``), :class:`Lazy` values rendered
+only when a record is written, bound fields (``with_fields``) and a
+pluggable writer (``set_writer``). One departure: with no writer set
+(``set_writer(None)``, the default) a record goes to ``sys.stderr`` as
+it stands when the record is written, where the JAX module keeps the
+stream it found at import.
 """
 
 from __future__ import annotations
@@ -15,13 +21,14 @@ import os
 import sys
 import threading
 import time
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional, TextIO
 
 DEBUG, INFO, ERROR, NONE = 10, 20, 40, 100
 _LEVEL_NAMES = {DEBUG: "debug", INFO: "info", ERROR: "error"}
 _NAME_LEVELS = {"debug": DEBUG, "info": INFO, "error": ERROR, "none": NONE}
 
 _lock = threading.Lock()
+_writer: Optional[TextIO] = None  # None: sys.stderr at write time
 _global_level = _NAME_LEVELS.get(os.environ.get("CMT_LOG_LEVEL", "info").lower(), INFO)
 _module_levels: Dict[str, int] = {}
 
@@ -39,6 +46,13 @@ class Lazy:
             return self._fn()
         except Exception as e:  # a log value must never raise
             return f"<lazy error: {e}>"
+
+
+def set_writer(w: Optional[TextIO]) -> None:
+    """Where records go; None is ``sys.stderr`` at write time."""
+    global _writer
+    with _lock:
+        _writer = w
 
 
 def set_level(spec: str) -> None:
@@ -69,17 +83,31 @@ def set_level(spec: str) -> None:
 def _quote(v: Any) -> str:
     if isinstance(v, Lazy):
         v = v.render()
-    s = f"{v:.6g}" if isinstance(v, float) else str(v)
+    if isinstance(v, float):
+        s = f"{v:.6g}"
+    elif isinstance(v, (bytes, bytearray)):
+        s = v.hex()
+    elif isinstance(v, bool):
+        s = "true" if v else "false"
+    else:
+        s = str(v)
     if any(c in s for c in ' "=\n'):
         s = '"' + s.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n") + '"'
     return s
 
 
 class Logger:
-    __slots__ = ("module",)
+    """Module-scoped logfmt logger with optional bound fields."""
 
-    def __init__(self, module: str) -> None:
+    __slots__ = ("module", "_bound")
+
+    def __init__(self, module: str, bound: Optional[Dict[str, Any]] = None) -> None:
         self.module = module
+        self._bound = bound or {}
+
+    def with_fields(self, **fields: Any) -> "Logger":
+        """A child whose records carry ``fields`` (reference logger.With)."""
+        return Logger(self.module, {**self._bound, **fields})
 
     def error(self, msg: str, **fields: Any) -> None:
         self._write(ERROR, msg, fields)
@@ -98,12 +126,13 @@ class Logger:
             f"ts={time.strftime('%Y-%m-%dT%H:%M:%S', time.gmtime(now))}"
             f".{int(now * 1000) % 1000:03d}Z level={_LEVEL_NAMES[level]} module={self.module}"
             f" msg={_quote(msg)}"
+            + "".join(f" {k}={_quote(v)}" for k, v in self._bound.items())
             + "".join(f" {k}={_quote(v)}" for k, v in fields.items())
             + "\n"
         )
         with _lock:
             try:
-                sys.stderr.write(line)
+                (_writer or sys.stderr).write(line)
             except Exception:
                 pass
 

@@ -21,8 +21,8 @@
   stub peer) are among the modules the probe imports. ``Node`` runs on
   the card by default: it raises on a machine without one unless given
   ``device="cpu"``, and its reactors take its device. The settings
-  whose planes the port lacks (gRPC, the metrics and debug servers)
-  make ``Node`` raise ``NotImplementedError`` naming the ROADMAP item;
+  whose planes the port lacks (the metrics and debug servers) make
+  ``Node`` raise ``NotImplementedError`` naming the ROADMAP item;
   ``rpc.laddr`` makes it serve RPC. Every field the port's config shares
   with the JAX package's defaults to the JAX value, ``rpc.laddr`` aside
   (ROADMAP C10), and a field the port lacks cannot be set.
@@ -40,8 +40,16 @@
   takes each of its settings on ``device="cpu"``: the lp2p switch, the
   PEX reactor, a seed in the address book, the autopool, and the app
   and nop mempools.
+- The operator's node (the command line, the ABCI codec, socket and
+  gRPC servers and clients, the remote signer, the gRPC broadcast API,
+  the psql sink's gate) is among the modules the probe imports;
+  ``python -m cometbft_tpu_torch --help`` imports neither ``jax`` nor
+  ``cometbft_tpu``, and ``start`` without ``--device cpu`` exits non-zero
+  with the device error on a machine without a GPU, before it runs
+  anything.
 """
 
+import os
 import subprocess
 import sys
 from fractions import Fraction
@@ -97,6 +105,9 @@ NETWORK_MODULES = [
     # the fork's network plane
     "lp2p", "lp2p.mux", "lp2p.host", "lp2p.switch", "p2p.pex", "utils.autopool",
     "utils.guard",
+    # the operator's node
+    "abci.codec", "abci.server", "abci.socket_client", "privval.signer", "rpc.grpc_api",
+    "state.psql_sink", "cmd", "cmd.main", "cmd.abci_cli", "__main__",
 ]
 
 
@@ -330,7 +341,6 @@ def test_node_raises_without_a_gpu_and_takes_its_device(no_gpu):
 @pytest.mark.parametrize(
     "section, name, value, item",
     [
-        ("rpc", "grpc_laddr", "127.0.0.1:9090", "A8"),
         ("instrumentation", "prometheus", True, "A10"),
         ("instrumentation", "pprof_laddr", "127.0.0.1:6060", "A10"),
     ],
@@ -528,3 +538,35 @@ def test_statesync_entry_points_raise_without_a_gpu(no_gpu):
     # nothing listens there: the sync failed, it was not refused
     assert node.statesync_error is not None
     assert not isinstance(node.statesync_error, NotImplementedError)
+
+
+def test_the_command_line_imports_no_jax():
+    """``python -m cometbft_tpu_torch --help`` in a fresh interpreter
+    loads neither jax nor the JAX package."""
+    probe = (
+        "import runpy, sys\n"
+        "sys.argv = ['cometbft_tpu_torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('cometbft_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'cometbft_tpu'))\n"
+        "print('BAD', bad)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "BAD []" in proc.stdout, proc.stdout + proc.stderr
+    assert "--device" in proc.stdout and "start" in proc.stdout
+
+
+def test_start_without_a_gpu_exits_with_the_device_error(no_gpu, tmp_path):
+    """On a machine without a GPU, ``start`` without ``--device cpu`` exits
+    non-zero with the device error; the node never starts and no block
+    is stored."""
+    home = str(tmp_path / "home")
+    cli = [sys.executable, "-m", "cometbft_tpu_torch", "--home", home]
+    subprocess.run(cli + ["init"], cwd=REPO, check=True, capture_output=True, timeout=120)
+    proc = subprocess.run(cli + ["start"], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device available" in proc.stderr and "--device cpu" in proc.stderr, proc.stderr
+    assert "started" not in proc.stdout + proc.stderr
+    assert not any(name.endswith(".db") for name in os.listdir(os.path.join(home, "data")))
