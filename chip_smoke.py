@@ -8,7 +8,8 @@ Phases, each printing one JSON line:
 1. the card (nvidia-smi name and power limit);
 2. the build of every CUDA kernel from csrc/ (nvcc; registers, spills,
    stack frame and shared memory from ptxas; counts of chosen SASS
-   instructions where cuobjdump is found);
+   instructions where cuobjdump is found), then of the host's four
+   native lanes from native/ (g++, one process a source);
 3. each kernel against its plain PyTorch version on the card, exact
    equality, at 4,100 lanes with edge cases and every message bucket,
    and again at 4,101 lanes, where the last warps and blocks are
@@ -340,6 +341,41 @@ Phases, each printing one JSON line:
    (operator_max_abs_err), with its device time and bound at the
    prevote wave's width.
 
+17. the host's native lanes, the device route pinned: the wire codec
+   (native/wirecodec.cpp), the finalize pass (native/finalize.cpp) and
+   the logdb engine (native/logdb.cpp), built by g++ from the checkout
+   into build/native/ after phase 2 (the native_build line); every lane
+   must be loaded from there when the phase starts, and the line names
+   the library whose SHA-256 the lanes use. (a) phase 8's corpus as
+   phase 8 built it, replayed into fresh nodes on sqlite with the native
+   lanes, on sqlite with both lanes forced portable (as bench.py's
+   force_portable does, off the timed path) and on logdb with the native
+   lanes, the two sqlite modes twice in alternating order (native,
+   portable, logdb, portable, native): every state row and block ID
+   equal the source's, every block's finalize pass native in a native
+   run and portable in a portable one, every window's dispatch on the
+   card launching K1-K3; blocks/s, the blocksync.window.* span sums and
+   launches of each run; then one untimed native pass under cProfile,
+   and the ten functions with the most cumulative time inside
+   blocksync.window.apply. (b) bench.py::bench_finalize's localnet leg:
+   four validators on sqlite with WAL (wal_group_commit_ms 2,
+   finalize_pipeline and finalize_offload_apply on, timeout_commit 0.25
+   s, no indexer), each a VecBank of 16,384 accounts, fed 16,000
+   distinct transfers at 2,000 a commit timeout until all are committed
+   and the net is at height 8 or above; native and portable twice
+   each, alternated (the bench runs 12 heights and 4 repeats; both cut
+   for the smoke's time). Every
+   node must store the same block at every height, every transfer be
+   committed once, the final balances be equal across the nodes and
+   the modes, every block's finalize pass be of the run's mode and
+   every vote wave (vote_batch_window_ms 2) a PRIORITY_LIVE ticket on
+   the card; blocks/s, the consensus.finalize p95, the median apply_ms
+   and hash_persist span of each run. The kernels line adds
+   native_launches (each 17a mode's first run, 17b's by mode) and each kernel
+   against its plain version on 17a's widest logdb window and 17b's
+   first prevote wave (native_max_abs_err), with its device time and
+   bound at the window.
+
 The line before last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result line; a run that outlives RUN_LIMIT_S (1,140 s) ends non-zero
@@ -350,6 +386,7 @@ without the rest of the repository.
 from __future__ import annotations
 
 import faulthandler
+import hashlib
 import json
 import math
 import os
@@ -453,6 +490,17 @@ SS_DEADLINE_S = 240
 # from one seed. The join's depth is cut from 1,024 blocks to 512 (16
 # windows, width uncut) to hold the smoke's time
 LP2P_JOIN_BLOCKS = 512
+# phase 17: the host's native lanes. 17b is bench.py::bench_finalize's
+# localnet leg (four validators, VecBank of 16,384 accounts, 2,000
+# transfers a height, 12 heights, 4 repeats a mode) cut to 8 heights and
+# 2 repeats to hold the smoke's time
+NATIVE_FIN_VALS = 4
+NATIVE_FIN_TXS = 2000
+NATIVE_FIN_HEIGHTS = 8
+NATIVE_FIN_REPEATS = 2
+NATIVE_FIN_ACCOUNTS = 1 << 14
+NATIVE_PROFILE_TOP = 10
+NATIVE_DEADLINE_S = 120
 
 # card peaks: HBM bytes/s from the H100 SXM data sheet; 32-bit integer
 # results per clock per SM on sm_90 (IMAD, IADD, LOP, shifts: 64, the
@@ -4486,6 +4534,416 @@ def phase_operator(dev, gen, privs, snapshot, top, src_rows):
     return {"16a": launches_a, "16b": launches_b, "16c": launches_c}, op_items
 
 
+# --- phase 17: the host's native lanes -------------------------------------------
+
+
+def _libcrypto_sha256() -> str:
+    """The library whose SHA256 the wirecodec and finalize lanes use: the
+    names and order native/wirecodec.cpp and finalize.cpp try with
+    dlopen, tried here with ctypes; else their own SHA-256."""
+    import ctypes
+
+    for name in ("libcrypto.so.3", "libcrypto.so.1.1", "libcrypto.so"):
+        try:
+            if getattr(ctypes.CDLL(name), "SHA256", None) is not None:
+                return name
+        except OSError:
+            continue
+    return "none (the lanes' own SHA-256)"
+
+
+class NativeModes:
+    """Both lanes (wirecodec, finalize) forced portable or loaded, the
+    way bench.py's force_portable and restore_native switch them: off
+    the timed path, the libraries reused."""
+
+    def __init__(self):
+        from cometbft_tpu_torch.state import native_finalize
+        from cometbft_tpu_torch.utils import wirecodec
+
+        self.lanes = (wirecodec.LANE, native_finalize.LANE)
+
+    def set(self, mode: str) -> None:
+        for lane in self.lanes:
+            if mode == "portable":
+                lane.force_portable()
+            else:
+                check(lane.restore() is not None, f"the {lane.lane} lane did not load: {lane.reason}")
+
+    def state(self) -> dict:
+        return {lane.lane: lane.reason for lane in self.lanes}
+
+
+def _replay_into(gen, src, dev, top, backend, home, profile=None):
+    """Replay ``src`` up to ``top`` into a fresh node on ``backend`` (a
+    store under ``home``) on ``dev``. Returns (rows, block IDs,
+    finalize-pass kinds by height, span sums, blocks/s to the last
+    apply, reactor, recorder); with ``profile`` (a cProfile.Profile) the
+    profiler runs inside every blocksync.window.apply."""
+    import asyncio
+    import shutil
+    from collections import defaultdict
+
+    from cometbft_tpu_torch.blocksync.reactor import BlockSyncReactor
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.node.inprocess import build_node
+    from cometbft_tpu_torch.trace import Tracer
+    from cometbft_tpu_torch.utils.chaingen import StorePeerClient
+
+    shutil.rmtree(home, ignore_errors=True)
+    fresh = build_node(gen, db_backend=backend, home=home, device=dev)
+    try:
+        rows: dict = {}
+        stamp: dict = {}
+        _record_states(fresh, rows, stamp)
+        kinds = {}
+        real_hp = fresh.block_exec.apply_hash_persist
+
+        def hash_persist(state, bid, block, resp, *a, **kw):
+            out = real_hp(state, bid, block, resp, *a, **kw)
+            kinds[block.height] = out[1].native
+            return out
+
+        fresh.block_exec.apply_hash_persist = hash_persist
+        spans = defaultdict(lambda: [0, 0.0])
+
+        def observe(name, dur_ns, args):
+            spans[name][0] += 1
+            spans[name][1] += dur_ns / 1e6
+
+        tracer = Tracer(name=f"native-{backend}")
+        tracer.add_observer(observe)
+
+        async def main():
+            caught = asyncio.Event()
+            reactor = BlockSyncReactor(fresh.state, fresh.block_exec, fresh.block_store,
+                                       on_caught_up=lambda st: caught.set(), device=dev)
+            reactor.tracer = tracer
+            if profile is not None:
+                real_apply = reactor._apply_window
+
+                def apply_window(*a, **kw):
+                    profile.enable()
+                    try:
+                        return real_apply(*a, **kw)
+                    finally:
+                        profile.disable()
+
+                reactor._apply_window = apply_window
+            t0 = time.perf_counter()
+            reactor.pool.set_peer_range("src", StorePeerClient(src), 1, top)
+            await reactor.start()
+            try:
+                await asyncio.wait_for(caught.wait(), REPLAY_DEADLINE_S)
+            finally:
+                await reactor.stop()
+            return reactor, t0
+
+        with Recorder(S.scheduler()) as rec:
+            reactor, t0 = asyncio.run(main())
+        check(reactor.loop_errors.count == 0, f"{backend}: the pool routine caught {reactor.loop_errors!r}")
+        ids = {h: fresh.block_store.load_block_meta(h).block_id
+               for h in range(1, fresh.block_store.height() + 1)}
+        return (rows, ids, kinds, {k: v for k, v in spans.items()},
+                reactor.blocks_applied / (stamp["last"] - t0), reactor, rec)
+    finally:
+        fresh.close_stores()
+        shutil.rmtree(home, ignore_errors=True)
+
+
+def _prevote_wave(items) -> bool:
+    """Every item's sign bytes are a prevote's: the length prefix, then
+    the canonical vote's field 1 (type) = 1."""
+    from cometbft_tpu_torch.utils import proto
+
+    for m, _, _ in items:
+        _, pos = proto.read_varint(m, 0)
+        if m[pos:pos + 2] != b"\x08\x01":
+            return False
+    return True
+
+
+def _finalize_net(dev, mode, transfers, root):
+    """17b: four validators on sqlite with WAL, each a VecBank app, the
+    JAX package's finalize bench config, fed ``transfers`` at 2,000 a
+    0.25 s commit timeout until all are committed and the net is at
+    NATIVE_FIN_HEIGHTS or above. Returns the run's numbers and checks."""
+    import asyncio
+    import shutil
+    import statistics
+
+    from cometbft_tpu_torch.config.config import test_config
+    from cometbft_tpu_torch.models.vecbank import VecBankApplication
+    from cometbft_tpu_torch.node.inprocess import LocalNet, build_node, make_genesis, make_privvals
+    from cometbft_tpu_torch.trace import Tracer
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    g4, k4 = make_genesis(NATIVE_FIN_VALS, chain_id="smoke-finalize", seed=SEED)
+    pvs = make_privvals(k4, root=root)
+    fin, apply_ms, hp = [], [], []
+    kinds = {}  # (node, height) -> the finalize pass was native
+
+    def observe(name, dur_ns, args):
+        if name == "consensus.finalize":
+            fin.append(dur_ns / 1e6)
+            apply_ms.append(args["apply_ms"])
+        elif name == "consensus.finalize.hash_persist":
+            hp.append((args["height"], args["native"], dur_ns / 1e6))
+
+    nodes = []
+    try:
+        for i, pv in enumerate(pvs):
+            home = os.path.join(root, f"n{i}")
+            cfg = test_config(home)
+            cfg.base.moniker = f"fin{i}"
+            cfg.base.db_backend = "sqlite"
+            cfg.consensus.skip_timeout_commit = False
+            cfg.consensus.timeout_commit_s = 0.25
+            cfg.tx_index.indexer = "null"
+            cfg.consensus.wal_group_commit_ms = 2.0
+            cfg.consensus.finalize_pipeline = True
+            cfg.consensus.finalize_offload_apply = True
+            # every vote wave through the state machine's coalescer: one
+            # card ticket a wave
+            cfg.consensus.vote_batch_window_ms = 2.0
+            n = build_node(g4, VecBankApplication(n_accounts=NATIVE_FIN_ACCOUNTS), home=home,
+                           device=dev, privval=pv, config=cfg, wal=True)
+            tracer = Tracer(name=f"fin{i}")
+            tracer.add_observer(observe)
+            n.cs.tracer = tracer
+            real_hp = n.block_exec.apply_hash_persist
+
+            def hash_persist(state, bid, block, resp, *a, _real=real_hp, _i=i, **kw):
+                out = _real(state, bid, block, resp, *a, **kw)
+                kinds[(_i, block.height)] = out[1].native
+                return out
+
+            n.block_exec.apply_hash_persist = hash_persist
+            nodes.append(n)
+        net = LocalNet(nodes)
+        want = set(transfers)
+        committed = []
+
+        async def main():
+            await net.start()
+            per_tick = NATIVE_FIN_TXS // 5  # 2,000 a commit timeout (0.25 s)
+            backlog = list(transfers)
+            t0 = time.perf_counter()
+            tick = 0
+            while backlog:
+                batch_, backlog = backlog[:per_tick], backlog[per_tick:]
+                pool = nodes[tick % NATIVE_FIN_VALS].mempool
+                for tx in batch_:
+                    r = pool.check_tx(tx)
+                    if not r.is_ok():
+                        # a full pool takes the transfer again later
+                        check(r.log == "mempool full", f"{mode}: a transfer was refused: {r.log}")
+                        backlog.append(tx)
+                tick += 1
+                await asyncio.sleep(0.05)
+            deadline = time.perf_counter() + NATIVE_DEADLINE_S
+            seen = 0
+            all_in = None  # the height whose block holds the last transfer
+            while True:
+                for h in range(seen + 1, nodes[0].block_store.height() + 1):
+                    committed.extend(nodes[0].block_store.load_block(h).data.txs)
+                    seen = h
+                    if all_in is None and len(committed) >= len(want):
+                        all_in = h
+                top = min(n.block_store.height() for n in nodes)
+                if all_in is not None and top >= max(all_in, NATIVE_FIN_HEIGHTS):
+                    break
+                check(time.perf_counter() < deadline, f"{mode}: {len(committed)} of {len(want)} "
+                      f"transfers committed at height {top}")
+                await asyncio.sleep(0.02)
+            wall = time.perf_counter() - t0
+            await net.stop()
+            return wall, top, tick
+
+        wall, top, ticks = asyncio.run(main())
+        for h in range(1, top + 1):
+            check(len({n.block_store.load_block_meta(h).block_id.hash for n in nodes}) == 1,
+                  f"{mode}: nodes differ at height {h}")
+        check(len(committed) == len(want) and set(committed) == want,
+              f"{mode}: {len(committed)} committed, {len(set(committed) & want)} of {len(want)} distinct")
+        for i, n in enumerate(nodes):
+            stored = set(range(1, n.block_store.height() + 1))
+            check({h for j, h in kinds if j == i} >= stored, f"{mode}: node {i} stored a block "
+                  "that no finalize pass made")
+        apps = [n.app for n in nodes]
+        digests = {hashlib.sha256(a.balances.astype(">u8").tobytes()).hexdigest() for a in apps}
+        check(len(digests) == 1, f"{mode}: the nodes' balances differ")
+        heights = {a.height for a in apps}
+        fin.sort()
+        return {
+            "mode": mode, "wall_s": wall, "heights": top, "blocks_per_s": top / wall, "feed_ticks": ticks,
+            "txs": len(committed), "txs_per_block_max": max(len(nodes[0].block_store.load_block(h).data.txs)
+                                                            for h in range(1, top + 1)),
+            "p95_finalize_ms": fin[int(0.95 * (len(fin) - 1))] if fin else None,
+            "median_apply_ms": statistics.median(apply_ms) if apply_ms else None,
+            "median_hash_persist_ms": statistics.median(d for _, _, d in hp) if hp else None,
+            "finalize_native": sorted(set(kinds.values())), "finalize_passes": len(kinds),
+            "hash_persist_spans": len(hp), "finalize_spans": len(fin),
+            "balances_sha256": digests.pop(), "app_heights": sorted(heights),
+            "app_hash_at": {a.height: a.app_hash.hex() for a in apps},
+        }
+    finally:
+        for n in nodes:
+            n.close_stores()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_native(dev, gen, snapshot, top, src_rows):
+    """Phase 17: (a) phase 8's corpus replayed on sqlite with the native
+    lanes, on sqlite with both forced portable, and on logdb with the
+    native lanes, the sqlite modes twice in alternating order, then one
+    native sqlite pass under cProfile; (b) the finalize net, native
+    against portable, alternated. Returns the launches of each run and,
+    for phase 6, the kernel items of 17a's widest logdb window and of
+    17b's first prevote wave."""
+    import cProfile
+    import pstats
+    import shutil
+
+    import numpy as np
+
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.models.vecbank import make_transfer
+    from cometbft_tpu_torch.utils import logdb, native
+
+    t_phase = time.perf_counter()
+    modes = NativeModes()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "native_lanes")
+    shutil.rmtree(root, ignore_errors=True)
+    # the lanes' prewarm builds (every build_node starts them) must have
+    # landed: a lane still building would run the first blocks portable
+    modes.set("native")
+    check(logdb.available(), "the logdb engine did not load")
+    build = native.BUILD.resolve()
+    loaded = {lane.lane: str(lane.path) for lane in modes.lanes}
+    loaded["logdb"] = logdb._lib._name
+    check(all(os.path.dirname(os.path.realpath(p)) == str(build) for p in loaded.values()),
+          f"a lane loaded from outside {build}: {loaded}")
+    emit("native_lanes", loaded=loaded, reasons=modes.state(), sha256_library=_libcrypto_sha256(),
+         gates={g: os.environ.get(g) for g in ("GRAFT_NATIVE_CODEC", "GRAFT_NATIVE_FINALIZE")})
+
+    src = _corpus_stores(snapshot)
+    floor = batch._MIN_DEVICE_BATCH
+    sched = S.VerifyScheduler()
+    S.set_scheduler(sched)
+    runs = {}
+    launches = {}
+    items = {}
+    try:
+        batch.set_min_device_batch(1)
+        # 17a: sqlite native / portable in ABBA order around the logdb run
+        order = [("sqlite", "native"), ("sqlite", "portable"), ("logdb", "native"),
+                 ("sqlite", "portable"), ("sqlite", "native")]
+        for i, (backend, mode) in enumerate(order):
+            modes.set(mode)
+            kernels.reset_counts()
+            rows, ids, kinds, spans, bps, reactor, rec = _replay_into(
+                gen, src, dev, top, backend, os.path.join(root, f"a{i}"))
+            key = f"{backend}_{mode}"
+            launches.setdefault(f"17a_{key}", dict(kernels.LAUNCHES))
+            stats = sched.stats()
+            bad = [h for h in rows if rows[h] != src_rows[h]]
+            check(len(rows) >= top - 2 and not bad, f"17a {key}: {len(rows)} rows, differing at {bad[:5]}")
+            bad = [h for h, bid in ids.items() if bid != src.block_store.load_block_meta(h).block_id]
+            check(len(ids) >= top - 2 and not bad, f"17a {key}: block IDs differ at {bad[:5]}")
+            check(len(kinds) == len(rows), f"17a {key}: {len(kinds)} finalize passes, {len(rows)} blocks")
+            check(all(v == (mode == "native") for v in kinds.values()),
+                  f"17a {key}: finalize passes {sorted(set(kinds.values()))}, mode {mode}")
+            dispatches = rec.dispatches
+            check(dispatches and all(d["device"] == str(dev) and all(d["launches"][k] >= 1 for k in SOURCES)
+                                     for d in dispatches), f"17a {key}: a window left the card")
+            check(all(r == "device" for r in rec.routes), f"17a {key}: routes {set(rec.routes)}")
+            if backend == "logdb":
+                items["17a_logdb_widest"] = rec.kept[max(rec.kept)]
+            runs.setdefault(key, []).append({
+                "blocks_per_s": bps, "applied": reactor.blocks_applied,
+                "native_finalize_blocks": sum(kinds.values()), "blocks": len(kinds),
+                "spans_ms": {k: v[1] for k, v in spans.items() if k.startswith("blocksync.window.")},
+                "windows": spans["blocksync.window.apply"][0], "launches": dict(kernels.LAUNCHES),
+                "widest_window": max(rec.kept), "degraded": stats["degraded"]})
+        emit("native_replay", validators=REPLAY_VALS, blocks=top, order=[f"{b}_{m}" for b, m in order],
+             runs=runs, card=smi("name,power.limit"),
+             median_blocks_per_s={k: statistics.median(r["blocks_per_s"] for r in rs) for k, rs in runs.items()})
+
+        # the profile A3 asks for: one untimed native pass, cProfile
+        # inside every blocksync.window.apply
+        modes.set("native")
+        prof = cProfile.Profile()
+        _replay_into(gen, src, dev, top, "sqlite", os.path.join(root, "profiled"), profile=prof)
+        st = pstats.Stats(prof)
+        total = sum(tt for _, _, tt, _, _ in st.stats.values())
+        top_fns = sorted(st.stats.items(), key=lambda kv: kv[1][3], reverse=True)
+        rows_out = []
+        for (path, line, fn), (cc, nc, tt, ct, _) in top_fns:
+            if path == __file__:
+                continue  # this script's wrappers (the state recorder, the recorder)
+            rows_out.append({"function": f"{os.path.relpath(path) if path.startswith('/') else path}:{line}"
+                                         f"({fn})", "calls": nc, "cumulative_s": ct, "own_s": tt})
+            if len(rows_out) == NATIVE_PROFILE_TOP:
+                break
+        emit("native_replay_profile", inside="blocksync.window.apply", profiled_s=total,
+             top_cumulative=rows_out)
+
+        # 17b: the finalize net at the JAX bench's width, native against
+        # portable in alternating order
+        rng = np.random.default_rng(SEED)
+        n_tx = NATIVE_FIN_TXS * NATIVE_FIN_HEIGHTS
+        src_a, dst_a = rng.integers(0, NATIVE_FIN_ACCOUNTS, size=(2, n_tx))
+        transfers = [make_transfer(int(a), int(b), i % 997 + 1 + (i // 997) * 1000)
+                     for i, (a, b) in enumerate(zip(src_a, dst_a))]
+        check(len(set(transfers)) == n_tx, "the transfers are not distinct")
+        net_runs = []
+        fin_order = [m for i in range(NATIVE_FIN_REPEATS)
+                     for m in (("native", "portable") if i % 2 == 0 else ("portable", "native"))]
+        for i, mode in enumerate(fin_order):
+            modes.set(mode)
+            kernels.reset_counts()
+            with Recorder(sched) as rec:
+                r = _finalize_net(dev, mode, transfers, os.path.join(root, f"b{i}"))
+            r["launches"] = dict(kernels.LAUNCHES)
+            tickets = rec.rows()
+            waves = [t for t in tickets if t[0] == "vote-wave"]
+            check(waves and all(p == S.PRIORITY_LIVE and rt == "device" for _, p, _, rt, _ in waves),
+                  f"17b {mode}: vote waves {sorted({(p, rt) for _, p, _, rt, _ in waves})}")
+            check(all(rt == "device" for *_, rt, _ in tickets), f"17b {mode}: a ticket left the card")
+            check(r["finalize_native"] == [mode == "native"],
+                  f"17b {mode}: finalize passes native {r['finalize_native']}")
+            r["wave_tickets"] = len(waves)
+            r["wave_lanes_max"] = max(n for _, _, n, _, _ in waves)
+            if "17b_prevote" not in items:
+                first = rec.labelled.get("vote-wave", [[]])[0]
+                check(first and _prevote_wave(first), "17b: the first vote wave is not a prevote wave")
+                items["17b_prevote"] = first
+            launches.setdefault(f"17b_{mode}", {k: 0 for k in SOURCES})
+            for k in SOURCES:
+                launches[f"17b_{mode}"][k] += r["launches"][k]
+            net_runs.append(r)
+        digests = {r["balances_sha256"] for r in net_runs}
+        check(len(digests) == 1, f"17b: the modes' final balances differ: {digests}")
+        med = {m: {k: statistics.median(r[k] for r in net_runs if r["mode"] == m)
+                   for k in ("blocks_per_s", "p95_finalize_ms", "median_apply_ms", "median_hash_persist_ms")}
+               for m in ("native", "portable")}
+        emit("native_finalize_net", validators=NATIVE_FIN_VALS, transfers=n_tx, accounts=NATIVE_FIN_ACCOUNTS,
+             repeats=NATIVE_FIN_REPEATS, order=fin_order, runs=net_runs, medians=med,
+             card=smi("name,power.limit"), seconds=time.perf_counter() - t_phase)
+    finally:
+        modes.set("native")
+        batch.set_min_device_batch(floor)
+        S.set_scheduler(None)
+        sched.close()
+        shutil.rmtree(root, ignore_errors=True)
+    emit("native_phase", seconds=time.perf_counter() - t_phase, budget_s=120)
+    return launches, items
+
+
 # --- timing and bounds --------------------------------------------------------
 
 
@@ -4665,6 +5123,13 @@ def main(argv) -> int:
     for name in info:
         info[name]["sass"] = kernels.sass(name)
     emit("build", seconds=seconds, kernels=info)
+    # the host's native lanes, from the checkout's native/ sources: one
+    # g++ a lane, all together, before any node's prewarm needs them
+    from cometbft_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    built = native.build_all(force=True)
+    emit("native_build", seconds=time.perf_counter() - t0, lanes=built, into=str(native.BUILD))
 
     rng = np.random.default_rng(SEED)
     checks = phase_kernels(dev, rng, 500 if quick else N_CHECK)
@@ -4700,6 +5165,7 @@ def main(argv) -> int:
     ss_launches, ss_items = phase_statesync(dev, gen, privs)
     lp2p_launches, lp2p_items = phase_lp2p(dev, gen, privs, *lp2p_corpus)
     op_launches, op_items = phase_operator(dev, gen, privs, *lp2p_corpus)
+    native_launches, native_items = phase_native(dev, gen, *net_corpus)
 
     # phase 6: each kernel against its plain version on the main paths'
     # own inputs (the window's lanes and the commit's; the replay's and
@@ -4763,6 +5229,12 @@ def main(argv) -> int:
     op_calls = {k: stage_calls(xo) for k, xo in x_op.items()}
     op_errs = {k: compare(c) for k, c in op_calls.items()}
     x_opp, opp_calls = x_op["prevote"], op_calls["prevote"]
+    # phase 17's own inputs: 17a's widest window of the logdb replay and
+    # 17b's first prevote wave; timed at the window
+    x_nat = {k: kernel_inputs(its, dev) for k, its in native_items.items()}
+    nat_calls = {k: stage_calls(xn) for k, xn in x_nat.items()}
+    nat_errs = {k: compare(c) for k, c in nat_calls.items()}
+    x_natw, natw_calls = x_nat["17a_logdb_widest"], nat_calls["17a_logdb_widest"]
     emit("main_path_vs_plain", lanes=x["n"], commit_lanes=x_commit["n"],
          replay_lanes=list(x_replay), bisect_lanes=list(x_bisect),
          live_lanes={k: xw["n"] for k, xw in x_waves.items()},
@@ -4771,11 +5243,12 @@ def main(argv) -> int:
          serve_lanes={k: xs["n"] for k, xs in x_serve.items()},
          statesync_lanes={k: xs["n"] for k, xs in x_ss.items()},
          lp2p_lanes={k: xl["n"] for k, xl in x_lp.items()},
-         operator_lanes={k: xo["n"] for k, xo in x_op.items()}, equal=True, max_abs_err=errs,
+         operator_lanes={k: xo["n"] for k, xo in x_op.items()},
+         native_lanes={k: xn["n"] for k, xn in x_nat.items()}, equal=True, max_abs_err=errs,
          commit_max_abs_err=commit_errs, replay_max_abs_err=replay_errs,
          bisect_max_abs_err=bisect_errs, live_max_abs_err=live_errs, net_max_abs_err=net_errs,
          evidence_max_abs_err=ev_errs, serve_max_abs_err=serve_errs, statesync_max_abs_err=ss_errs,
-         lp2p_max_abs_err=lp_errs, operator_max_abs_err=op_errs)
+         lp2p_max_abs_err=lp_errs, operator_max_abs_err=op_errs, native_max_abs_err=nat_errs)
     rows = []
     for name in ("ladder", "decompress", "hash_digits"):
         f, plain = calls[name]
@@ -4790,6 +5263,7 @@ def main(argv) -> int:
         ss_err = {w: max(e[k] for k in parts) for w, e in ss_errs.items()}
         lp_err = {w: max(e[k] for k in parts) for w, e in lp_errs.items()}
         op_err = {w: max(e[k] for k in parts) for w, e in op_errs.items()}
+        nat_err = {w: max(e[k] for k in parts) for w, e in nat_errs.items()}
         err = max(max(errs[k], commit_errs[k]) for k in parts)
         b_ms, b_by = bound(name, x, int_rate)
         bc_ms, bc_by = bound(name, x_commit, int_rate)
@@ -4802,6 +5276,7 @@ def main(argv) -> int:
         bss_ms, bss_by = bound(name, x_ssp, int_rate)
         blp_ms, blp_by = bound(name, x_lpp, int_rate)
         bop_ms, bop_by = bound(name, x_opp, int_rate)
+        bnat_ms, bnat_by = bound(name, x_natw, int_rate)
         bb_ms, bb_by = bound(name, x_bulk, int_rate)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -4815,9 +5290,10 @@ def main(argv) -> int:
             "statesync_launches": {ph: ls[name] for ph, ls in ss_launches.items()},
             "lp2p_launches": {ph: ls[name] for ph, ls in lp2p_launches.items()},
             "operator_launches": {ph: ls[name] for ph, ls in op_launches.items()},
+            "native_launches": {ph: ls[name] for ph, ls in native_launches.items()},
             "max_abs_err": max(err, replay_err, bisect_err, *live_err.values(), *net_err.values(),
                                *ev_err.values(), *serve_err.values(), *ss_err.values(),
-                               *lp_err.values(), *op_err.values()),
+                               *lp_err.values(), *op_err.values(), *nat_err.values()),
             "tolerance": 0,
             "ms": graph_ms(f), "call_ms": cuda_ms(f, 20),
             "plain_ms": cuda_ms(plain, 2, warm=0), "bound_ms": b_ms,
@@ -4876,6 +5352,12 @@ def main(argv) -> int:
             "operator_call_ms": cuda_ms(opp_calls[name][0], 20),
             "operator_plain_ms": cuda_ms(opp_calls[name][1], 2, warm=0),
             "operator_bound_ms": bop_ms, "operator_bound_by": bop_by,
+            "native_lanes": {w: xn["n"] for w, xn in x_nat.items()},
+            "native_max_abs_err": nat_err,
+            "native_ms": graph_ms(natw_calls[name][0]),
+            "native_call_ms": cuda_ms(natw_calls[name][0], 20),
+            "native_plain_ms": cuda_ms(natw_calls[name][1], 2, warm=0),
+            "native_bound_ms": bnat_ms, "native_bound_by": bnat_by,
             "bulk_lanes": N_BULK, "bulk_ms": bulk_ms[name], "bulk_call_ms": bulk_call_ms[name],
             "bulk_bound_ms": bb_ms, "bulk_bound_by": bb_by,
             "bulk_max_abs_err": max(bulk_errs[k] for k in parts),

@@ -78,6 +78,14 @@ def _load_config(home: str):
     return cfg
 
 
+def _open_db(home: str, name: str):
+    """One of the home's stores, on the backend its config names
+    (``base.db_backend``: ``sqlite`` or ``logdb``)."""
+    from ..utils import kv
+
+    return kv.open_kv(_load_config(home).base.db_backend, os.path.join(_paths(home)["data"], name))
+
+
 def _genesis(home: str):
     from ..types.genesis import GenesisDoc
 
@@ -319,11 +327,9 @@ def cmd_rollback(args) -> int:
     from ..state.rollback import rollback_state
     from ..state.store import Store as StateStore
     from ..store.block_store import BlockStore
-    from ..utils import kv
 
-    data = _paths(_home(args))["data"]
-    block_db = kv.open_kv("sqlite", os.path.join(data, "blockstore.db"))
-    state_db = kv.open_kv("sqlite", os.path.join(data, "state.db"))
+    block_db = _open_db(_home(args), "blockstore.db")
+    state_db = _open_db(_home(args), "state.db")
     st = rollback_state(StateStore(state_db), BlockStore(block_db), remove_block=args.hard)
     print(f"Rolled back state to height {st.last_block_height} (app_hash {st.app_hash.hex()[:16]})")
     block_db.close()
@@ -334,15 +340,23 @@ def cmd_rollback(args) -> int:
 def cmd_compact(args) -> int:
     import sqlite3
 
-    data = _paths(_home(args))["data"]
+    home = _home(args)
+    data = _paths(home)["data"]
+    backend = _load_config(home).base.db_backend
     n = 0
     for name in os.listdir(data) if os.path.isdir(data) else []:
-        if name.endswith(".db"):
+        if not name.endswith(".db"):
+            continue
+        if backend == "logdb" and name in ("blockstore.db", "state.db", "tx_index.db"):
+            db = _open_db(home, name)
+            db.compact()
+            db.close()
+        else:
             con = sqlite3.connect(os.path.join(data, name))
             con.execute("VACUUM")
             con.close()
-            n += 1
-    print(f"Compacted {n} sqlite databases")
+        n += 1
+    print(f"Compacted {n} {backend} databases")
     return 0
 
 
@@ -353,12 +367,10 @@ def cmd_reindex_event(args) -> int:
     from ..state.indexer import LAST_INDEXED_KEY, BlockIndexer, TxIndexer, _enc_height
     from ..state.store import Store as StateStore
     from ..store.block_store import BlockStore
-    from ..utils import kv
 
-    data = _paths(_home(args))["data"]
-    block_db = kv.open_kv("sqlite", os.path.join(data, "blockstore.db"))
-    state_db = kv.open_kv("sqlite", os.path.join(data, "state.db"))
-    index_db = kv.open_kv("sqlite", os.path.join(data, "tx_index.db"))
+    block_db = _open_db(_home(args), "blockstore.db")
+    state_db = _open_db(_home(args), "state.db")
+    index_db = _open_db(_home(args), "tx_index.db")
     bs, ss = BlockStore(block_db), StateStore(state_db)
     txi, bli = TxIndexer(index_db), BlockIndexer(index_db)
     start = args.start_height or bs.base()
@@ -412,14 +424,12 @@ def cmd_inspect(args) -> int:
     from ..state.store import Store as StateStore
     from ..store.block_store import BlockStore
     from ..types import events as ev
-    from ..utils import kv
 
     home = _home(args)
-    data = _paths(home)["data"]
     env = Environment(
         chain_id=(gen := _genesis(home)).chain_id,
-        block_store=BlockStore(kv.open_kv("sqlite", os.path.join(data, "blockstore.db"))),
-        state_store=StateStore(kv.open_kv("sqlite", os.path.join(data, "state.db"))),
+        block_store=BlockStore(_open_db(home, "blockstore.db")),
+        state_store=StateStore(_open_db(home, "state.db")),
         event_bus=ev.EventBus(),
         genesis=gen,
         config=_load_config(home),

@@ -130,6 +130,7 @@ class ConsensusState:
         self._timeout_task: Optional[asyncio.Task] = None
         self._routine_task: Optional[asyncio.Task] = None
         self._stopped = asyncio.Event() if False else None
+        self._halting = False  # set by stop() / crash(): staged votes are dropped
         self.wal: Optional[walmod.WAL] = None
         self._wal_path = wal_path
         self._broadcast_hooks: List[Callable] = []
@@ -194,6 +195,7 @@ class ConsensusState:
     # --- lifecycle ----------------------------------------------------
 
     async def start(self) -> None:
+        self._halting = False
         self.queue = asyncio.Queue(10000)
         self.event_bus.set_loop(asyncio.get_running_loop())
         if self._wal_path:
@@ -237,6 +239,7 @@ class ConsensusState:
         await self._halt(graceful=False)
 
     async def _halt(self, graceful: bool) -> None:
+        self._halting = True
         if self._routine_task:
             self._routine_task.cancel()
             try:
@@ -821,6 +824,11 @@ class ConsensusState:
         fut = vc.submit(val.pub_key, sb, vote.signature)
 
         def _done(f: "asyncio.Future") -> None:
+            if self._halting:
+                # the stop's last window resolved after the receive
+                # routine ended: the vote is dropped, not handled on a
+                # machine whose WAL is closing
+                return
             ok = False
             try:
                 ok = bool(f.result())
@@ -1664,6 +1672,7 @@ class ConsensusState:
                         "consensus.finalize.hash_persist", t_a,
                         t_b - t_a,
                         tid="consensus", height=block.height,
+                        native=artifacts.native,
                     )
                     new_state = self.block_exec.apply_complete(
                         new_state, bid, block, resp, artifacts

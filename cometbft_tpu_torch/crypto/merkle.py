@@ -1,7 +1,8 @@
 """RFC 6962 merkle trees and inclusion proofs (reference crypto/merkle).
 
-A copy of the JAX package's ``crypto/merkle.py`` without its native
-root (``native/wirecodec.cpp``, ROADMAP A3). Leaf hash =
+A copy of the JAX package's ``crypto/merkle.py``: a root of four or
+more leaves comes from the native wire codec (``utils/wirecodec.py``)
+when it is built, byte-identical to the Python fold. Leaf hash =
 SHA-256(0x00 || leaf), inner = SHA-256(0x01 || left || right), split
 point = the largest power of two below n, the empty tree hashes to
 SHA-256(""). Proofs back ``PartSet`` and the block store's parts; the
@@ -43,9 +44,20 @@ def hash_from_byte_slices(items: Sequence[bytes]) -> bytes:
     """Root hash. The RFC 6962 left-heavy split is the binary
     decomposition of n, so pushing leaf hashes, merging equal-sized
     subtrees and folding the rest right to left gives the same tree
-    without the recursion's list slicing."""
-    if not items:
+    without the recursion's list slicing; four leaves or more take the
+    native tree when it is built."""
+    n = len(items)
+    if n == 0:
         return _sha256(b"")
+    if n >= 4:
+        from ..utils import wirecodec
+
+        nat = wirecodec.module()
+        if nat is not None:
+            try:
+                return nat.merkle_root(items)
+            except Exception:  # pragma: no cover - non-bytes leaves
+                pass
     sha = hashlib.sha256
     stack: List = []  # (subtree hash, subtree size)
     for it in items:

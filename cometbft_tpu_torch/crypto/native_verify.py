@@ -2,11 +2,12 @@
 
 The port's counterpart of the JAX package's ``crypto/native_verify.py``.
 The C++ source lives at the repository root, outside both packages,
-and is read, never written. It is built on first use with ``g++`` into
-``build/native/_batchverify.so`` at the repository root (git-ignored;
-rebuilt when the source is newer) and loaded as a CPython extension.
-The JAX package keeps its own build elsewhere; the two never share a
-library.
+and is read, never written. ``utils/native.py`` builds it on first use
+with ``g++`` into ``build/native/_batchverify.so`` at the repository
+root (git-ignored; rebuilt when the source is newer), by the routine
+that builds the other native lanes, and loads it as a CPython
+extension. The JAX package keeps its own build elsewhere; the two never
+share a library.
 
 Why it exists: per lane, the Python path makes several short ctypes
 calls with the GIL taken back between them, so the host plane's
@@ -23,72 +24,21 @@ package.
 
 from __future__ import annotations
 
-import importlib.util
-import os
 import struct
-import subprocess
-import sysconfig
-import tempfile
-import threading
-from pathlib import Path
 from typing import List, Optional
 
+from ..utils import native
 from .keys import Ed25519PubKey
 
-_ROOT = Path(__file__).resolve().parent.parent.parent
-_SRC = _ROOT / "native" / "batchverify.cpp"
-_SO = _ROOT / "build" / "native" / "_batchverify.so"
-
-_mod = None
-_tried = False
-_lock = threading.Lock()
-
-
-def _build() -> None:
-    """g++ into a temporary name beside the target, then an atomic
-    rename: concurrent processes never load a half-written library."""
-    _SO.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_SO.parent)
-    os.close(fd)
-    try:
-        subprocess.run(
-            [
-                "g++", "-O2", "-std=c++17", "-shared", "-fPIC",
-                "-I", sysconfig.get_paths()["include"],
-                str(_SRC), "-ldl", "-o", tmp,
-            ],
-            check=True,
-            capture_output=True,
-        )
-        os.replace(tmp, _SO)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+# blocking: the host plane's worker threads call it, never a loop
+LANE = native.Lane("batchverify", gate="GRAFT_NATIVE_VERIFY", blocking=True,
+                   check=lambda mod: mod.available())
 
 
 def module():
     """The extension module, or None (no compiler, no Python headers,
-    no libcrypto, or disabled)."""
-    global _mod, _tried
-    if _tried:
-        return _mod
-    with _lock:
-        if _tried:
-            return _mod
-        _tried = True
-        if os.environ.get("GRAFT_NATIVE_VERIFY") == "0":
-            return None
-        try:
-            if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
-                _build()
-            spec = importlib.util.spec_from_file_location("_batchverify", _SO)
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
-            if mod.available():
-                _mod = mod
-        except (OSError, ImportError, subprocess.CalledProcessError):
-            _mod = None
-        return _mod
+    no libcrypto, or disabled; ``LANE.reason`` says which)."""
+    return LANE.module()
 
 
 def verify_chunk(items) -> Optional[List[bool]]:

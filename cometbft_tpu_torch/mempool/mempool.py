@@ -15,9 +15,10 @@ returns; a background thread rechecks the snapshot in chunks, verdicts
 apply height- and generation-guarded, txs not yet rechecked are masked
 from reap, and ``flush`` aborts a recheck in flight. ``NopMempool``
 disables the mempool; ``AppMempool`` relays InsertTx / ReapTxs to an
-app that owns its pool, behind a ``utils.guard.TTLGuard``. Tx keys hash
-with hashlib (the JAX package's native batch hasher is not ported) and
-the runtime sanitizer's lock wrappers are left out.
+app that owns its pool, behind a ``utils.guard.TTLGuard``.
+``tx_keys`` hashes a batch of ``_NATIVE_HASH_MIN`` or more in one
+native call (``sha256_many`` of ``utils/wirecodec.py``) when the lane
+is built; the runtime sanitizer's lock wrappers are left out.
 """
 
 from __future__ import annotations
@@ -38,6 +39,9 @@ def tx_key(tx: bytes) -> bytes:
     return hashlib.sha256(tx).digest()
 
 
+# below this many txs the native call's fixed cost beats the win
+_NATIVE_HASH_MIN = 4
+
 # async recheck issues its ABCI batches in chunks of this many txs so
 # the shared app mutex is released between them (consensus' next
 # FinalizeBlock must not queue behind a whole-pool batch)
@@ -50,6 +54,17 @@ _LOG_CACHE_DUP = "tx already in cache"
 
 
 def tx_keys(txs: Sequence[bytes]) -> List[bytes]:
+    """All tx keys in one pass: the native batch hasher when it is
+    built, hashlib otherwise; the same digests either way."""
+    if len(txs) >= _NATIVE_HASH_MIN:
+        from ..utils import wirecodec
+
+        nat = wirecodec.module()
+        if nat is not None:
+            try:
+                return list(nat.sha256_many(txs))
+            except Exception:  # pragma: no cover - non-bytes items
+                pass
     sha = hashlib.sha256
     return [sha(t).digest() for t in txs]
 

@@ -59,6 +59,7 @@ from ..evidence.pool import EvidencePool
 from ..mempool.mempool import AppMempool, CListMempool, Mempool, NopMempool
 from ..models.kvstore import KVStoreApplication
 from ..privval import FilePV
+from ..state import native_finalize
 from ..state.execution import BlockExecutor
 from ..state.indexer import BlockIndexer, IndexerService, TxIndexer
 from ..state.state_types import State
@@ -69,7 +70,7 @@ from ..store.retention import RetentionPlane
 from ..types import events as ev
 from ..types.genesis import GenesisDoc
 from ..types.validator_set import Validator
-from ..utils import kv
+from ..utils import kv, wirecodec
 
 
 @dataclass
@@ -123,15 +124,20 @@ def build_node(
     config: Optional[Config] = None,
     wal: bool = False,
 ) -> NodeParts:
-    """Stores (``"memdb"``, or ``"sqlite"`` under ``home``; a ``config``
-    names its own backend), the app (a fresh kvstore unless given),
-    mempool and executor, then the handshake, which runs InitChain or
+    """Stores (``"memdb"``, or ``"sqlite"`` or ``"logdb"`` under
+    ``home``; a ``config`` names its own backend), the app (a fresh
+    kvstore unless given), mempool and executor, then the handshake, which runs InitChain or
     replays stored blocks; then the consensus state machine, signing
     with ``privval`` (None: a full node that votes on nothing), with
     ``config.consensus`` (``test_config``'s short timeouts by default)
     and a WAL at ``<home>/cs.wal`` (a fresh directory without ``home``)
     when ``wal`` is set. It is built, not started."""
     device = resolve(device)
+    # the native lanes' one-time g++ builds run on daemon threads now,
+    # so no event loop waits on them; until a build lands, its callers
+    # run their portable paths
+    wirecodec.prewarm()
+    native_finalize.prewarm()
     if config is None:
         config = test_config(home or ".")
         config.base.db_backend = db_backend

@@ -29,7 +29,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ..types.validator_set import ValidatorSet
-from ..utils import codec, kv, proto
+from ..utils import codec, kv, proto, wirecodec
 from .state_types import ConsensusParams, State
 
 # full-set checkpoint cadence for unchanged valsets (see module doc)
@@ -43,13 +43,21 @@ def _h(prefix: bytes, height: int) -> bytes:
 def _encode_prio_vector(vs: ValidatorSet) -> bytes:
     """Packed exact priorities and proposer index of one valset: the
     count, one (possibly negative, so 10-byte) varint per validator in
-    stored order, then proposer_index+1 (0 = no proposer)."""
+    stored order, then proposer_index+1 (0 = no proposer). Three encode
+    a replayed height, so the varints take the native bulk encoder
+    (``utils/wirecodec.py``) when it is built."""
     prop_idx = 0
     if vs.proposer is not None:
         prop_idx = vs._by_address.get(vs.proposer.address, -1) + 1
     nums = [len(vs.validators)]
     nums.extend(v.proposer_priority for v in vs.validators)
     nums.append(prop_idx)
+    nat = wirecodec.module()
+    if nat is not None:
+        try:
+            return nat.varints(nums)
+        except Exception:  # pragma: no cover - priorities past 64 bits
+            pass
     out = bytearray()
     for x in nums:
         out += proto.varint(x)

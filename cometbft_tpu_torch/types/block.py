@@ -112,6 +112,8 @@ class Header:
 
 @dataclass(frozen=True)
 class CommitSig:
+    # the native wire codec reads these four attributes by name
+    # (native/wirecodec.cpp, encode_commit and commit_merkle_root)
     block_id_flag: int = BLOCK_ID_FLAG_ABSENT
     validator_address: bytes = b""
     timestamp_ns: int = 0
@@ -207,6 +209,15 @@ class Commit:
 
     def hash(self) -> bytes:
         if self._hash is None:
+            from ..utils import wirecodec
+
+            nat = wirecodec.module()
+            if nat is not None:
+                try:  # one call: the sigs' encodings and the RFC 6962 fold
+                    self._hash = nat.commit_merkle_root(self.signatures)
+                    return self._hash
+                except Exception:  # pragma: no cover - odd sig shapes
+                    pass
             self._hash = merkle.hash_from_byte_slices([cs.encode() for cs in self.signatures])
         return self._hash
 

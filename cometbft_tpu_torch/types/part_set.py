@@ -3,7 +3,9 @@
 A copy of the JAX package's ``types/part_set.py``. A block travels
 and is stored as 64 KB parts, each with an inclusion proof against the
 ``PartSetHeader`` hash the validators sign, so a part can be checked
-before the block is whole.
+before the block is whole. The proposer's leaf hashes come from the
+native finalize lane when it is built (``state/native_finalize.py``);
+the root and proofs are the same either way.
 """
 
 from __future__ import annotations
@@ -44,7 +46,13 @@ class PartSet:
     @classmethod
     def from_data(cls, data: bytes, part_size: int = BLOCK_PART_SIZE) -> "PartSet":
         chunks = [data[i : i + part_size] for i in range(0, len(data), part_size)] or [b""]
-        root, proofs = merkle.proofs_from_byte_slices(chunks)
+        from ..state import native_finalize
+
+        lh = native_finalize.part_leaf_hashes(chunks)
+        if lh is not None:
+            root, proofs = merkle.proofs_from_leaf_hashes(lh)
+        else:
+            root, proofs = merkle.proofs_from_byte_slices(chunks)
         ps = cls(PartSetHeader(total=len(chunks), hash=root))
         for i, (c, pr) in enumerate(zip(chunks, proofs)):
             ps.parts[i] = Part(index=i, bytes_=c, proof=pr)

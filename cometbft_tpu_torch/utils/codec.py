@@ -4,8 +4,11 @@ A copy of the portable paths of the JAX package's ``utils/codec.py``:
 block ID, header, commit sig, commit, extended commit, block, vote,
 validator and validator set, and proposal, in the same proto wire
 format and field numbers, so bytes written by one package decode in
-the other. The native wirecodec is not loaded. A block's evidence
-(field 4) is each piece's own encoding (``evidence/types.py``).
+the other. Commit encode and decode take the native wire codec
+(``utils/wirecodec.py``) when it is built; the Python paths stay the
+semantic source of truth and the fallback, and the native decoder
+defers to them on any ``ValueError``. A block's evidence (field 4) is
+each piece's own encoding (``evidence/types.py``).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from ..types.block import (
 )
 from ..types.validator_set import Validator, ValidatorSet
 from ..types.vote import Proposal, Vote
-from . import proto
+from . import proto, wirecodec
 
 # --- pubkeys ------------------------------------------------------------
 
@@ -145,6 +148,12 @@ def decode_commit_sig(b: bytes) -> CommitSig:
 
 
 def encode_commit(c: Commit) -> bytes:
+    nat = wirecodec.module()
+    if nat is not None:
+        try:
+            return nat.encode_commit(c.height, c.round, c.block_id.encode(), c.signatures)
+        except Exception:  # pragma: no cover - odd sig shapes
+            pass
     out = proto.field_varint(1, c.height) + proto.field_varint(2, c.round)
     out += proto.field_message(3, c.block_id.encode())
     for cs in c.signatures:
@@ -223,6 +232,27 @@ def _decode_commit_sig_fast(sub: bytes) -> CommitSig:
 def decode_commit(b: bytes) -> Commit:
     if not isinstance(b, (bytes, bytearray, memoryview)):
         raise ValueError(f"expected message bytes, got {type(b).__name__}")
+    nat = wirecodec.module()
+    if nat is not None:
+        try:
+            height, round_, bid_b, sig_ts = nat.decode_commit(bytes(b))
+        except ValueError:
+            # the native reader is at most stricter than the Python one:
+            # input it refuses re-parses below, so behavior is the same
+            # with or without the extension
+            pass
+        else:
+            c = Commit(
+                height=height,
+                round=round_,
+                block_id=decode_block_id(bid_b if bid_b is not None else b""),
+                signatures=[
+                    CommitSig(block_id_flag=f, validator_address=a, timestamp_ns=t, signature=s)
+                    for f, a, t, s in sig_ts
+                ],
+            )
+            c._raw_bytes = bytes(b)
+            return c
     height = round_ = 0
     bid = None
     sigs = []

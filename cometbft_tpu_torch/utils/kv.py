@@ -1,9 +1,11 @@
 """Embedded key-value stores: the block and state stores sit on these.
 
 A copy of the JAX package's ``utils/kv.py`` (the reference's
-cometbft-db seam): ``MemKV`` (a dict, like memdb) and ``SqliteKV``
-(sqlite3, durable and transactional). Keys and values are bytes;
-batches are atomic. The native log-structured ``logdb`` is not ported.
+cometbft-db seam): ``MemKV`` (a dict, like memdb), ``SqliteKV``
+(sqlite3, durable and transactional) and, as ``open_kv("logdb", path)``,
+the native log-structured engine of ``utils/logdb.py`` (the reference's
+goleveldb / pebble role). Keys and values are bytes; batches are
+atomic.
 
 Fix over the JAX package (ROADMAP C2): ``SqliteKV.close`` takes the
 lock every other call holds, so it waits for a ``write_batch`` in
@@ -135,4 +137,10 @@ def open_kv(backend: str, path: Optional[str] = None) -> KV:
         if not path:
             raise ValueError("the sqlite backend needs a path")
         return SqliteKV(path)
+    if backend == "logdb":
+        if not path:
+            raise ValueError("the logdb backend needs a path")
+        from .logdb import LogDB
+
+        return LogDB(path)
     raise ValueError(f"unknown db backend {backend}")

@@ -47,6 +47,12 @@
   ``cometbft_tpu``, and ``start`` without ``--device cpu`` exits non-zero
   with the device error on a machine without a GPU, before it runs
   anything.
+- The host's native lanes (``utils/native.py``, ``utils/wirecodec.py``,
+  ``utils/logdb.py``, ``models/vecbank.py``) are among the modules the
+  probe imports, and a fresh interpreter with its own ``HOME`` loads
+  all four native libraries from ``build/native/`` at the repository
+  root and writes nothing under ``~/.cache/cometbft_tpu``, the JAX
+  package's build directory.
 """
 
 import os
@@ -108,6 +114,9 @@ NETWORK_MODULES = [
     # the operator's node
     "abci.codec", "abci.server", "abci.socket_client", "privval.signer", "rpc.grpc_api",
     "state.psql_sink", "cmd", "cmd.main", "cmd.abci_cli", "__main__",
+    # the host's native lanes
+    "utils.native", "utils.wirecodec", "utils.logdb", "models.vecbank",
+    "state.native_finalize", "crypto.native_verify",
 ]
 
 
@@ -122,6 +131,41 @@ def test_port_imports_no_jax_and_no_reference_package():
     imported = set(proc.stdout.splitlines()[1].split())
     missing = [m for m in NETWORK_MODULES if f"cometbft_tpu_torch.{m}" not in imported]
     assert not missing, missing
+
+
+_LANES_PROBE = """
+import sys
+from cometbft_tpu_torch.crypto import native_verify
+from cometbft_tpu_torch.state import native_finalize
+from cometbft_tpu_torch.utils import logdb, native, wirecodec
+lanes = [native_verify.LANE, wirecodec.LANE, native_finalize.LANE]
+mods = [lane.wait() for lane in lanes]
+assert all(m is not None for m in mods), [lane.reason for lane in lanes]
+assert logdb.available()
+maps = open("/proc/self/maps").read().split()
+print(sorted({p for p in maps if p.endswith(".so") and any(
+    n in p for n in ("_batchverify", "_wirecodec", "_finalize", "liblogdb"))}))
+print(sorted(str(lane.path) for lane in lanes) + [str(native.library("logdb"))])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "cometbft_tpu"))
+print(bad)
+"""
+
+
+def test_native_lanes_load_from_build_native_not_the_jax_cache(tmp_path):
+    """All four native libraries load from ``build/native/`` at the
+    repository root; none is read from or written to the JAX package's
+    ``~/.cache/cometbft_tpu`` (a fresh ``HOME`` stays empty)."""
+    env = dict(os.environ, HOME=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", _LANES_PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    loaded, paths, bad = (eval(line) for line in proc.stdout.splitlines()[-3:])
+    build = REPO / "build" / "native"
+    want = sorted(str(build / n) for n in ("_batchverify.so", "_finalize.so", "_wirecodec.so",
+                                           "liblogdb.so"))
+    assert loaded == want and sorted(paths) == want
+    assert bad == []
+    assert not (tmp_path / ".cache").exists()
 
 
 def test_p2p_layer_imports_no_higher_layer():

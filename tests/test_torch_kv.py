@@ -82,7 +82,12 @@ def test_sqlite_close_waits_for_write_batch_in_flight(tmp_path):
 
 
 def test_open_kv_rejects_unknown_backends():
+    # logdb is a backend since the native lanes came in (utils/logdb.py);
+    # a name neither package has is still refused, and so is a disk
+    # backend without a path
     with pytest.raises(ValueError):
-        kv.open_kv("logdb", "store.db")
+        kv.open_kv("goleveldb", "store.db")
     with pytest.raises(ValueError):
         kv.open_kv("sqlite")
+    with pytest.raises(ValueError):
+        kv.open_kv("logdb")

@@ -192,8 +192,8 @@ def test_process_pool_tier_on_pure_python_fallback(monkeypatch):
     verdicts stay bit-identical."""
     monkeypatch.setattr(crypto_keys, "_HAVE_OSSL", False)
     monkeypatch.setattr(crypto_keys, "_HAVE_CTYPES_OSSL", False)
-    monkeypatch.setattr(native_verify, "_tried", True)
-    monkeypatch.setattr(native_verify, "_mod", None)
+    monkeypatch.setattr(native_verify.LANE, "_tried", True)
+    monkeypatch.setattr(native_verify.LANE, "_mod", None)
     assert not pv._ed25519_releases_gil()
     items = _random_items(8, n_keys=2)
     items[2] = (items[2][0], items[2][1], bytes(64))
