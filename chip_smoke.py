@@ -376,6 +376,48 @@ Phases, each printing one JSON line:
    first prevote wave (native_max_abs_err), with its device time and
    bound at the window.
 
+18. the operations plane, the device route pinned: (a) four validator
+   Nodes over TCP (11a's shape at 256 txs and 8 heights) with every
+   instrumentation setting on: the metrics server on each node's own
+   port, node 0's debug server, the stuck-task watchdog at 30 s, the
+   loop watchdog and tracing with stamps at their defaults. Each
+   node's /metrics is scraped at height 4 and at the end, and must
+   agree with the node's state read around the scrape (the consensus
+   height, the coalescer's dispatches, blocks synced, p2p bytes sent
+   and received, peers); at the end every node's dispatch counter must
+   equal its vote-wave tickets on the card (each a PRIORITY_LIVE
+   ticket), and its loop-lag and propagation histograms must have
+   samples. Node 0's debug server answers /stacks, /heap and a 1 s
+   /profile, each non-empty. The four rings are written as JSONL, read
+   back, rebased, written as one Chrome JSON that must parse, and
+   trace.attribute_heights must give every committed height a complete
+   chain, every ring holding stamped arrivals from the three others;
+   the waterfall is on the line. Every node stops through its
+   ShutdownGuard with no stalled stage; a fifth node whose mempool
+   reactor's stop hangs (and swallows its cancel) must stop within its
+   stage budgets, its flight record naming the switch stage. (b) eight
+   live 150-validator heights, phase 11c's shape, from a stub peer that
+   stamps its sends into a Node on sqlite copies of phase 8's corpus
+   with the plane on: every vote wave one 150-lane PRIORITY_LIVE card
+   ticket, the fourth height's forged precommit dropped, every height
+   the stubs' block with the shadow chain's state; then eight heights
+   with the node's ring, stamps and watchdogs (and the stub's stamps)
+   switched off, nothing new in the ring, and eight with them on
+   again; the median height wall with the plane on beside 11c's and
+   beside the off pass (plane_cost_ms), the per-height attribution
+   from the node's ring and the stub's (proposal, parts, quorum waits,
+   verify, finalize split), loop-lag p50/p95/p99 over the live
+   heights, the stalls with their top frames, and the trace summary's
+   verdicts against tools/span_budgets.toml (reported, not gating). (c) one validator node with the stuck-task
+   watchdog at 2 s: a 0.7 s loop block and a task stuck on one await;
+   the loop watchdog must record exactly one stall, its stack naming
+   the injected function, and the stuck-task watchdog must report the
+   stuck task, and only it, once. The kernels line adds ops_launches
+   (18a/18b/18c) and each kernel against its plain version on 18b's
+   first prevote wave and the forged height's precommit wave
+   (ops_max_abs_err), with its device time and bound at the prevote
+   wave.
+
 The line before last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result line; a run that outlives RUN_LIMIT_S (1,140 s) ends non-zero
@@ -4944,6 +4986,557 @@ def phase_native(dev, gen, snapshot, top, src_rows):
     return launches, items
 
 
+# --- phase 18: the operations plane ---------------------------------------------
+
+OPS_VALS = 4
+OPS_TXS = 256
+OPS_HEIGHTS = 8
+OPS_LIVE_HEIGHTS = 8
+OPS_FORGE_AT = 3  # the fourth live height
+OPS_WATCHDOG_STALL_S = 30.0  # 18a/18b: the stuck-task watchdog's threshold
+OPS_WD_STALL_S = 2.0  # 18c: short, so the stuck task is reported in seconds
+OPS_BLOCK_S = 0.7  # 18c: the injected loop block
+OPS_HANG_BUDGET_S = 0.5  # the hanging node's stage budget (the switch 3x)
+OPS_DEADLINE_S = 120
+# the waits for input a node's idle tasks park on: the stuck-task
+# watchdog (as the JAX one) cannot tell them from a stuck await, so 18c
+# names them and requires every report but the injected one to be one
+OPS_IDLE_WAITS = ("Switch._accept_routine", "IngestQueue._drain", "ReconnectPlane._sweep_routine",
+                  "PexReactor._crawl_routine")
+
+
+def _ops_injected_block(seconds: float) -> None:
+    """18c's loop block: a synchronous sleep on the loop thread, named
+    so the loop watchdog's flight record can be read for it."""
+    time.sleep(seconds)
+
+
+async def _ops_stuck(never) -> None:
+    """18c's stuck task: suspended on one await that is never set."""
+    await never.wait()
+
+
+def _ops_config(home, moniker, **kw):
+    """test_config with the whole operations plane on: the metrics
+    server on a port of its own, the stuck-task watchdog, the loop
+    watchdog and tracing with stamps at their defaults."""
+    from cometbft_tpu_torch.config.config import test_config
+
+    cfg = test_config(home)
+    cfg.base.moniker = moniker
+    cfg.blocksync.enable = False
+    cfg.instrumentation.prometheus = True
+    cfg.instrumentation.prometheus_listen_addr = "127.0.0.1:0"
+    cfg.instrumentation.watchdog_stall_s = OPS_WATCHDOG_STALL_S
+    for k, v in kw.items():
+        sec, _, name = k.partition("__")
+        setattr(getattr(cfg, sec), name, v)
+    return cfg
+
+
+def _http_get(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as f:
+        check(f.status == 200, f"GET {url}: {f.status}")
+        return f.read().decode()
+
+
+def _parse_metrics(text: str) -> dict:
+    """{(sample name, ((label, value), ...)): value} of a /metrics page."""
+    out = {}
+    for ln in text.splitlines():
+        if not ln or ln.startswith("#"):
+            continue
+        head, _, val = ln.rpartition(" ")
+        name, _, labels = head.partition("{")
+        pairs = []
+        for kv in labels.rstrip("}").split(","):
+            if "=" in kv:
+                k, _, v = kv.partition("=")
+                pairs.append((k, v.strip('"')))
+        out[(name, tuple(sorted(pairs)))] = float(val)
+    return out
+
+
+def _metric(m: dict, name: str, **labels) -> float:
+    """The sum of ``name``'s samples whose labels include ``labels``."""
+    want = set(labels.items())
+    vals = [v for (n, ls), v in m.items() if n == name and want <= set(ls)]
+    check(vals, f"metrics: no {name} {labels}")
+    return sum(vals)
+
+
+def phase_operations(dev, gen, privs, snapshot, top, src_rows):
+    """Phase 18: (a) a four-validator net of Nodes over TCP with the
+    whole operations plane on, scraped mid-run and at the end, node 0's
+    debug server read, the four rings exported and attributed, each
+    node stopped through its ShutdownGuard, then a fifth node whose
+    reactor's stop hangs; (b) eight live 150-validator heights from a
+    stamping stub peer into a Node on phase 8's corpus with the plane
+    on, the device route pinned; (c) an injected loop block and a
+    stuck task on one node. Returns the launches of (a), (b) and (c)
+    and, for phase 6, the kernel items of (b)'s first prevote wave and
+    of the forged height's precommit wave."""
+    import asyncio
+    import concurrent.futures
+    import shutil
+
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.node.inprocess import build_node, make_genesis, make_privvals
+    from cometbft_tpu_torch.node.node import Node
+    from cometbft_tpu_torch.obs.budget import default_budget_file, evaluate_budgets, load_budgets
+    from cometbft_tpu_torch.trace import (Tracer, attribute_heights, format_waterfall, percentile, rebase,
+                                          summarize, write_chrome, write_jsonl)
+    from cometbft_tpu_torch.trace.export import read_jsonl
+    from cometbft_tpu_torch.utils import log
+    from cometbft_tpu_torch.utils.chaingen import StubPeer, ValidatorStubs
+
+    t_phase = time.perf_counter()
+    card = smi("name,power.limit")
+    n_vals = len(privs)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "operations")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    floor = batch._MIN_DEVICE_BATCH
+    sched = S.VerifyScheduler()
+    S.set_scheduler(sched)
+    log.set_level("consensus:error,p2p:error,blocksync:error,*:info")
+    loop = asyncio.new_event_loop()
+    # the smoke's own HTTP calls: never the loop's default executor,
+    # which the nodes' internals queue on
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=8, thread_name_prefix="smoke-http")
+    nodes = []  # every Node started here, stopped in the finally
+    launches, items = {}, {}
+
+    async def until(cond, what, timeout=OPS_DEADLINE_S, poll=0.005):
+        deadline = asyncio.get_running_loop().time() + timeout
+        while not cond():
+            check(asyncio.get_running_loop().time() < deadline, f"timed out: {what}")
+            await asyncio.sleep(poll)
+
+    async def get(url):
+        return await asyncio.get_running_loop().run_in_executor(pool, _http_get, url)
+
+    async def scrape(n):
+        """(metrics, state read just before, state read just after)."""
+        def state():
+            return {"height": n.height, "dispatches": n.consensus_reactor.vote_verifier.dispatches,
+                    **_peer_bytes(n)}
+
+        before = state()
+        m = _parse_metrics(await get(f"http://{n.metrics_server.listen_addr}/metrics"))
+        return m, before, state()
+
+    def consistent(n, m, before, after, what):
+        """The scrape agrees with the node's own state between the two
+        reads around it."""
+        cid = {"chain_id": n.genesis.chain_id}
+        h = _metric(m, "cometbft_consensus_height", **cid)
+        check(before["height"] <= h <= after["height"], f"{what}: height gauge {h} outside {before}-{after}")
+        d = _metric(m, "cometbft_crypto_coalesce_dispatches_total", **cid)
+        check(before["dispatches"] <= d <= after["dispatches"], f"{what}: dispatches {d}, state {before}-{after}")
+        synced = _metric(m, "cometbft_blocksync_blocks_synced", **cid)
+        check(synced == n.blocksync_reactor.inner.blocks_applied, f"{what}: blocks synced {synced}")
+        for key, fam in (("sent", "cometbft_p2p_message_send_bytes_total"),
+                         ("received", "cometbft_p2p_message_receive_bytes_total")):
+            v = _metric(m, fam, **cid)
+            check(before[key] <= v <= after[key], f"{what}: {fam} {v} outside {before[key]}-{after[key]}")
+        check(_metric(m, "cometbft_p2p_peers", **cid) == OPS_VALS - 1, f"{what}: peers gauge")
+        return {"height": h, "dispatches": d, "bytes_sent": _metric(m, "cometbft_p2p_message_send_bytes_total"),
+                "loop_lag_count": _metric(m, "cometbft_loop_lag_seconds_count"),
+                "propagation_count": _metric(m, "cometbft_p2p_msg_propagation_seconds_count"),
+                "quorum_count": _metric(m, "cometbft_consensus_quorum_latency_seconds_count"),
+                "queue_depth": {ls[1][1]: v for (nm, ls), v in m.items() if nm == "cometbft_queue_depth"}}
+
+    def owner_of_waves(ns):
+        """owner[i]: the node that submitted the i-th vote-wave ticket
+        (the coalescer's submit is synchronous in its _dispatch)."""
+        owner = []
+        for n in ns:
+            vv = n.consensus_reactor.vote_verifier
+            real = vv._dispatch
+
+            async def dispatch(its, real=real, name=n.config.base.moniker):
+                if its:
+                    owner.append(name)
+                await real(its)
+
+            vv._dispatch = dispatch
+        return owner
+
+    # --- 18a ------------------------------------------------------------------
+    async def ops_net():
+        g4, k4 = make_genesis(OPS_VALS, chain_id="smoke-ops", seed=SEED)
+        pvs = make_privvals(k4, root=root)
+        net = []
+        for i, pv in enumerate(pvs):
+            kw = {"instrumentation__pprof_laddr": "127.0.0.1:0"} if i == 0 else {}
+            net.append(Node(_ops_config(".", f"ops{i}", **kw), g4, privval=pv, device=dev))
+        nodes.extend(net)
+        owner = owner_of_waves(net)
+        for n in net:
+            await n.start()
+        for i, a in enumerate(net):
+            for b in net[i + 1:]:
+                await a.dial(b.listen_addr)
+        await until(lambda: all(n.switch.num_peers() == OPS_VALS - 1 for n in net), "the full mesh")
+        txs = [b"ops%03d=v%03d" % (i, i) for i in range(OPS_TXS)]
+        check(all(net[0].parts.mempool.check_tx(tx).is_ok() for tx in txs), "a tx was refused")
+        t0 = time.perf_counter()
+        await until(lambda: all(n.height >= OPS_HEIGHTS // 2 for n in net), f"height {OPS_HEIGHTS // 2}")
+        mid = [await scrape(n) for n in net]
+        base = f"http://{net[0].debug_server.listen_addr}/debug/pprof"
+        dbg = {}
+        for route in ("stacks", "heap", "profile?seconds=1"):
+            t1 = time.perf_counter()
+            body = await get(f"{base}/{route}")
+            dbg[route.split("?")[0]] = {"bytes": len(body), "seconds": time.perf_counter() - t1,
+                                        "head": body.splitlines()[0][:120] if body else ""}
+        check(all(d["bytes"] > 0 for d in dbg.values()), f"debug server: an empty answer {dbg}")
+
+        def committed():
+            n0 = net[0]
+            return sum(len(n0.parts.block_store.load_block(h).data.txs) for h in range(1, n0.height + 1))
+
+        await until(lambda: all(n.height >= OPS_HEIGHTS for n in net) and committed() >= OPS_TXS,
+                    f"height {OPS_HEIGHTS} with every tx")
+        wall = time.perf_counter() - t0
+        end = [await scrape(n) for n in net]
+        top4 = min(n.height for n in net)
+        for h in range(1, top4 + 1):
+            check(len({n.block_id_hash_at(h) for n in net}) == 1, f"ops net: nodes differ at height {h}")
+        t_stop = {}
+        for n in net:
+            t1 = time.perf_counter()
+            await n.stop()
+            t_stop[n.config.base.moniker] = time.perf_counter() - t1
+            nodes.remove(n)
+        return net, owner, mid, end, dbg, wall, t_stop, top4
+
+    async def hanging_node():
+        g1, k1 = make_genesis(1, chain_id="smoke-ops-hang", seed=SEED)
+        cfg = _ops_config(".", "ops-hang", instrumentation__shutdown_stage_budget_s=OPS_HANG_BUDGET_S)
+        n = Node(cfg, g1, privval=make_privvals(k1, root=root)[0], device=dev)
+        nodes.append(n)
+        await n.start()
+        await until(lambda: n.height >= 1, "the hanging node's first height")
+        release = asyncio.Event()
+        real_stop = n.mempool_reactor.stop
+
+        async def hanging_stop():
+            while not release.is_set():
+                try:
+                    await release.wait()
+                except asyncio.CancelledError:
+                    continue  # the wedge: a stop that swallows its cancel
+
+        n.mempool_reactor.stop = hanging_stop
+        t1 = time.perf_counter()
+        await n.stop()
+        elapsed = time.perf_counter() - t1
+        nodes.remove(n)
+        # release the wedge: the abandoned switch stop finishes, and the
+        # mempool reactor's own stop ends its ingest task
+        release.set()
+        await asyncio.sleep(0.05)
+        await real_stop()
+        return n, elapsed
+
+    # --- 18b ------------------------------------------------------------------
+    live_home, shadow_home = os.path.join(root, "live"), os.path.join(root, "shadow")
+    live_cfg = _ops_config(live_home, "live", base__db_backend="sqlite", consensus__skip_timeout_commit=True,
+                           consensus__timeout_propose_s=30.0, instrumentation__pprof_laddr="127.0.0.1:0")
+    shadow_cfg = _ops_config(shadow_home, "shadow", base__db_backend="sqlite", instrumentation__trace_enabled=False)
+    rows: dict = {}
+    sent: dict = {}
+    live = {}
+
+    async def ops_live_setup():
+        _sqlite_home(live_home, snapshot)
+        node = Node(live_cfg, gen, home=live_home, device=dev)
+        check(node.height == top, f"the live node at {node.height}")
+        nodes.append(node)
+        _record_states(node.parts, rows)
+        await node.start()
+        stub_ring = Tracer(name="stubs", size=1 << 14)
+        stub = StubPeer(gen.chain_id, tracer=stub_ring)
+        live.update(node=node, stub=stub, stub_ring=stub_ring, stampers=(node.switch.stamper, stub.switch.stamper))
+        await stub.connect(node.listen_addr)
+        await until(lambda: node.switch.num_peers() == 1, "the stub peer")
+
+    async def plane(on: bool):
+        """Switch the live node's ring, stamps and both watchdogs (and
+        the stub's stamps) on or off; its metrics and debug servers stay
+        up, idle."""
+        node, stub = live["node"], live["stub"]
+        node.parts.tracer.enabled = live["stub_ring"].enabled = on
+        node.switch.stamper, stub.switch.stamper = live["stampers"] if on else (None, None)
+        for wd in (node.loop_watchdog, node.watchdog):
+            if on:
+                wd.start()
+            else:
+                wd.stop()
+
+    # --- 18c ------------------------------------------------------------------
+    async def ops_watchdogs():
+        g1, k1 = make_genesis(1, chain_id="smoke-ops-wd", seed=SEED)
+        cfg = _ops_config(".", "ops-wd", instrumentation__watchdog_stall_s=OPS_WD_STALL_S, p2p__pex=False)
+        n = Node(cfg, g1, privval=make_privvals(k1, root=root)[0], device=dev)
+        nodes.append(n)
+        await n.start()
+        await until(lambda: n.height >= 2, "the watchdog node's second height")
+        wd, stuck_wd = n.loop_watchdog, n.watchdog
+        stalls0, reported0 = wd.stall_count, len(stuck_wd.stalled)
+        never = asyncio.Event()
+        stuck = asyncio.get_running_loop().create_task(_ops_stuck(never), name="ops-stuck-task")
+        await asyncio.sleep(0.3)
+        t1 = time.perf_counter()
+        _ops_injected_block(OPS_BLOCK_S)
+        blocked = time.perf_counter() - t1
+        await until(lambda: "ops-stuck-task" in [nm for nm, _ in stuck_wd.stalled],
+                    "the stuck-task report", timeout=4 * OPS_WD_STALL_S + 10)
+        await asyncio.sleep(OPS_WD_STALL_S)  # a second report would land here
+        new_stalls = list(wd.stalls)[stalls0:]
+        reported = [(nm, stack) for nm, stack in stuck_wd.stalled[reported0:]]
+        never.set()
+        await stuck
+        height = n.height
+        await n.stop()
+        nodes.remove(n)
+        return n, new_stalls, reported, blocked, height
+
+    try:
+        batch.set_min_device_batch(1)
+        # 18a: four validators over TCP, every instrumentation setting on
+        t_a = time.perf_counter()
+        kernels.reset_counts()
+        with Recorder(sched) as rec:
+            net, owner, mid, end, dbg, wall, t_stop, top4 = loop.run_until_complete(ops_net())
+        launches["18a"] = dict(kernels.LAUNCHES)
+        tickets = rec.rows()
+        waves = [t for t in tickets if t[0] == "vote-wave"]
+        check(len(waves) == len(owner) > 0, f"ops net: {len(waves)} wave tickets, {len(owner)} owned")
+        check(all(r == "device" for *_, r, _ in tickets), "ops net: a ticket left the device route")
+        check(all(p == S.PRIORITY_LIVE for _, p, _, _, _ in waves), "ops net: a wave left the live class")
+        card_tickets = {n.config.base.moniker: sum(1 for o, t in zip(owner, waves) if o == n.config.base.moniker
+                                                    and t[3] == "device") for n in net}
+        scrapes = {}
+        for n, m_mid, m_end in zip(net, mid, end):
+            name = n.config.base.moniker
+            scrapes[name] = {"mid": consistent(n, *m_mid, f"{name} mid"),
+                             "end": consistent(n, *m_end, f"{name} end")}
+            check(n.consensus_reactor.vote_verifier.dispatches == card_tickets[name],
+                  f"{name}: {n.consensus_reactor.vote_verifier.dispatches} dispatches, {card_tickets[name]} card tickets")
+            e = scrapes[name]["end"]
+            check(e["loop_lag_count"] > 0 and e["propagation_count"] > 0,
+                  f"{name}: loop lag / propagation counts {e}")
+            check(n.shutdown_guard is not None and n.shutdown_guard.clean and not n.shutdown_guard.stalls,
+                  f"{name}: stalled shutdown stages {[r['stage'] for r in n.shutdown_guard.stalls]}")
+        check(all(launches["18a"][k] == len(rec.dispatches) == len(tickets) for k in SOURCES),
+              f"ops net: launches {launches['18a']} against {len(tickets)} tickets")
+        # the rings: JSONL and Chrome JSON, read back; the timeline
+        ring_dir = os.path.join(root, "rings")
+        paths = [write_jsonl(os.path.join(ring_dir, f"{n.config.base.moniker}.trace.jsonl"),
+                             n.config.base.moniker, n.parts.tracer.snapshot()) for n in net]
+        rings = read_jsonl(paths)
+        check(sorted(rings) == sorted(n.config.base.moniker for n in net), f"rings read back: {sorted(rings)}")
+        rebased, offsets, _ = rebase(rings)
+        chrome = write_chrome(os.path.join(ring_dir, "merged.json"), rebased)
+        with open(chrome) as f:
+            n_chrome = len(json.load(f)["traceEvents"])
+        heights = attribute_heights(rebased)
+        committed = list(range(1, top4 + 1))
+        check(all(h in heights for h in committed), f"attribution misses heights "
+              f"{[h for h in committed if h not in heights]}")
+        partial = [h for h in committed if not heights[h]["complete"]]
+        check(not partial, f"attribution: partial chains at {partial}: "
+              f"{ {h: heights[h]['missing_arrival'] for h in partial} }")
+        recv_origins = {n: sorted({e["args"]["origin"] for e in evs if e["name"] == "p2p.msg.recv"})
+                        for n, evs in rings.items()}
+        check(all(len(o) == OPS_VALS - 1 for o in recv_origins.values()), f"stamped arrivals: {recv_origins}")
+        hung, hung_s = loop.run_until_complete(hanging_node())
+        g = hung.shutdown_guard
+        stages = [r["stage"] for r in g.stalls]
+        bound_s = 3 * OPS_HANG_BUDGET_S + 1.0 + 6 * OPS_HANG_BUDGET_S  # the switch, its cancel grace, the rest
+        check(stages == ["switch"] and hung_s <= bound_s, f"the hanging node: stages {stages}, {hung_s:.2f} s")
+        check("obs.shutdown.stall" in {e["name"] for e in hung.parts.tracer.snapshot()},
+              "the hanging node's ring has no obs.shutdown.stall")
+        emit("ops_net", validators=OPS_VALS, heights=top4, txs=OPS_TXS, wall_s=wall, card=card,
+             scrapes=scrapes, card_tickets=card_tickets, wave_tickets=len(waves),
+             debug=dbg, rings={n: len(evs) for n, evs in rings.items()}, ring_bytes=sum(os.path.getsize(p)
+                                                                                       for p in paths),
+             chrome_events=n_chrome, clock_offsets_ns=offsets, stamped_arrivals_from=recv_origins,
+             attributed=len(heights), complete=sum(1 for s in heights.values() if s["complete"]),
+             waterfall=format_waterfall(heights).splitlines(),
+             stop_s=t_stop, stalled_stages=0,
+             hanging={"stages": stages, "stop_s": hung_s, "bound_s": bound_s,
+                      "budget_s": OPS_HANG_BUDGET_S, "abandoned": g.abandoned,
+                      "stage_stack_head": str(g.stalls[0].get("stage_stack", ""))[:240]},
+             launches=launches["18a"], seconds=time.perf_counter() - t_a)
+        shutil.rmtree(ring_dir, ignore_errors=True)
+
+        # 18b: eight live heights from the stamping stub, pinned, then
+        # eight with the plane off and eight with it on again (what the
+        # plane costs a height, on one node and one card); the shadow
+        # chain is built before the node's loop runs (its handshake
+        # replay would otherwise hold the loop thread while the node's
+        # watchdog watches it)
+        t_b = time.perf_counter()
+        _sqlite_home(shadow_home, snapshot)
+        shadow = live["shadow"] = build_node(gen, config=shadow_cfg, home=shadow_home, device=dev)
+        stubs = ValidatorStubs(shadow, privs)
+        loop.run_until_complete(ops_live_setup())
+        node, stub, stub_ring = live["node"], live["stub"], live["stub_ring"]
+        cs = node.parts.cs
+        heights = list(range(top + 1, top + 1 + OPS_LIVE_HEIGHTS))
+        reactor = node.consensus_reactor
+        dispatched = reactor.vote_verifier.dispatches
+        stalls0 = node.loop_watchdog.stall_count
+        written0 = node.parts.tracer.stats()["written"]
+        t_live_ns = time.monotonic_ns()
+        kernels.reset_counts()
+        with Recorder(sched) as rec:
+            res = loop.run_until_complete(_play_live(node, rows, stubs, stub, heights, sent, until,
+                                                     forge_at=heights[OPS_FORGE_AT], tag="ops"))
+        launches["18b"] = dict(kernels.LAUNCHES)
+        tickets = rec.rows()
+        check(cs.loop_errors.count == 0, f"ops live: {cs.loop_errors!r}")
+        check(node.parts.app.app_hash == shadow.state.app_hash, "ops live: app hash != the shadow chain's")
+        waves = [t for t in tickets if t[0] == "vote-wave"]
+        check(len(waves) == 2 * OPS_LIVE_HEIGHTS and all(
+            p == S.PRIORITY_LIVE and n == n_vals and r == "device" for _, p, n, r, _ in waves),
+            f"ops live: vote waves {[(lb, p, n, r) for lb, p, n, r, _ in waves]}")
+        check(reactor.vote_verifier.dispatches - dispatched == len(waves), "ops live: reactor dispatches")
+        check(all(launches["18b"][k] == len(tickets) == len(rec.dispatches) for k in SOURCES),
+              f"ops live: launches {launches['18b']} against {len(tickets)} tickets")
+
+        def wave_of(sb):
+            found = [w for w in rec.labelled["vote-wave"] if {m for m, _, _ in w} == {sb}]
+            check(len(found) == 1, f"ops live: {len(found)} vote waves sign the message")
+            return found[0]
+
+        fh = heights[OPS_FORGE_AT]
+        items = {"prevote": wave_of(sent[heights[0]][0]), "precommit": wave_of(sent[fh][1])}
+        check(set(sent[fh][2]) <= {sig for _, _, sig in items["precommit"]},
+              "ops live: the forged precommit is not in its height's wave")
+        # the rings as the first pass left them: with 150 validators'
+        # stamped votes the node's 16,384-slot ring laps within the
+        # three passes (ring_stats says how much a pass writes)
+        ring = node.parts.tracer.snapshot()
+        ring_stats = {**node.parts.tracer.stats(), "written_in_pass": node.parts.tracer.stats()["written"] - written0}
+        att = attribute_heights(rebase({"live": ring, "stubs": stub_ring.snapshot()})[0])
+        # plane off, then on again: the same node, eight heights each
+        passes = {}
+        for label, on in (("off", False), ("on_again", True)):
+            loop.run_until_complete(plane(on))
+            written, t_switch_ns = node.parts.tracer.stats()["written"], time.monotonic_ns()
+            more = list(range(node.height + 1, node.height + 1 + OPS_LIVE_HEIGHTS))
+            with Recorder(sched) as rec2:
+                r2 = loop.run_until_complete(_play_live(node, rows, stubs, stub, more, sent, until, tag=label))
+            t2 = rec2.rows()
+            check(cs.loop_errors.count == 0 and node.parts.app.app_hash == shadow.state.app_hash,
+                  f"ops live {label}: errors or app hash")
+            check(all(r == "device" and p == S.PRIORITY_LIVE for _, p, _, r, _ in t2)
+                  and sum(1 for t in t2 if t[0] == "vote-wave") == 2 * OPS_LIVE_HEIGHTS,
+                  f"ops live {label}: tickets {[(lb, p, r) for lb, p, _, r, _ in t2]}")
+            if not on:
+                # only spans opened before the switch may complete after it
+                late = [e["name"] for e in node.parts.tracer.snapshot()
+                        if e["seq"] >= written and e["ts_ns"] >= t_switch_ns]
+                check(not late, f"ops live off: the ring took {late[:5]}")
+            passes[label] = {"heights": more, "commit_wall_s": [x["walls_s"]["stored"] for x in r2]}
+        m_live = _parse_metrics(loop.run_until_complete(get(f"http://{node.metrics_server.listen_addr}/metrics")))
+        per_height = {}
+        for h in heights:
+            s = att.get(h)
+            check(s is not None and s["proposer"] == "stubs" and "live" in s["committed"],
+                  f"ops live: height {h} not attributed to the stubs' proposal")
+            fin = s["finalize"]["live"]
+            per_height[h] = {"proposal_ms": s["propagation_ms"].get("live"),
+                             "parts_ms": s["parts_ms"].get("live"),
+                             "verify_ms": s["verify_ms"].get("live"),
+                             "quorum_prevote_ms": s["quorum_prevote_ms"].get("live"),
+                             "quorum_precommit_ms": s["quorum_precommit_ms"].get("live"),
+                             "finalize_ms": fin["total_ms"], "persist_ms": fin["persist_ms"],
+                             "wal_ms": fin["wal_ms"], "apply_ms": fin["apply_ms"], "complete": s["complete"]}
+        summary = summarize({"live": ring})
+        verdicts = evaluate_budgets(summary, load_budgets(default_budget_file()))
+        lag = node.loop_watchdog.lag_stats()
+        # the lag beats of the live heights alone, from the ring
+        lags = sorted(e["dur_ns"] / 1e6 for e in ring if e["name"] == "obs.loop.lag" and e["ts_ns"] >= t_live_ns)
+        lag_live = {"samples": len(lags), **{f"p{q}_ms": percentile(lags, q / 100) for q in (50, 95, 99)},
+                    "max_ms": lags[-1] if lags else None}
+        stalls = [{"stalled_s": r["stalled_s"], "subsystem": r["subsystem"], "top": r["loop_stack"][:4]}
+                  for r in list(node.loop_watchdog.stalls)[:8]]
+        walls = [r["walls_s"]["stored"] for r in res]
+        on_walls = walls + passes["on_again"]["commit_wall_s"]
+        off_median = statistics.median(passes["off"]["commit_wall_s"])
+        emit("ops_live", heights=heights, validators=n_vals, route="device (pinned)", card=card,
+             commit_wall_s=walls, commit_wall_median_s=statistics.median(walls),
+             beside_network_live_median_s=EMITTED.get("network_live", {}).get("commit_wall_median_s"),
+             passes=passes, ring=ring_stats, plane_on_median_s=statistics.median(on_walls),
+             plane_off_median_s=off_median,
+             plane_cost_ms=(statistics.median(on_walls) - off_median) * 1e3,
+             per_height=per_height, loop_lag_live_ms=lag_live,
+             loop_lag_ms={k: lag[k] for k in ("samples", "p50_ms", "p95_ms", "p99_ms", "max_ms")},
+             stalls_during_live=node.loop_watchdog.stall_count - stalls0, stalls=stalls,
+             budget_verdicts=[{k: v[k] for k in ("span", "metric", "actual_ms", "budget_ms", "count", "ok")}
+                              for v in verdicts],
+             budget_over=sum(1 for v in verdicts if not v["ok"]),
+             metrics={"loop_lag_count": _metric(m_live, "cometbft_loop_lag_seconds_count"),
+                      "propagation_count": _metric(m_live, "cometbft_p2p_msg_propagation_seconds_count"),
+                      "dispatches": _metric(m_live, "cometbft_crypto_coalesce_dispatches_total")},
+             tickets=[(lb, n, r, w) for lb, _, n, r, w in tickets], launches=launches["18b"],
+             seconds=time.perf_counter() - t_b)
+        loop.run_until_complete(stub.stop())
+        live.pop("stub")
+        loop.run_until_complete(node.stop())
+        nodes.remove(node)
+        check(node.shutdown_guard.clean, f"ops live: stalled stages {node.shutdown_guard.stalls}")
+        shadow.close_stores()
+        live.pop("shadow")
+
+        # 18c: the watchdogs on their injected faults
+        t_c = time.perf_counter()
+        kernels.reset_counts()
+        wd_node, new_stalls, reported, blocked, wd_height = loop.run_until_complete(ops_watchdogs())
+        launches["18c"] = dict(kernels.LAUNCHES)
+        check(len(new_stalls) == 1, f"ops watchdogs: {len(new_stalls)} loop stalls recorded, not 1")
+        rec_stall = new_stalls[0]
+        check(any("_ops_injected_block" in ln for ln in rec_stall["loop_stack"]),
+              f"ops watchdogs: the stall's stack {rec_stall['loop_stack'][:4]}")
+        names = [nm for nm, _ in reported]
+        idle = [(nm, next((w for w in OPS_IDLE_WAITS if w in stack), None)) for nm, stack in reported
+                if nm != "ops-stuck-task"]
+        check(names.count("ops-stuck-task") == 1 and all(w for _, w in idle),
+              f"ops watchdogs: stuck-task reports {names}, idle waits {idle}")
+        check(all(launches["18c"][k] > 0 for k in SOURCES), f"ops watchdogs: launches {launches['18c']}")
+        emit("ops_watchdogs", block_s=OPS_BLOCK_S, blocked_s=blocked, stall={
+            "stalled_s": rec_stall["stalled_s"], "subsystem": rec_stall["subsystem"],
+            "top": rec_stall["loop_stack"][:4]}, stuck_reported=names.count("ops-stuck-task"),
+             idle_waits_reported=[w for _, w in idle], watchdog_stall_s=OPS_WD_STALL_S,
+             heights=wd_height, launches=launches["18c"], card=card, seconds=time.perf_counter() - t_c)
+    finally:
+        batch.set_min_device_batch(floor)
+        log.set_level("info")
+        if "stub" in live:
+            loop.run_until_complete(live["stub"].stop())
+        for n in nodes:
+            loop.run_until_complete(n.stop())
+        if "shadow" in live:
+            live["shadow"].close_stores()
+        loop.close()
+        pool.shutdown(wait=False)
+        S.set_scheduler(None)
+        sched.close()
+        shutil.rmtree(root, ignore_errors=True)
+    emit("ops_phase", seconds=time.perf_counter() - t_phase, budget_s=60, card=card)
+    return launches, items
+
+
 # --- timing and bounds --------------------------------------------------------
 
 
@@ -5166,6 +5759,7 @@ def main(argv) -> int:
     lp2p_launches, lp2p_items = phase_lp2p(dev, gen, privs, *lp2p_corpus)
     op_launches, op_items = phase_operator(dev, gen, privs, *lp2p_corpus)
     native_launches, native_items = phase_native(dev, gen, *net_corpus)
+    ops_launches, ops_items = phase_operations(dev, gen, privs, *net_corpus)
 
     # phase 6: each kernel against its plain version on the main paths'
     # own inputs (the window's lanes and the commit's; the replay's and
@@ -5235,6 +5829,13 @@ def main(argv) -> int:
     nat_calls = {k: stage_calls(xn) for k, xn in x_nat.items()}
     nat_errs = {k: compare(c) for k, c in nat_calls.items()}
     x_natw, natw_calls = x_nat["17a_logdb_widest"], nat_calls["17a_logdb_widest"]
+    # phase 18's own inputs: 18b's first prevote wave and the forged
+    # height's precommit wave, received by a node with the operations
+    # plane on; timed at the prevote wave
+    x_ops = {k: kernel_inputs(its, dev) for k, its in ops_items.items()}
+    ops_calls = {k: stage_calls(xo) for k, xo in x_ops.items()}
+    ops_errs = {k: compare(c) for k, c in ops_calls.items()}
+    x_opsp, opsp_calls = x_ops["prevote"], ops_calls["prevote"]
     emit("main_path_vs_plain", lanes=x["n"], commit_lanes=x_commit["n"],
          replay_lanes=list(x_replay), bisect_lanes=list(x_bisect),
          live_lanes={k: xw["n"] for k, xw in x_waves.items()},
@@ -5244,11 +5845,13 @@ def main(argv) -> int:
          statesync_lanes={k: xs["n"] for k, xs in x_ss.items()},
          lp2p_lanes={k: xl["n"] for k, xl in x_lp.items()},
          operator_lanes={k: xo["n"] for k, xo in x_op.items()},
-         native_lanes={k: xn["n"] for k, xn in x_nat.items()}, equal=True, max_abs_err=errs,
+         native_lanes={k: xn["n"] for k, xn in x_nat.items()},
+         ops_lanes={k: xo["n"] for k, xo in x_ops.items()}, equal=True, max_abs_err=errs,
          commit_max_abs_err=commit_errs, replay_max_abs_err=replay_errs,
          bisect_max_abs_err=bisect_errs, live_max_abs_err=live_errs, net_max_abs_err=net_errs,
          evidence_max_abs_err=ev_errs, serve_max_abs_err=serve_errs, statesync_max_abs_err=ss_errs,
-         lp2p_max_abs_err=lp_errs, operator_max_abs_err=op_errs, native_max_abs_err=nat_errs)
+         lp2p_max_abs_err=lp_errs, operator_max_abs_err=op_errs, native_max_abs_err=nat_errs,
+         ops_max_abs_err=ops_errs)
     rows = []
     for name in ("ladder", "decompress", "hash_digits"):
         f, plain = calls[name]
@@ -5264,6 +5867,7 @@ def main(argv) -> int:
         lp_err = {w: max(e[k] for k in parts) for w, e in lp_errs.items()}
         op_err = {w: max(e[k] for k in parts) for w, e in op_errs.items()}
         nat_err = {w: max(e[k] for k in parts) for w, e in nat_errs.items()}
+        ops_err = {w: max(e[k] for k in parts) for w, e in ops_errs.items()}
         err = max(max(errs[k], commit_errs[k]) for k in parts)
         b_ms, b_by = bound(name, x, int_rate)
         bc_ms, bc_by = bound(name, x_commit, int_rate)
@@ -5277,6 +5881,7 @@ def main(argv) -> int:
         blp_ms, blp_by = bound(name, x_lpp, int_rate)
         bop_ms, bop_by = bound(name, x_opp, int_rate)
         bnat_ms, bnat_by = bound(name, x_natw, int_rate)
+        bops_ms, bops_by = bound(name, x_opsp, int_rate)
         bb_ms, bb_by = bound(name, x_bulk, int_rate)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -5291,9 +5896,10 @@ def main(argv) -> int:
             "lp2p_launches": {ph: ls[name] for ph, ls in lp2p_launches.items()},
             "operator_launches": {ph: ls[name] for ph, ls in op_launches.items()},
             "native_launches": {ph: ls[name] for ph, ls in native_launches.items()},
+            "ops_launches": {ph: ls[name] for ph, ls in ops_launches.items()},
             "max_abs_err": max(err, replay_err, bisect_err, *live_err.values(), *net_err.values(),
                                *ev_err.values(), *serve_err.values(), *ss_err.values(),
-                               *lp_err.values(), *op_err.values(), *nat_err.values()),
+                               *lp_err.values(), *op_err.values(), *nat_err.values(), *ops_err.values()),
             "tolerance": 0,
             "ms": graph_ms(f), "call_ms": cuda_ms(f, 20),
             "plain_ms": cuda_ms(plain, 2, warm=0), "bound_ms": b_ms,
@@ -5358,6 +5964,12 @@ def main(argv) -> int:
             "native_call_ms": cuda_ms(natw_calls[name][0], 20),
             "native_plain_ms": cuda_ms(natw_calls[name][1], 2, warm=0),
             "native_bound_ms": bnat_ms, "native_bound_by": bnat_by,
+            "ops_lanes": {w: xo["n"] for w, xo in x_ops.items()},
+            "ops_max_abs_err": ops_err,
+            "ops_ms": graph_ms(opsp_calls[name][0]),
+            "ops_call_ms": cuda_ms(opsp_calls[name][0], 20),
+            "ops_plain_ms": cuda_ms(opsp_calls[name][1], 2, warm=0),
+            "ops_bound_ms": bops_ms, "ops_bound_by": bops_by,
             "bulk_lanes": N_BULK, "bulk_ms": bulk_ms[name], "bulk_call_ms": bulk_call_ms[name],
             "bulk_bound_ms": bb_ms, "bulk_bound_by": bb_by,
             "bulk_max_abs_err": max(bulk_errs[k] for k in parts),

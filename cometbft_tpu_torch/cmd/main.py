@@ -5,9 +5,10 @@ A copy of the JAX package's ``cmd/main.py``. Commands: init, start,
 testnet, light, replay, rollback, reindex-event, reset and
 unsafe-reset-all, inspect, compact, gen-node-key, gen-validator,
 show-node-id, show-validator, bootstrap-state, signer, abci-server,
-abci-cli and version. ``debug`` and ``load`` raise
-``NotImplementedError`` naming ROADMAP A10, as ``Node`` does for the
-planes the port lacks.
+abci-cli, debug (``dump``/``kill``: a live node's status, net info,
+consensus dump and, with ``--pprof-laddr``, stacks and heap, archived
+by ``utils/debug.collect_debug_dump``) and version. ``load`` raises
+``NotImplementedError`` naming ROADMAP A10: it needs ``e2e/``.
 
 Where the JAX package pins its JAX platform, the port takes
 ``--device`` (default ``cuda``), resolved by ``device.resolve`` for the
@@ -629,6 +630,29 @@ def cmd_bootstrap_state(args) -> int:
     return 0
 
 
+def cmd_debug(args) -> int:
+    """`debug dump` / `debug kill` (reference
+    cmd/cometbft/commands/debug/): archive a live node's status,
+    net_info, consensus dump, and profiles; kill additionally
+    SIGKILLs the node process after the dump."""
+    from ..utils.debug import collect_debug_dump
+
+    path = collect_debug_dump(
+        args.rpc_laddr.replace("tcp://", ""),
+        args.output_dir,
+        pprof_addr=args.pprof_laddr,
+        label=args.debug_cmd,
+    )
+    print(f"wrote {path}")
+    if args.debug_cmd == "kill":
+        if args.pid <= 0:
+            print("debug kill requires --pid <node pid>", file=sys.stderr)
+            return 1
+        os.kill(args.pid, signal.SIGKILL)
+        print(f"killed pid {args.pid}")
+    return 0
+
+
 def cmd_unported(what: str):
     def refuse(args) -> int:
         raise NotImplementedError(f"{what} is not ported to cometbft_tpu_torch yet (ROADMAP A10)")
@@ -704,13 +728,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--height", type=int, default=0)
     p.set_defaults(fn=cmd_bootstrap_state)
 
-    p = sub.add_parser("debug", help="dump/kill a live node (not ported)")
+    p = sub.add_parser("debug", help="dump/kill a live node")
     p.add_argument("debug_cmd", choices=("dump", "kill"))
-    p.add_argument("--pid", type=int, default=0)
+    p.add_argument("--pid", type=int, default=0, help="pid (kill only)")
     p.add_argument("--rpc-laddr", default="127.0.0.1:26657")
     p.add_argument("--pprof-laddr", default="")
     p.add_argument("--output-dir", default=".")
-    p.set_defaults(fn=cmd_unported("debug (utils/debug.py)"))
+    p.set_defaults(fn=cmd_debug)
 
     p = sub.add_parser("load", help="generate tx load and report commit latency (not ported)")
     p.add_argument("--rpc-laddr", default="127.0.0.1:26657")

@@ -21,13 +21,12 @@ broadcast API), ``unsafe`` and the broadcast commit timeout, of
 whose sink needs ``psycopg2``) and ``psql_conn``, ``StateSyncConfig``
 whole, of ``StorageConfig`` the retention and snapshot fields (not
 ``discard_abci_responses``) and of ``InstrumentationConfig`` the
-metrics, profiling and watchdog switches. Those sections take no other
-attribute (slots), so setting a field the port lacks raises
-``AttributeError`` instead of doing nothing, and ``load_toml`` raises
-``ValueError`` on a key or section the port lacks (the JAX loader skips
-it). ``Node`` refuses the settings whose planes the port does not have
-yet (the metrics and debug servers, the watchdog) with
-``NotImplementedError``. One setting defaults differently from the JAX
+metrics, profiling, tracing, watchdog and shutdown fields (not the
+JAX package's runtime sanitizer, which the port does not have). Those
+sections take no other attribute (slots), so setting a field the port
+lacks raises ``AttributeError`` instead of doing nothing, and
+``load_toml`` raises ``ValueError`` on a key or section the port lacks
+(the JAX loader skips it). One setting defaults differently from the JAX
 package: ``rpc.laddr`` is empty, so that a node serves RPC only when
 asked (the JAX ``test_config`` gives every test node an ephemeral RPC
 port; here a test sets ``rpc.laddr`` itself; ROADMAP C10).
@@ -159,11 +158,42 @@ class BlockSyncConfig:
 
 @dataclass(slots=True)
 class InstrumentationConfig:
-    # the metrics and profiling servers and the stuck-task watchdog
-    # are not ported: setting any of these makes Node raise
+    # the metrics server (utils/metrics.py): /metrics on
+    # prometheus_listen_addr; Node.start fails when it cannot export
     prometheus: bool = False
+    prometheus_listen_addr: str = ":26660"
+    # profiling listener (reference pprof_laddr, node/node.go:624):
+    # serves /debug/pprof/{stacks,profile,heap} when set
     pprof_laddr: str = ""
+    # stuck-await watchdog (utils/debug.StuckTaskWatchdog): tasks
+    # suspended at the same await point longer than this are reported
+    # with their stack; 0 disables
     watchdog_stall_s: float = 0.0
+    # the per-node tracing plane (trace/): a fixed-memory event ring;
+    # the disabled fast path is a single attribute check
+    trace_enabled: bool = True
+    # events retained per node (ring slots, preallocated; oldest
+    # events are overwritten once the ring laps)
+    trace_ring_size: int = 16384
+    # cross-node causal tracing: consensus/mempool/blocksync p2p
+    # messages carry a compact trace-context stamp (p2p/tracewire.py).
+    # Decoding and receive-side arrival recording are always on while
+    # the tracer is enabled; this gates only the OUTBOUND stamp
+    trace_msg_stamp: bool = True
+    # the loop watchdog (obs/watchdog.py): a heartbeat measures the
+    # event loop's scheduling lag and a monitor thread flight-records
+    # a stall (thread + task stacks into the trace ring)
+    loop_watchdog: bool = True
+    # heartbeat period (the lag-sample rate; detection latency ~
+    # interval + stall threshold)
+    loop_lag_interval_ms: float = 100.0
+    # loop blocked longer than this => flight record
+    loop_stall_ms: float = 500.0
+    # bounded shutdown (obs/shutdown.py): per-stage budget of
+    # Node._shutdown; an overrunning stage is flight-recorded,
+    # cancelled and, if it ignores the cancel, abandoned so the
+    # remaining stages (store release above all) still run
+    shutdown_stage_budget_s: float = 5.0
 
 
 @dataclass(slots=True)

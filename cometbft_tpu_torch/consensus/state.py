@@ -13,8 +13,7 @@ block executor + TPU signature verification run inline (they are the
 actual work); gossip runs in reactor tasks reading RoundState snapshots.
 
 A copy of the JAX package's ``consensus/state.py``, cut only of the
-runtime sanitizer's hooks and the obs plane's instrumented inbox (a
-plain ``asyncio.Queue``; ``inbox_dropped`` counts what it sheds). Every
+runtime sanitizer's hooks. Every
 signature check that goes to the batch path runs on the state
 machine's ``device`` (None is the GPU, and raises without one;
 ``device="cpu"`` the host plane or the plain kernels): the in-round
@@ -50,6 +49,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 from ..config import ConsensusConfig
 from ..crypto.scheduler import DeviceRouteError
 from ..device import resolve
+from ..obs.queues import InstrumentedQueue
 from ..state.state_types import State
 from ..store.block_store import _decode_part, _encode_part
 from ..trace import NOOP as TRACE_NOOP
@@ -135,10 +135,8 @@ class ConsensusState:
         self._wal_path = wal_path
         self._broadcast_hooks: List[Callable] = []
         self.decided_heights = 0
-        # failed verify routes the receive routine met (C3), and the
-        # inbox items shed when it was full
+        # failed verify routes the receive routine met (C3)
         self.loop_errors = LoopErrors()
-        self.inbox_dropped = 0
         # tracing plane (trace/, docs/TRACE.md): the node build swaps
         # in the real per-node tracer; NOOP keeps call sites
         # unconditional. Step spans are opened/closed across
@@ -196,7 +194,7 @@ class ConsensusState:
 
     async def start(self) -> None:
         self._halting = False
-        self.queue = asyncio.Queue(10000)
+        self.queue = InstrumentedQueue(10000, name="consensus.inbox")
         self.event_bus.set_loop(asyncio.get_running_loop())
         if self._wal_path:
             # a power cut may have left a torn partial record at the
@@ -664,7 +662,7 @@ class ConsensusState:
                     # keep trying the rest — the standard overload
                     # policy; dropping the whole tail would lose a
                     # proposal the flood never resends
-                    self.inbox_dropped += 1
+                    self.queue.count_drop()
         if self.queue is not None:  # only once started
             self._schedule_timeout(
                 0.0
@@ -2187,5 +2185,5 @@ class ConsensusState:
         except asyncio.QueueFull:
             # overload shed: count it, callers keep their existing
             # QueueFull handling
-            self.inbox_dropped += 1
+            self.queue.count_drop()
             raise

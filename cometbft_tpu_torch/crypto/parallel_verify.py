@@ -323,6 +323,10 @@ class ParallelVerifyEngine:
             # chunks cross a pickle boundary: plain tuples only
             items = [(pk, bytes(m), bytes(s)) for pk, m, s in items]
         chunk = self.chunk_size(n)
+        tr = global_tracer()
+        if tr.enabled:
+            tr.instant("crypto.batch.dispatch", tid="crypto", lanes=n, chunk=chunk, tier=self.tier,
+                       workers=self.workers)
         futures = []
         try:
             for start in range(0, n, chunk):
@@ -359,6 +363,15 @@ def engine() -> ParallelVerifyEngine:
         if _ENGINE is None:
             _ENGINE = ParallelVerifyEngine()
         return _ENGINE
+
+
+def dispatch_stats_if_running():
+    """The shared engine's dispatch-queue telemetry, or None when no
+    engine was ever built — the obs registry entry must never CREATE
+    the engine (pool spin-up) just to report an idle plane."""
+    with _ENGINE_LOCK:
+        e = _ENGINE
+    return None if e is None else e.queue_stats()
 
 
 def set_engine(e: Optional[ParallelVerifyEngine]) -> None:

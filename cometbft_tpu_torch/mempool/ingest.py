@@ -15,10 +15,9 @@ Two entries: ``submit_nowait`` (fire-and-forget, p2p inbound —
 bounded queue, drops + counts under overload) and ``await submit``
 (RPC paths that must return the CheckTx verdict).
 
-A copy of the JAX package's ``mempool/ingest.py``; the queue is a plain
-bounded ``asyncio.Queue`` where the JAX module uses the obs plane's
-instrumented one, and neither the statistics that plane reads
-(``queue_stats``) nor the tracer hook is ported.
+A copy of the JAX package's ``mempool/ingest.py``: the queue is the obs
+plane's instrumented one, and ``queue_stats`` is the node's
+``mempool.ingest`` registry entry.
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ import asyncio
 from typing import List, Optional, Tuple
 
 from ..abci import types as abci
+from ..obs.queues import InstrumentedQueue
 from ..utils.log import get_logger
 
 _log = get_logger("mempool.ingest")
@@ -46,7 +46,7 @@ class IngestQueue:
         self.batch_max_txs = max(1, batch_max_txs)
         self.flush_s = max(0.0, batch_flush_ms) / 1000.0
         self.max_queue = max_queue
-        self._q: Optional[asyncio.Queue] = None
+        self._q: Optional[InstrumentedQueue] = None
         self._task: Optional[asyncio.Task] = None
         # counters (metrics surface + tests)
         self.submitted = 0
@@ -65,7 +65,7 @@ class IngestQueue:
             return
         from ..utils.tasks import spawn
 
-        self._q = asyncio.Queue(self.max_queue)
+        self._q = InstrumentedQueue(self.max_queue, name="mempool.ingest")
         self._task = spawn(self._drain(), name="mempool-ingest")
 
     async def stop(self) -> None:
@@ -86,6 +86,17 @@ class IngestQueue:
                     abci.ResponseCheckTx(code=1, log="ingest stopped"),
                 )
 
+    def queue_stats(self):
+        """Backpressure telemetry (obs/queues.py registry entry);
+        ``dropped`` is the plane-lifetime shed count — the live queue
+        is rebuilt on every start()."""
+        q = self._q
+        if q is None:
+            return None
+        s = q.stats()
+        s["dropped"] = self.dropped
+        return s
+
     # --- entries ------------------------------------------------------
 
     def submit_nowait(self, tx: bytes, sender: str = "") -> bool:
@@ -99,6 +110,7 @@ class IngestQueue:
             q.put_nowait((tx, sender, None))
         except asyncio.QueueFull:
             self.dropped += 1
+            q.count_drop()  # unified shed counter (obs/queues.py)
             return False
         self.submitted += 1
         return True

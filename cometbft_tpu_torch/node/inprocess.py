@@ -29,7 +29,12 @@ N nodes' state machines by in-memory delivery; ``make_genesis`` makes a genesis 
 keys come from a seeded ``np.random.default_rng``, as ``bench.py``'s
 replay corpus does, and ``make_privvals`` file-backed signers over
 them. The networked node over these parts is ``node/node.py``'s
-``Node``; tracing is not wired here.
+``Node``. With ``config.instrumentation.trace_enabled`` (the default)
+``build_node`` makes the node's ring tracer (``parts.tracer``, sized
+``trace_ring_size``, anchored by ``record_clock_anchor``), hands it to
+the consensus state (and so its WAL), the mempool, the indexer service
+and the retention plane, and enables the process-wide tracer, as the
+JAX ``build_node`` does.
 
 ``device`` is where the node's signature checks run: None is the GPU
 and raises without one; ``device="cpu"`` runs them on the host plane.
@@ -67,10 +72,32 @@ from ..state.store import Store as StateStore
 from ..statesync.snapshots import SnapshotStore
 from ..store.block_store import BlockStore
 from ..store.retention import RetentionPlane
+from ..trace import NOOP as TRACE_NOOP
+from ..trace import Tracer, enable_global
 from ..types import events as ev
 from ..types.genesis import GenesisDoc
 from ..types.validator_set import Validator
 from ..utils import kv, wirecodec
+
+
+def record_clock_anchor(tracer) -> None:
+    """Stamp a monotonic→wall clock anchor on a freshly-built ring.
+
+    The pair (one monotonic_ns and one time_ns read back-to-back)
+    lets the cross-node timeline tool (trace/timeline.py) rebase
+    rings from different processes onto one wall-clock axis. It lives
+    HERE — in node assembly, not in trace/ — because nothing in the
+    tracing plane reads the wall clock; the anchor rides
+    ``tracer.meta`` (authoritative, survives ring laps) plus a
+    best-effort ``clock.anchor`` instant for raw-event consumers.
+    Idempotent per tracer."""
+    if not getattr(tracer, "enabled", False) or tracer.meta.get("anchor_mono_ns"):
+        return
+    mono = time.monotonic_ns()
+    wall = time.time_ns()
+    tracer.meta["anchor_mono_ns"] = mono
+    tracer.meta["anchor_wall_ns"] = wall
+    tracer.instant_at("clock.anchor", mono, tid="main", wall_ns=wall)
 
 
 @dataclass
@@ -100,6 +127,9 @@ class NodeParts:
     retention: Optional[RetentionPlane] = None
     # on-disk chunked snapshots; None when snapshot generation is off
     snapshot_store: Optional[SnapshotStore] = None
+    # the per-node tracing plane; NOOP when [instrumentation]
+    # trace_enabled = false
+    tracer: Tracer = TRACE_NOOP
 
     def close_stores(self) -> None:
         """Release the store handles and a remote app's connections.
@@ -142,6 +172,14 @@ def build_node(
         config = test_config(home or ".")
         config.base.db_backend = db_backend
     db_backend = config.base.db_backend
+    # tracing plane: one ring per node; the planes shared by every node
+    # (the verify scheduler, the host plane) land on the process-wide
+    # tracer, enabled the first time any tracing node is built
+    tracer = TRACE_NOOP
+    if config.instrumentation.trace_enabled:
+        tracer = Tracer(name=config.base.moniker or "node", size=config.instrumentation.trace_ring_size)
+        record_clock_anchor(tracer)
+        record_clock_anchor(enable_global())
     if db_backend != "memdb":
         if not home:
             raise ValueError(f"the {db_backend} backend needs a home directory")
@@ -204,6 +242,7 @@ def build_node(
         tx_indexer = TxIndexer(index_db)
         block_indexer = BlockIndexer(index_db)
         indexer_service = IndexerService(tx_indexer, block_indexer, event_bus)
+        indexer_service.tracer = tracer
         indexer_service.start()
     elif config.tx_index.indexer == "psql":
         from ..state.psql_sink import PsqlSink
@@ -251,6 +290,8 @@ def build_node(
         evidence_pool=evpool,
         device=device,
     )
+    cs.tracer = tracer
+    mempool.tracer = tracer
     # the retention plane owns all pruning once enabled: the executor's
     # inline prune hands the app's retain_height to it
     retention = RetentionPlane(
@@ -264,6 +305,7 @@ def build_node(
         proxy=proxy,
         wal_path=wal_path,
         home=home,
+        tracer=tracer,
     )
     if retention.enabled:
         block_exec.retention_hook = retention.notify_retain_height
@@ -290,6 +332,7 @@ def build_node(
         indexer_service=indexer_service,
         retention=retention,
         snapshot_store=snapshot_store,
+        tracer=tracer,
     )
 
 

@@ -42,11 +42,20 @@ when ``p2p.pex`` is on (the default). With ``rpc.grpc_laddr`` set the
 node serves the gRPC broadcast API (``rpc/grpc_api.py``) on the same
 RPC environment, whose ``CommitWaiterMap`` its BroadcastTx waits on,
 with or without JSON-RPC; with ``base.proxy_app`` set its app runs out
-of process (``build_node`` dials it). Not ported, and refused with
-``NotImplementedError`` when the config asks for them (ROADMAP A10):
-the metrics and profiling servers and the stuck-task watchdog. The obs
-plane's loop watchdog and staged shutdown guard (A10) are replaced by
-plain per-stage timeouts in ``_shutdown``.
+of process (``build_node`` dials it). The operations plane, as in the
+JAX node: the node's ring tracer (``parts.tracer``) goes to the switch
+and the blocksync reactor, and the switch stamps outbound messages
+(``instrumentation.trace_msg_stamp``; arrivals from stamping peers are
+recorded either way); ``instrumentation.prometheus`` serves
+``utils/metrics.NodeMetrics`` at ``prometheus_listen_addr``,
+``pprof_laddr`` the debug server, ``loop_watchdog`` runs the loop
+watchdog (``loop_watchdog``, built here, started with the node) and
+``watchdog_stall_s`` the stuck-task watchdog (``watchdog``); ``stop``
+and ``kill`` run their stages under an ``obs.ShutdownGuard``
+(``shutdown_guard``, per-stage budget ``shutdown_stage_budget_s``, the
+switch at three times it). A metrics or debug server that cannot bind,
+or a missing ``prometheus_client``, fails ``start`` (the node is
+stopped again first).
 """
 
 from __future__ import annotations
@@ -62,7 +71,7 @@ from ..consensus.reactor import ConsensusReactor
 from ..device import resolve
 from ..evidence.reactor import EvidenceReactor
 from ..mempool.reactor import AppMempoolReactor, MempoolReactor
-from ..obs import QueueRegistry
+from ..obs import LoopWatchdog, QueueRegistry, ShutdownGuard
 from ..p2p import AddrBook, NodeInfo, NodeKey, PexReactor, Switch, TCPTransport
 from ..statesync.reactor import StateSyncReactor
 from ..types.genesis import GenesisDoc
@@ -72,31 +81,12 @@ from .inprocess import NodeParts, build_node
 
 _log = get_logger("node")
 
-# per-stage budget of _shutdown (the JAX default
-# shutdown_stage_budget_s); the switch stage gets three
-SHUTDOWN_STAGE_BUDGET_S = 5.0
-
 
 def _strip_proto(addr: str) -> str:
     for p in ("tcp://", "unix://"):
         if addr.startswith(p):
             return addr[len(p):]
     return addr
-
-
-def _refuse_unported(config: Config) -> None:
-    """NotImplementedError for a setting whose plane the port lacks,
-    naming the ROADMAP item that carries it."""
-    asked = [
-        (config.instrumentation.prometheus, "instrumentation.prometheus (the metrics server)", "A10"),
-        (config.instrumentation.pprof_laddr, "instrumentation.pprof_laddr (the debug server)", "A10"),
-        (config.instrumentation.watchdog_stall_s > 0, "instrumentation.watchdog_stall_s", "A10"),
-    ]
-    for on, what, item in asked:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to cometbft_tpu_torch yet (ROADMAP {item})"
-            )
 
 
 class Node:
@@ -113,7 +103,6 @@ class Node:
         home: Optional[str] = None,
         device=None,
     ):
-        _refuse_unported(config)
         self.config = config
         self.genesis = genesis
         self.device = resolve(device)
@@ -230,6 +219,22 @@ class Node:
         self.switch.add_reactor("statesync", self.statesync_reactor)
         if self.pex_reactor is not None:
             self.switch.add_reactor("pex", self.pex_reactor)
+        # tracing plane: point the networked planes at the node ring
+        # (consensus/mempool/WAL got theirs in build_node)
+        self.switch.tracer = self.parts.tracer
+        self.blocksync_reactor.inner.tracer = self.parts.tracer
+        # cross-node causal tracing: stamp outbound consensus/mempool/
+        # blocksync messages with a trace context so peers record
+        # correlated receive instants. Origin is the moniker (the ring
+        # label). trace_msg_stamp gates only the OUTBOUND stamp — a
+        # node with it off still records arrivals from stamping peers.
+        inst = config.instrumentation
+        if self.parts.tracer.enabled:
+            self.switch.enable_stamping(
+                self.parts.tracer,
+                config.base.moniker or self.node_key.node_id[:8],
+                outbound=inst.trace_msg_stamp,
+            )
         self._adaptive = adaptive
         self._cs_started = False
         self.rpc_server = None
@@ -245,16 +250,62 @@ class Node:
         # share verification work through it; made by
         # _statesync_routine when none was injected
         self.light_header_cache = None
+        self.metrics = None
+        self.metrics_server = None
+        self.debug_server = None
+        self.watchdog = None
+        # last _shutdown's ShutdownGuard (stalled-stage flight
+        # records); set when stop()/kill() runs
+        self.shutdown_guard = None
+        # the loop watchdog is built here (started in start(): it needs
+        # the running loop) so Environment.from_node and the metrics
+        # attach hold a stable reference
+        self.loop_watchdog = (
+            LoopWatchdog(
+                tracer=self.parts.tracer,
+                interval_s=inst.loop_lag_interval_ms / 1e3,
+                stall_s=inst.loop_stall_ms / 1e3,
+                name=config.base.moniker or "node",
+            )
+            if inst.loop_watchdog
+            else None
+        )
         self.queues = QueueRegistry()
         self._register_queues()
 
     def _register_queues(self) -> None:
-        """Point the backpressure registry (obs/queues.py) at the
-        bounded queues the port has. Entries are callables read at
+        """Point the backpressure registry (obs/queues.py) at every
+        bounded queue in the hot planes. Entries are callables read at
         scrape time: planes rebuild queues across start/stop."""
+        from ..crypto.parallel_verify import dispatch_stats_if_running
         from ..crypto.scheduler import sched_stats_if_running
 
         q = self.queues
+        ing = getattr(self.mempool_reactor, "ingest", None)
+        if ing is not None:
+            q.register("mempool.ingest", ing.queue_stats)
+        q.register("consensus.inbox", lambda: None if self.parts.cs.queue is None else self.parts.cs.queue.stats())
+        q.register("events.subs", self.parts.event_bus.queue_stats)
+
+        def p2p_send():
+            depth = hwm = dropped = enqueued = 0
+            seen = False
+            for peer in list(self.switch.peers.values()):
+                mc = getattr(peer, "mconn", None)
+                if mc is None or not hasattr(mc, "send_queue_stats"):
+                    continue
+                seen = True
+                st = mc.send_queue_stats()
+                depth += st["depth"]
+                hwm = max(hwm, st["high_watermark"])
+                dropped += st["dropped"]
+                enqueued += st["enqueued"]
+            if not seen:
+                return None
+            return {"depth": depth, "high_watermark": hwm, "dropped": dropped, "enqueued": enqueued}
+
+        q.register("p2p.send", p2p_send)
+        q.register("crypto.verify.dispatch", dispatch_stats_if_running)
         q.register(
             "rpc.fanout",
             lambda: None if self.rpc_server is None else self.rpc_server.fanout.queue_stats(),
@@ -377,6 +428,12 @@ class Node:
         return self.transport.listen_addr
 
     async def start(self) -> None:
+        if self.config.instrumentation.prometheus:
+            # before anything listens: without prometheus_client the
+            # node cannot export what its config asks for
+            from ..utils.metrics import NodeMetrics
+
+            self.metrics = NodeMetrics(self.genesis.chain_id)
         await self.transport.listen(_strip_proto(self.config.p2p.laddr))
         await self.switch.start()
         _log.info(
@@ -413,6 +470,13 @@ class Node:
                 timeout_s=self.config.rpc.timeout_broadcast_tx_commit_s,
             )
             self.grpc_server.start()
+        try:
+            await self._start_instrumentation()
+        except BaseException:
+            # a server that cannot bind fails the start, the node
+            # stopped again first
+            await self.stop()
+            raise
         # consensus starts now unless a sync phase must complete first
         if self.config.statesync.enable:
             self._statesync_task = asyncio.create_task(self._statesync_routine())
@@ -424,6 +488,34 @@ class Node:
                 [a.strip() for a in self.config.p2p.persistent_peers.split(",") if a.strip()],
                 persistent=True,
             )
+
+    async def _start_instrumentation(self) -> None:
+        """The metrics and debug servers and both watchdogs, in the
+        JAX node's order."""
+        inst = self.config.instrumentation
+        if self.metrics is not None:
+            from ..utils.metrics import MetricsServer
+
+            self.metrics.attach(self)
+            self.metrics_server = MetricsServer(self.metrics)
+            await self.metrics_server.start(_strip_proto(inst.prometheus_listen_addr))
+        if inst.pprof_laddr:
+            # reference node/node.go:624-627: profiling listener by config
+            from ..utils.debug import DebugServer
+
+            self.debug_server = DebugServer(inst.pprof_laddr)
+            await self.debug_server.start()
+        if self.loop_watchdog is not None:
+            # loop-lag heartbeat + stall flight recorder
+            self.loop_watchdog.start()
+        if inst.watchdog_stall_s > 0:
+            from ..utils.debug import StuckTaskWatchdog
+
+            self.watchdog = StuckTaskWatchdog(
+                interval_s=min(5.0, inst.watchdog_stall_s / 2),
+                stall_s=inst.watchdog_stall_s,
+            )
+            self.watchdog.start()
 
     async def kill(self) -> None:
         """Simulated process crash for in-process tests: tear every
@@ -437,35 +529,45 @@ class Node:
     async def stop(self) -> None:
         await self._shutdown(graceful=True)
 
-    async def _stage(self, name: str, aw, budget_s: float) -> bool:
-        """One bounded shutdown stage; False when it ran out of budget
-        (it is then cancelled and the remaining stages still run)."""
-        try:
-            await asyncio.wait_for(aw, budget_s)
-            return True
-        except asyncio.TimeoutError:
-            _log.error("shutdown stage exceeded its budget", node=self.config.base.moniker, stage=name)
-            return False
-
     async def _shutdown(self, graceful: bool) -> None:
-        budget = SHUTDOWN_STAGE_BUDGET_S
+        """Bounded, staged teardown (obs/shutdown.py): every await
+        below runs under a per-stage budget with stop→cancel→abandon
+        escalation, so one wedged sub-plane can never hang the whole
+        stop path — the breach is flight-recorded into the trace ring
+        and the remaining stages (store-handle release above all)
+        still run."""
+        guard = ShutdownGuard(
+            tracer=self.parts.tracer,
+            name=self.config.base.moniker or "node",
+            budget_s=self.config.instrumentation.shutdown_stage_budget_s,
+        )
+        self.shutdown_guard = guard
+        if self.watchdog is not None:
+            self.watchdog.stop()
+        if self.loop_watchdog is not None:
+            self.loop_watchdog.stop()
         if self._statesync_task is not None:
             self._statesync_task.cancel()
+        # kill(): servers still close (an in-process restart must be
+        # able to rebind) — the crash/graceful split is consensus' WAL
+        # handling only
+        if self.metrics_server is not None:
+            await guard.stage("metrics", self.metrics_server.stop())
+        if self.debug_server is not None:
+            await guard.stage("debug", self.debug_server.stop())
         if self.grpc_server is not None:
             self.grpc_server.stop()  # returns at once; grace 0.5 s
         if self.rpc_server is not None:
-            await self._stage("rpc", self.rpc_server.stop(), budget)
+            await guard.stage("rpc", self.rpc_server.stop())
         if self.rpc_env is not None:
-            await self._stage("rpc_env", self.rpc_env.close(), budget)
+            # commit-waiter drain: after both servers so no route can
+            # re-create it mid-teardown
+            await guard.stage("rpc_env", self.rpc_env.close())
         if self._cs_started:
-            await self._stage(
-                "consensus",
-                self.parts.cs.stop() if graceful else self.parts.cs.crash(),
-                budget,
-            )
+            await guard.stage("consensus", self.parts.cs.stop() if graceful else self.parts.cs.crash())
         # the switch stage gets 3x: it contains per-plane bounded stops
         # of its own which must get a chance to run before escalation
-        if not await self._stage("switch", self.switch.stop(), budget * 3):
+        if not await guard.stage("switch", self.switch.stop(), budget_s=guard.budget_s * 3):
             # an abandoned graceful stop must STILL kill every conn fd
             # synchronously — a zombie conn makes remotes dup-discard
             # this node's next incarnation's dials
@@ -474,14 +576,22 @@ class Node:
             except Exception:
                 traceback.print_exc()
         if self.parts.indexer_service is not None:
-            await self._stage("indexer", self.parts.indexer_service.stop(), budget)
+            await guard.stage("indexer", self.parts.indexer_service.stop())
         # before the stores close: a reconcile pass in its worker
         # thread must finish (or be abandoned, bounded) while its dbs
         # are still open
-        await self._stage("retention", self.parts.retention.stop(), budget)
+        await guard.stage("retention", self.parts.retention.stop())
         # release store handles last: a restart in the same process
-        # must be able to reopen every database
-        await self._stage("stores", asyncio.to_thread(self.parts.close_stores), budget)
+        # must be able to reopen every database, even when every stage
+        # above was abandoned
+        await guard.stage("stores", asyncio.to_thread(self.parts.close_stores))
+        if not guard.clean:
+            _log.error(
+                "shutdown completed with stalled stages",
+                node=self.config.base.moniker,
+                stages=[r["stage"] for r in guard.stalls],
+                abandoned=guard.abandoned,
+            )
 
     # --- convenience --------------------------------------------------
 

@@ -7,10 +7,10 @@ flush throttle, and ping/pong keepalive with a pong timeout. Runs over
 a SecretConnection (one packet == one sealed frame).
 
 A copy of the JAX package's ``p2p/conn/connection.py``: the same
-packets, channel scheduling and keepalive, byte for byte. Each channel's
-send queue is a plain bounded ``asyncio.Queue`` where the JAX module
-uses the obs plane's instrumented queue, and the queue statistics that
-plane reads (``send_queue_stats``) are not ported.
+packets, channel scheduling and keepalive, byte for byte; each
+channel's send queue is the obs plane's instrumented queue, and
+``send_queue_stats`` aggregates them for the node's ``p2p.send``
+registry entry.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import traceback
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
+from ...obs.queues import InstrumentedQueue
 from .secret_connection import DATA_MAX_SIZE, SecretConnection
 
 PACKET_PING = 0x01
@@ -71,8 +72,8 @@ class ChannelState:
     chan_id: int
     priority: int = 1
     max_msg_size: int = DEFAULT_MAX_MSG_SIZE
-    queue: asyncio.Queue = field(
-        default_factory=lambda: asyncio.Queue(DEFAULT_SEND_QUEUE_CAPACITY)
+    queue: InstrumentedQueue = field(
+        default_factory=lambda: InstrumentedQueue(DEFAULT_SEND_QUEUE_CAPACITY, name="p2p.send")
     )
     sending: bytes = b""  # remainder of the message currently chunking
     recv_buf: bytearray = field(default_factory=bytearray)
@@ -208,7 +209,8 @@ class MConnection:
         try:
             ch.queue.put_nowait(bytes(msg))
         except asyncio.QueueFull:
-            return False  # shed under overload
+            ch.queue.count_drop()  # shed under overload, counted
+            return False
         self._send_wake.set()
         return True
 
@@ -328,3 +330,25 @@ class MConnection:
             ChannelStatus(c.chan_id, c.queue.qsize(), c.priority)
             for c in self.channels.values()
         ]
+
+    def send_queue_stats(self) -> dict:
+        """Aggregate backpressure telemetry over every channel's send
+        queue (obs/queues.py semantics: depth summed, watermark is
+        the worst single channel, drops summed)."""
+        depth = hwm = dropped = enqueued = 0
+        for ch in self.channels.values():
+            q = ch.queue
+            depth += q.qsize()
+            hwm = max(hwm, q.high_watermark)
+            dropped += q.dropped
+            enqueued += q.enqueued
+        # aggregate entry: no "maxsize" (summed depth must not be
+        # compared against the per-channel bound by health's
+        # full-queue check)
+        return {
+            "depth": depth,
+            "high_watermark": hwm,
+            "dropped": dropped,
+            "enqueued": enqueued,
+            "per_channel_maxsize": DEFAULT_SEND_QUEUE_CAPACITY,
+        }

@@ -19,12 +19,15 @@ Responsibilities (mirroring the reference):
   misbehaving peer (and everything re-routes through reconnect logic)
 - max peer caps + dedup by node ID.
 
-A copy of the JAX package's ``p2p/switch.py`` with two cuts: the
-runtime sanitizer's loop-affinity hooks and trace stamping (outbound
-messages go out unstamped; ``p2p/tracewire.py`` still peels a peer's
-stamp and escapes a magic-prefixed payload, as the JAX switch does).
-``broadcast`` and ``stamp_msg`` keep their signatures, so the reactors
-stay copies. With ``use_autopool`` reactor messages drain through an
+A copy of the JAX package's ``p2p/switch.py`` without the runtime
+sanitizer's loop-affinity hooks. Trace stamping is the JAX one:
+``enable_stamping`` (node wiring, when the node's tracer is on) builds
+a ``tracewire.TraceStamper``; ``broadcast(tkind=...)`` and
+``stamp_msg`` then stamp outbound consensus, mempool and blocksync
+messages and record ``p2p.msg.send``, and every received stamp is
+peeled before dispatch and, with a stamper, recorded as
+``p2p.msg.recv`` (and ``p2p.msg.propagation`` within one clock
+domain). With ``use_autopool`` reactor messages drain through an
 ``utils.autopool.AutoPool`` (2 to 16 workers, started and stopped with
 the switch); a saturated pool dispatches inline. The lp2p switcher
 (``lp2p/switch.py``) subclasses this one.
@@ -107,6 +110,9 @@ class Switch:
         # tracing plane (trace/): peer-count changes land as counter
         # events
         self.tracer = TRACE_NOOP
+        # cross-node stamping plane (p2p/tracewire.py): None until the
+        # node enables it, so the fully-off path is one None check
+        self.stamper = None
         # failed verify routes a reactor's receive raised (C3); a node
         # points this at its consensus state's
         self.loop_errors = LoopErrors()
@@ -444,11 +450,15 @@ class Switch:
         return peer
 
     def _on_peer_msg(self, chan_id: int, msg: bytes, peer: Peer) -> None:
-        # peel an optional trace-context stamp (tracewire) before
-        # channel dispatch: stamped traffic from tracing peers must
-        # interop with this node, which does not trace
+        # cross-node tracing: peel an optional trace-context stamp
+        # (tracewire) before channel dispatch, recording the
+        # correlated receive instant. Decoding is ALWAYS on — stamped
+        # traffic from tracing peers must interop with nodes whose own
+        # stamping (or whole tracer) is off.
         if msg[:2] == tracewire.MAGIC:
-            _, msg = tracewire.unstamp(msg)
+            ctx, msg = tracewire.unstamp(msg)
+            if ctx is not None and self.stamper is not None:
+                self.stamper.on_receive(ctx, peer.peer_id)
         reactor = self.chan_to_reactor.get(chan_id)
         if reactor is None:
             self.stop_peer_for_error(
@@ -530,7 +540,14 @@ class Switch:
         if p:
             spawn(self._remove_peer(p, None))
 
-    # --- broadcast ----------------------------------------------------
+    # --- broadcast / trace stamping -----------------------------------
+
+    def enable_stamping(self, tracer, origin: str, outbound: bool = True) -> None:
+        """Turn on the cross-node tracing plane (node wiring).
+        ``outbound=False`` ([instrumentation] trace_msg_stamp off)
+        keeps receive-side correlation recording while this node's
+        own sends go out unstamped."""
+        self.stamper = tracewire.TraceStamper(tracer, origin, outbound)
 
     def stamp_msg(
         self,
@@ -541,14 +558,20 @@ class Switch:
         round_: int = -1,
         peer: str = "",
     ) -> bytes:
-        """Wire form for a single send (the per-peer gossip routines):
-        the message unchanged — except a payload that happens to begin
-        with the stamp magic, which is escaped (a receiver's peel is
-        always on, so a raw magic-prefixed payload — e.g. an
-        adversarial tx — would otherwise be mutated by it). The trace
-        arguments are those of the JAX signature; the port does not
-        stamp."""
-        return tracewire.encode_plain(msg, self._chan_caps.get(chan_id, 0))
+        """Wire form for a single traced send (the per-peer gossip
+        routines): stamped when the stamping plane is on; otherwise
+        the message unchanged — except a payload that happens to
+        begin with the stamp magic, which is escaped either way
+        (receive-side peel is ALWAYS on, so a raw magic-prefixed
+        payload — e.g. an adversarial tx — would otherwise be
+        mutated by the receiver)."""
+        st = self.stamper
+        if st is None or not st.outbound:
+            return tracewire.encode_plain(msg, self._chan_caps.get(chan_id, 0))
+        return st.wrap(
+            msg, kind, height=height, round_=round_,
+            cap=self._chan_caps.get(chan_id, 0), peer=peer[:12],
+        )
 
     def broadcast(
         self,
@@ -558,9 +581,17 @@ class Switch:
         height: int = 0,
         round_: int = -1,
     ) -> None:
-        """Send to every peer, encoded once (``stamp_msg``'s escape
-        applies: raw txs are attacker-shaped bytes)."""
-        msg = tracewire.encode_plain(msg, self._chan_caps.get(chan_id, 0))
+        """Send to every peer; with ``tkind`` set and stamping on, the
+        message is stamped ONCE with a trace context (one encode per
+        broadcast, one send instant carrying the fan-out). Unstamped
+        broadcasts still escape a magic-prefixed payload (see
+        ``stamp_msg``) — raw txs are attacker-shaped bytes."""
+        st = self.stamper
+        cap = self._chan_caps.get(chan_id, 0)
+        if st is not None and st.outbound and tkind is not None:
+            msg = st.wrap(msg, tkind, height=height, round_=round_, cap=cap, npeers=len(self.peers))
+        else:
+            msg = tracewire.encode_plain(msg, cap)
         for p in list(self.peers.values()):
             p.try_send(chan_id, msg)
 

@@ -5,11 +5,12 @@ Every handler takes (env, **params) and returns a JSON-able dict.
 Heights arrive as strings or ints (JSON-RPC clients send both).
 
 A copy of the JAX package's ``rpc/core.py``: every route of ``ROUTES``
-and ``UNSAFE_ROUTES``, answering with the JAX node's JSON. The planes
-the port lacks (the loop watchdog, the serving fleet; ROADMAP A10) are
-absent from ``Environment``, and ``health``, ``status`` and
-``fleet_status`` answer as the JAX routes do when those fields are
-None; ``health`` gives the retention plane's storage verdict. ``broadcast_evidence`` awaits ``Node.add_evidence``
+and ``UNSAFE_ROUTES``, answering with the JAX node's JSON. The serving
+fleet (ROADMAP A10) is absent from ``Environment``, and ``health``,
+``status`` and ``fleet_status`` answer as the JAX routes do when its
+fields are None; ``health`` gives the loop watchdog's lag and stalls
+and the retention plane's storage verdict, and ``dump_tasks`` every
+task's stack (``obs/watchdog.all_task_stacks``). ``broadcast_evidence`` awaits ``Node.add_evidence``
 (the JAX route calls the pool directly): the commit checks' tickets
 resolve on the loop, and a failed verify route raises
 ``DeviceRouteError`` to the caller, a JSON-RPC ``-32603`` error, while
@@ -23,7 +24,6 @@ import base64
 import hashlib
 import json
 import time
-import traceback
 from typing import Any, Dict, List, Optional
 
 from ..abci import types as abci
@@ -127,14 +127,27 @@ _HEALTH_STALL_RECENT_S = 60.0
 
 
 def health(env) -> Dict[str, Any]:
-    """Runtime health verdict: commit freshness, queue backpressure
-    and connectivity, with a degraded/ok verdict + reasons. The
-    reference returns {} here; every field is additive so `health ==
-    ok` probes keep working. The JAX route's loop-watchdog and
-    serving-fleet parts read planes the port lacks (ROADMAP A10): it
-    answers as the JAX route does when those are None."""
+    """Runtime health verdict: loop responsiveness, commit freshness,
+    queue backpressure and connectivity, with a degraded/ok verdict +
+    reasons. The reference returns {} here; every field is additive so
+    `health == ok` probes keep working. The JAX route's serving-fleet
+    parts read a plane the port lacks (ROADMAP A10): it answers as the
+    JAX route does when that is None."""
     reasons: List[str] = []
     out: Dict[str, Any] = {}
+    wd = env.loop_watchdog
+    if wd is not None:
+        lag = wd.lag_stats()
+        out["loop_lag_ms"] = {k: lag[k] for k in ("p50_ms", "p95_ms", "p99_ms", "max_ms")}
+        out["loop_stalls"] = wd.stall_count
+        if lag["samples"] >= 20 and lag["p95_ms"] > _HEALTH_LAG_P95_MS:
+            reasons.append(f"loop lag p95 {lag['p95_ms']}ms > {_HEALTH_LAG_P95_MS}ms")
+        ago = wd.last_stall_ago_s()
+        if ago is not None and ago < _HEALTH_STALL_RECENT_S:
+            reasons.append(
+                f"loop stall flight-recorded {ago:.0f}s ago "
+                f"(see dump_tasks / the trace ring)"
+            )
     latest = env.block_store.height()
     out["latest_block_height"] = str(latest)
     meta = env.block_store.load_block_meta(latest) if latest else None
@@ -258,33 +271,12 @@ def fleet_status(env) -> Dict[str, Any]:
     raise RPCError(-32603, "this node does not front a serving fleet")
 
 
-# frames kept per task stack in dump_tasks
-_STACK_DEPTH = 25
-
-
-def _all_task_stacks() -> List[dict]:
-    """Every asyncio task's name + formatted stack (a copy of the JAX
-    package's ``obs/watchdog.all_task_stacks``)."""
-    out: List[dict] = []
-    try:
-        tasks = asyncio.all_tasks()
-    except RuntimeError:
-        return out
-    for task in tasks:
-        try:
-            lines: List[str] = []
-            for fr in task.get_stack(limit=_STACK_DEPTH):
-                lines.extend(traceback.format_stack(fr, limit=1)[0].rstrip().splitlines())
-            out.append({"name": task.get_name(), "stack": lines})
-        except Exception:
-            continue
-    return out
-
-
 def dump_tasks(env) -> Dict[str, Any]:
     """Debug route: every asyncio task's stack (the goroutine-dump
     analog, scoped to the loop serving this RPC)."""
-    tasks = _all_task_stacks()
+    from ..obs.watchdog import all_task_stacks
+
+    tasks = all_task_stacks()
     return {"n_tasks": str(len(tasks)), "tasks": tasks}
 
 

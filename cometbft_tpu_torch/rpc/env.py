@@ -1,10 +1,11 @@
 """RPC Environment: the node internals the route handlers read
 (reference rpc/core/env.go + node/node.go:754-788 ConfigureRPC).
 
-A copy of the JAX package's ``rpc/env.py`` without the fields of the
-planes the port lacks (the loop watchdog and the serving fleet,
-ROADMAP A10): the routes that read them answer as the JAX routes do
-when those fields are None. ``retention`` is the node's storage
+A copy of the JAX package's ``rpc/env.py`` without the serving
+fleet's fields (ROADMAP A10): the routes that read them answer as the
+JAX routes do when those fields are None. ``loop_watchdog`` is the
+node's loop watchdog, whose lag the ``health`` route reports, and
+``tracer`` the node's ring (the fan-out hub's spans). ``retention`` is the node's storage
 lifecycle plane, whose stats the ``health`` route reports. ``add_evidence`` is the node's
 ``Node.add_evidence``, which ``broadcast_evidence`` awaits: the commit
 checks' tickets resolve on the loop, and a failed verify route raises
@@ -37,11 +38,13 @@ class Environment:
     privval_pubkey: object = None
     config: object = None
     mempool_reactor: object = None
+    loop_watchdog: object = None  # obs.LoopWatchdog, may be None
     queues: object = None  # obs.QueueRegistry
     # () -> light.serving.VerifiedHeaderCache | None, read lazily: a
     # co-resident serving plane may set the node's shared header cache
     # after this Environment was built
     light_header_cache_fn: object = None
+    tracer: object = None  # node trace ring (fanout.* spans)
     indexer_service: object = None  # batched per-height index drain
     # storage lifecycle plane (store/retention.py): health verdict and
     # stats
@@ -125,8 +128,10 @@ class Environment:
             privval_pubkey=(p.privval.pub_key() if p.privval is not None else None),
             config=node.config,
             mempool_reactor=node.mempool_reactor,
+            loop_watchdog=node.loop_watchdog,
             queues=node.queues,
             light_header_cache_fn=lambda: node.light_header_cache,
+            tracer=p.tracer,
             indexer_service=p.indexer_service,
             retention=p.retention,
             add_evidence=node.add_evidence,

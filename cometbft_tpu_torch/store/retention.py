@@ -36,8 +36,10 @@ store (models/kvstore.py) makes the mirror a no-op.
 
 Observability: ``storage.prune`` / ``storage.snapshot`` spans on the
 node's tracer and the node's ``store.retention`` queue-registry entry
-(``stats()``), which the RPC ``health`` route reports. The JAX
-package's metrics bridge waits for ROADMAP A10.
+(``stats()``), which the RPC ``health`` route reports; with
+``instrumentation.prometheus`` the metrics' span bridge reads the spans
+and the ``cometbft_storage_*`` gauges the plane's counters
+(``utils/metrics.py``).
 """
 
 from __future__ import annotations

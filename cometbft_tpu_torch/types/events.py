@@ -5,9 +5,8 @@ fan-out mirrors the reference's evsw semantics for reactor-internal
 listeners (gossip wakeups must not miss events).
 
 A copy of the JAX package's ``types/events.py`` with a plain
-``threading.Lock`` and ``asyncio.Queue`` where that module takes the
-runtime sanitizer's lock and the obs plane's instrumented queue; so
-``queue_stats`` (the obs registry's view) is not ported.
+``threading.Lock`` where that module takes the runtime sanitizer's
+lock.
 """
 
 from __future__ import annotations
@@ -16,6 +15,8 @@ import asyncio
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
+
+from ..obs.queues import InstrumentedQueue
 
 
 # per-subscriber queue bound: a subscriber that stops draining sheds
@@ -56,8 +57,7 @@ class Subscription:
     ):
         self._bus = bus
         self._match = match
-        self.queue: asyncio.Queue = asyncio.Queue(queue_size)
-        self.dropped = 0
+        self.queue: InstrumentedQueue = InstrumentedQueue(queue_size, name="events.sub")
 
     def _offer(self, event: "Event") -> None:
         """Non-blocking delivery with shed-and-count overflow: when a
@@ -69,7 +69,7 @@ class Subscription:
         try:
             self.queue.put_nowait(event)
         except asyncio.QueueFull:
-            self.dropped += 1
+            self.queue.count_drop()
             self._bus.dropped += 1
 
     def unsubscribe(self):
@@ -126,6 +126,31 @@ class EventBus:
                     self._loop.call_soon_threadsafe(sub._offer, event)
                 else:
                     sub._offer(event)
+
+    def queue_stats(self) -> dict:
+        """Aggregate subscriber-queue backpressure (obs registry):
+        depth summed, watermark = worst subscriber, drops bus-wide."""
+        with self._lock:
+            subs = list(self._subs)
+        depth = hwm = enqueued = 0
+        for sub in subs:
+            q = sub.queue
+            depth += q.qsize()
+            hwm = max(hwm, q.high_watermark)
+            enqueued += q.enqueued
+        # no "maxsize": this entry AGGREGATES over subscribers, and
+        # the health route's full-queue check compares depth against
+        # maxsize — a per-subscriber bound must not be compared with
+        # a summed depth (obs/queues.py convention: aggregates and
+        # soft targets use a differently-named field)
+        return {
+            "depth": depth,
+            "high_watermark": hwm,
+            "enqueued": enqueued,
+            "dropped": self.dropped,
+            "subscribers": len(subs),
+            "subscriber_maxsize": SUBSCRIPTION_QUEUE_SIZE,
+        }
 
     # convenience publishers (reference event_bus.go PublishEventX)
     def publish_type(self, type_: str, data: Any, **attrs) -> None:

@@ -542,9 +542,12 @@ class StubPeer:
     reactor does. ``switcher`` is the stack the stub speaks: ``"tcp"``,
     the p2p ``Switch`` over MConnection, or ``"lp2p"``, an
     ``lp2p.Lp2pSwitch`` (one mux stream a channel) for a node with
-    ``p2p.use_libp2p_equivalent``; either at a node's default rates."""
+    ``p2p.use_libp2p_equivalent``; either at a node's default rates.
+    With a ``tracer`` the stub stamps what it sends (origin ``stubs``)
+    and records its send instants there, as a tracing node's switch
+    does, so a node's ring can attribute the stubs' heights."""
 
-    def __init__(self, chain_id: str, switcher: str = "tcp"):
+    def __init__(self, chain_id: str, switcher: str = "tcp", tracer=None):
         self.node_key = NodeKey.generate()
         self.node_info = NodeInfo(node_id=self.node_key.node_id, network=chain_id, moniker="stubs")
         # a node's rates ([p2p] send_rate / recv_rate): MConnection's
@@ -573,6 +576,8 @@ class StubPeer:
             )
         else:
             raise ValueError(f"unknown switcher {switcher!r}")
+        if tracer is not None:
+            self.switch.enable_stamping(tracer, "stubs")
         self.reactor = StubConsensusReactor()
         self.switch.add_reactor("consensus", self.reactor)
         self.evidence = StubEvidenceReactor()
@@ -583,24 +588,27 @@ class StubPeer:
         await self.switch.start()
         self.peer = await self.switch.dial_peer(addr)
 
-    def _send(self, chan_id: int, msg: bytes) -> None:
+    def _send(self, chan_id: int, msg: bytes, kind: str = "", height: int = 0, round_: int = -1) -> None:
+        if kind:
+            msg = self.switch.stamp_msg(chan_id, msg, kind, height=height, round_=round_)
         if self.peer is None or not self.peer.try_send(chan_id, msg):
             raise ConnectionError("stub peer: the node's connection refused a message")
 
     def deliver_for(self, m: StubHeight) -> Callable:
         def deliver(kind, obj):
             if kind == "proposal":
-                self._send(DATA_CHANNEL, encode_proposal_msg(obj))
+                self._send(DATA_CHANNEL, encode_proposal_msg(obj), "proposal", m.height, m.round)
             elif kind == "block_part":
-                self._send(DATA_CHANNEL, encode_block_part_msg(m.height, m.round, obj))
+                self._send(DATA_CHANNEL, encode_block_part_msg(m.height, m.round, obj), "block_part", m.height,
+                           m.round)
             else:
-                self._send(VOTE_CHANNEL, encode_vote_msg(obj))
+                self._send(VOTE_CHANNEL, encode_vote_msg(obj), "vote", obj.height, obj.round)
 
         return deliver
 
     def send_votes(self, votes) -> None:
         for v in votes:
-            self._send(VOTE_CHANNEL, encode_vote_msg(v))
+            self._send(VOTE_CHANNEL, encode_vote_msg(v), "vote", v.height, v.round)
 
     def send_evidence(self, ev) -> None:
         self._send(EVIDENCE_CHANNEL, ev.encode())

@@ -20,10 +20,10 @@
   tiers, the mempool, blocksync and consensus reactors, ``Node``, the
   stub peer) are among the modules the probe imports. ``Node`` runs on
   the card by default: it raises on a machine without one unless given
-  ``device="cpu"``, and its reactors take its device. The settings
-  whose planes the port lacks (the metrics and debug servers) make
-  ``Node`` raise ``NotImplementedError`` naming the ROADMAP item;
-  ``rpc.laddr`` makes it serve RPC. Every field the port's config shares
+  ``device="cpu"``, and its reactors take its device. The settings of
+  the operations plane (the metrics and debug servers) build a node
+  that serves them, the metrics server where
+  ``prometheus_listen_addr`` says; ``rpc.laddr`` makes it serve RPC. Every field the port's config shares
   with the JAX package's defaults to the JAX value, ``rpc.laddr`` aside
   (ROADMAP C10), and a field the port lacks cannot be set.
 - The RPC and light serving slice's modules (``rpc/``, the indexer,
@@ -53,6 +53,9 @@
   all four native libraries from ``build/native/`` at the repository
   root and writes nothing under ``~/.cache/cometbft_tpu``, the JAX
   package's build directory.
+- The operations plane (the whole ``trace/``, ``obs/``, the tracewire
+  stamper, ``utils/metrics.py``, ``utils/debug.py``) is among the
+  modules the probe imports.
 """
 
 import os
@@ -117,6 +120,10 @@ NETWORK_MODULES = [
     # the host's native lanes
     "utils.native", "utils.wirecodec", "utils.logdb", "models.vecbank",
     "state.native_finalize", "crypto.native_verify",
+    # the operations plane
+    "trace", "trace.tracer", "trace.export", "trace.summary", "trace.timeline", "trace.bridge",
+    "trace.cli", "trace.__main__", "obs.watchdog", "obs.shutdown", "obs.profiler", "obs.budget",
+    "utils.metrics", "utils.debug",
 ]
 
 
@@ -382,23 +389,52 @@ def test_node_raises_without_a_gpu_and_takes_its_device(no_gpu):
     node.parts.close_stores()
 
 
+def _served(node, section, name):
+    """What the node serves for an operations-plane setting: the
+    metrics page or the debug server's stack dump."""
+    import urllib.request
+
+    if name == "prometheus":
+        url = f"http://{node.metrics_server.listen_addr}/metrics"
+    else:
+        url = f"http://{node.debug_server.listen_addr}/debug/pprof/stacks"
+    with urllib.request.urlopen(url, timeout=30) as f:
+        return f.status, f.read().decode()
+
+
 @pytest.mark.parametrize(
     "section, name, value, item",
     [
         ("instrumentation", "prometheus", True, "A10"),
-        ("instrumentation", "pprof_laddr", "127.0.0.1:6060", "A10"),
+        ("instrumentation", "pprof_laddr", "127.0.0.1:0", "A10"),
     ],
 )
 def test_node_refuses_settings_it_does_not_have(section, name, value, item):
+    """The settings the port once refused, naming ROADMAP A10, now
+    build a node that serves them: the metrics page or the debug
+    server's stacks, on a Node that starts and stops on the CPU."""
+    import asyncio
+
     from cometbft_tpu_torch.config.config import test_config as make_test_cfg
     from cometbft_tpu_torch.node.inprocess import make_genesis
     from cometbft_tpu_torch.node.node import Node
 
     gen, _ = make_genesis(1, chain_id="iso-cut")
     cfg = make_test_cfg(".")
+    cfg.instrumentation.prometheus_listen_addr = "127.0.0.1:0"
     setattr(getattr(cfg, section), name, value)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        Node(cfg, gen, device="cpu")
+    node = Node(cfg, gen, device="cpu")
+
+    async def main():
+        await node.start()
+        try:
+            return await asyncio.to_thread(_served, node, section, name)
+        finally:
+            await node.stop()
+
+    status, body = asyncio.run(asyncio.wait_for(main(), 60))
+    assert status == 200
+    assert ('cometbft_p2p_peers{chain_id="iso-cut"}' in body) if name == "prometheus" else ("--- thread" in body)
 
 
 @pytest.mark.parametrize(
@@ -414,10 +450,35 @@ def test_node_refuses_settings_it_does_not_have(section, name, value, item):
 )
 def test_config_takes_no_setting_the_port_ignores(section, name):
     """A JAX setting that nothing in the port reads is not in the
-    port's config, and setting it raises rather than doing nothing."""
+    port's config, and setting it raises rather than doing nothing.
+    ``prometheus_listen_addr`` is read now: the metrics server binds
+    where it says."""
     from cometbft_tpu_torch.config.config import test_config as make_test_cfg
 
     cfg = make_test_cfg(".")
+    if (section, name) == ("instrumentation", "prometheus_listen_addr"):
+        import asyncio
+        import socket
+
+        from cometbft_tpu_torch.node.inprocess import make_genesis
+        from cometbft_tpu_torch.node.node import Node
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        cfg.instrumentation.prometheus = True
+        cfg.instrumentation.prometheus_listen_addr = f"127.0.0.1:{port}"
+        node = Node(cfg, make_genesis(1, chain_id="iso-bind")[0], device="cpu")
+
+        async def main():
+            await node.start()
+            try:
+                return node.metrics_server.listen_addr
+            finally:
+                await node.stop()
+
+        assert asyncio.run(asyncio.wait_for(main(), 60)) == f"127.0.0.1:{port}"
+        return
     with pytest.raises(AttributeError):
         setattr(getattr(cfg, section), name, 1)
 

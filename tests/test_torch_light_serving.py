@@ -1,7 +1,7 @@
 """The port's light serving plane (``light/serving.py``), its client
 seams and HTTP provider held to the JAX package's
 (``tests/test_light_serving.py``, 19 of its 21 cases: the two metrics
-cases wait for ROADMAP A10).
+cases are in ``tests/test_torch_metrics.py``).
 
 Each case is written once over a namespace of one package's classes
 and runs on both, on byte-identical chains (one seeded genesis; the
@@ -96,8 +96,8 @@ def backends():
 
 
 def _port_tracer():
-    """(tracer, names of its spans so far): the port's tracer feeds
-    observers, the JAX one keeps a ring."""
+    """(tracer, names of its completed spans so far, from an
+    observer); the JAX one's are read from its ring."""
     t, names = PTracer(name="t"), set()
     t.add_observer(lambda name, dur, args: names.add(name))
     return t, lambda: names
