@@ -418,6 +418,45 @@ Phases, each printing one JSON line:
    (ops_max_abs_err), with its device time and bound at the prevote
    wave.
 
+19. the serving fleet, the runtime sanitizer and the last network
+   pieces: (a) fleet_storm, bench.py::bench_fleet at full width: a
+   16-height chain of 2 txs a block (utils.chaingen.make_chain), one
+   FanoutHub carrying 30,000 subscribers over four query shapes, then
+   three FollowerNode replicas x 10,000 behind a SessionRouter on the
+   same load (walls, frames/s and their ratio, reported), then the
+   storm pass: the fleet again with 1,000 routed light sessions
+   carrying consistency tokens over 13a's corpus (config 4's chain,
+   13a's memoized provider and schedule), the three replicas'
+   LightServingPlanes sharing one VerifiedHeaderCache on the card,
+   the device route pinned, while replica 0 is killed at height 8.
+   Gates: 0 lost commits (every session's heights equal the store's),
+   the stranded sessions gap-free, 512 kept sessions equal to the
+   store's frames, 0 sheds, 1,000 of 1,000 light sessions served with
+   the minted chain's blocks, every light ticket a PRIORITY_LIGHT card
+   ticket launching each kernel once; re-admit p50/p99 and the
+   fleet.route / fleet.failover spans against tools/span_budgets.toml
+   are reported, not gating. (b) fleet_node: four validator Nodes over
+   TCP from config.toml files written with write_toml and read back
+   with load_toml ([crypto] batch_backend "tpu", the JAX name, on two
+   and "cuda" on two; [fuzz] in delay mode on node 3; [instrumentation]
+   sanitizer on), 128 txs, eight heights; node 0 fronts a
+   SessionRouter ([fleet] section) over a NodeReplica of itself and two
+   FollowerNodes on StoreSources of its block store, with routed
+   sessions on each. Gates: every tx committed once, every vote wave a
+   PRIORITY_LIVE card ticket, fleet_status and health answering with
+   their fleet parts over RPC, every routed session gap-free to the
+   top, node 3's connections fuzzed, and 0 lock-order cycles and 0
+   affinity findings from the process-wide sanitizer (reset before
+   the phase; what phases 1-18 left is on the line). (c)
+   sanitizer_probe, on the host: the scaling probe's four real sites
+   at committee sizes 4-128 against tools/scaling_budgets.toml, the
+   planted quadratic site flagged, inject_lock_inversion showing both
+   finding kinds, and a sanitized lock's acquire-release against the
+   raw lock's. The kernels line adds fleet_launches (19a/19b/19c) and
+   each kernel against its plain version on 19a's widest light ticket
+   and 19b's first prevote wave (fleet_max_abs_err), with its device
+   time and bound at the light ticket.
+
 The line before last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result line; a run that outlives RUN_LIMIT_S (1,140 s) ends non-zero
@@ -2782,7 +2821,9 @@ def phase_serving(dev):
     LightServingPlane and a warm pass on the same plane, the device
     route pinned; the engine's verdicts against the serial checks on
     the card and on the plain kernels. Returns the plane passes'
-    launches and the kernel items of the widest light ticket."""
+    launches, the kernel items of the widest light ticket and the light
+    corpus phase 19a serves again (the memoized provider, the trust
+    root and the session schedule)."""
     import numpy as np
 
     from cometbft_tpu_torch import kernels
@@ -2880,7 +2921,7 @@ def phase_serving(dev):
     emit("serving_storm", validators=BISECT_VALS, target=BISECT_TARGET, distinct=SERVE_DISTINCT,
          sessions=SERVE_SESSIONS, workers=SERVE_WORKERS, route="device (pinned)", launches=launches,
          seconds=time.perf_counter() - t_phase, **out)
-    return launches, widest
+    return launches, widest, {"provider": provider, "trust": trust, "schedule": schedule}
 
 
 async def _rpc_calls(cli, walls, route, **params):
@@ -5537,6 +5578,594 @@ def phase_operations(dev, gen, privs, snapshot, top, src_rows):
     return launches, items
 
 
+# --- phase 19: the serving fleet, the runtime sanitizer, the last network pieces --
+
+
+FLEET_REPLICAS = 3
+FLEET_SUBS = 10_000  # subscribers a replica: 30,000 in all
+FLEET_LIGHT = 1000
+FLEET_HEIGHTS = 16
+FLEET_TXS = 2
+FLEET_KILL_AT = 8
+FLEET_KEEP = 512  # sessions whose every frame is kept and held to the store's
+FLEET_LIGHT_WORKERS = 16
+FLEET_LIGHT_CLIENTS = 2  # light clients a replica's plane
+FLEET_SHAPES = (
+    ("tm.event='NewBlock'", 70),
+    ("tm.event='Tx'", 20),
+    ("tm.event='Tx' AND transfer.lane='l1'", 7),
+    ("tm.event='NewBlockHeader'", 3),  # matches nothing published
+)
+FLEET_READMIT_P99_MS = 20_000.0  # the fleet.failover p99 envelope
+FLEET_NODE_VALS = 4
+FLEET_NODE_TXS = 128
+FLEET_NODE_HEIGHTS = 8
+FLEET_NODE_SESSIONS = 6
+FLEET_DEADLINE_S = 240
+PROBE_SIZES = (4, 16, 64, 128)
+
+
+class _FleetSink:
+    """A routed session's client socket: counts frames, keeps them for
+    the kept sessions, stamps and parses heights where asked."""
+
+    __slots__ = ("count", "keep", "record", "frames", "heights", "stamps")
+    HEIGHT_RE = None  # fleet/router.py's frame-height pattern, set before use
+
+    def __init__(self, keep=False, record=False):
+        self.count = 0
+        self.keep, self.record = keep, record
+        self.frames, self.heights, self.stamps = [], [], []
+
+    async def send_str(self, s):
+        self.count += 1
+        if self.record:
+            self.stamps.append(time.monotonic())
+            m = self.HEIGHT_RE.search(s)
+            if m:
+                self.heights.append(int(m.group(1)))
+        if self.keep:
+            self.frames.append(s)
+
+
+def _fleet_results(block, i, tx):
+    """The ExecTxResult each Tx event carries (bench.py::bench_fleet's:
+    one transfer event whose lane the third query shape selects)."""
+    from cometbft_tpu_torch.abci import types as abci
+
+    return abci.ExecTxResult(code=0, events=[abci.Event("transfer", [abci.EventAttribute("lane", f"l{i % 4}", True)])])
+
+
+def fleet_storm(dev, sched, serve):
+    """19a: bench.py::bench_fleet at full width on the port: a
+    16-height chain of 2 txs a block (utils.chaingen.make_chain, four
+    validators) fed through one StreamSource; one FanoutHub carrying
+    30,000 subscribers over the four query shapes, then three
+    FollowerNode replicas x 10,000 behind a SessionRouter on the same
+    load; then the storm pass: the fleet again with 1,000 routed light
+    sessions (consistency tokens, one VerifiedHeaderCache shared by the
+    three replicas' LightServingPlanes on the card) while replica 0 is
+    killed at height 8. The light corpus is 13a's: BASELINE config 4's
+    chain through 13a's MemoProvider and its 40 heights. Returns the
+    storm pass's launches and the widest light ticket's items."""
+    import asyncio
+    import concurrent.futures
+    import threading
+
+    import numpy as np
+
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.fleet import FollowerNode, SessionRouter, StreamSource
+    from cometbft_tpu_torch.fleet.follower import event_payload, height_events
+    from cometbft_tpu_torch.fleet.router import _HEIGHT_RE
+    from cometbft_tpu_torch.light import Client, LightServingPlane
+    from cometbft_tpu_torch.light.serving import VerifiedHeaderCache
+    from cometbft_tpu_torch.node.inprocess import make_genesis
+    from cometbft_tpu_torch.obs.budget import default_budget_file, evaluate_budgets, load_budgets
+    from cometbft_tpu_torch.rpc.fanout import FanoutHub, _event_attrs
+    from cometbft_tpu_torch.trace import Tracer, summarize
+    from cometbft_tpu_torch.types import events as ev
+    from cometbft_tpu_torch.utils.chaingen import make_chain
+    from cometbft_tpu_torch.utils.pubsub_query import parse as parse_query
+
+    t0_phase = time.perf_counter()
+    _FleetSink.HEIGHT_RE = _HEIGHT_RE
+    total = FLEET_REPLICAS * FLEET_SUBS
+    gen, privs = make_genesis(4, chain_id="smoke-fleet", seed=SEED)
+    src = make_chain(gen, privs, FLEET_HEIGHTS, txs_per_block=FLEET_TXS, device=dev)
+    try:
+        blocks = [src.block_store.load_block(h) for h in range(1, FLEET_HEIGHTS + 1)]
+    finally:
+        src.close_stores()
+    check(all(len(b.data.txs) == FLEET_TXS for b in blocks), "fleet: a block without its txs")
+    flat = [(b.header.height, e) for b in blocks for e in height_events(b, _fleet_results)]
+    draws = np.random.default_rng(107).choice(len(FLEET_SHAPES), size=total,
+                                              p=[w / 100 for _, w in FLEET_SHAPES])
+    shape_of = [int(x) for x in draws]
+    queries = [(qs, parse_query(qs)) for qs, _ in FLEET_SHAPES]
+    # the store-derived expectation every stream is held to: heights
+    # (order, multiplicity, no gap at the splice) and payloads, byte
+    # for byte, inside the hub's envelope
+    exp_heights, expected = [], []
+    for qs, q in queries:
+        matched = [(h, e) for h, e in flat if q.matches(_event_attrs(e))]
+        exp_heights.append([h for h, _ in matched])
+        expected.append([event_payload(e, qs) for _, e in matched])
+    per_shape = [len(x) for x in exp_heights]
+    total_expected = sum(per_shape[s] for s in shape_of)
+    keep = range(FLEET_KEEP)
+
+    def check_content(sinks, where):
+        for sid in keep:
+            prefix = '{"jsonrpc": "2.0", "id": ' + json.dumps(sid) + ', "result": '
+            want = [prefix + payload + "}" for payload in expected[shape_of[sid]]]
+            check(sinks[sid].frames == want,
+                  f"fleet {where}: session {sid}'s frames differ from the store's ({len(sinks[sid].frames)} frames)")
+
+    async def delivered(sinks, what, status=None):
+        deadline = asyncio.get_running_loop().time() + FLEET_DEADLINE_S
+        while sum(s.count for s in sinks) < total_expected:
+            check(asyncio.get_running_loop().time() < deadline,
+                  f"fleet {what}: {sum(s.count for s in sinks)}/{total_expected} frames; {status and status()}")
+            await asyncio.sleep(0.005)
+
+    def hub_pass():
+        sinks = [_FleetSink(keep=sid < FLEET_KEEP) for sid in range(total)]
+        tracer = Tracer(name="hub", size=1 << 16)
+
+        async def run():
+            bus = ev.EventBus()
+            bus.set_loop(asyncio.get_running_loop())
+            hub = FanoutHub(bus, tracer=tracer)
+            for sid in range(total):
+                qs, q = queries[shape_of[sid]]
+                hub.attach(sinks[sid], qs, q, sid)
+            t0 = time.monotonic()
+            for _, e in flat:
+                bus.publish(e)
+                await asyncio.sleep(0)
+            await delivered(sinks, "hub")
+            wall = time.monotonic() - t0
+            stats, enc = hub.queue_stats(), hub.encodes
+            await hub.close()
+            return wall, stats, enc
+
+        wall, stats, enc = asyncio.run(run())
+        check(stats["dropped"] == 0, f"fleet hub: {stats['dropped']} frames shed")
+        check_content(sinks, "hub")
+        return {"wall_s": wall, "frames_per_s": total_expected / wall, "encodes": enc}
+
+    def fleet_pass(planes=None, kill=False):
+        sinks = [_FleetSink(keep=sid < FLEET_KEEP, record=kill) for sid in range(total)]
+        tracer = Tracer(name="fleet", size=1 << 18)
+        out = {"tracer": tracer}
+
+        async def run():
+            source = StreamSource(results_fn=_fleet_results)
+            replicas = [FollowerNode(f"smoke-r{i}", source, light_plane=planes[i] if planes else None,
+                                     poll_s=0.02, tracer=tracer) for i in range(FLEET_REPLICAS)]
+            # heights are fed as fast as delivery allows: transient lag
+            # is the workload here, not a stall (lag shedding is the
+            # tests' case)
+            router = SessionRouter(replicas, store_source=source, max_sessions=total + 64,
+                                   max_lag_heights=FLEET_HEIGHTS + 64, lag_poll_s=0.05, token_wait_s=10.0,
+                                   resume_replay_max=max(64, FLEET_HEIGHTS), tracer=tracer)
+            for r in replicas:
+                await r.start()
+            await router.start()
+            sessions = []
+            for sid in range(total):
+                qs, q = queries[shape_of[sid]]
+                sessions.append(await router.subscribe(sinks[sid], qs, q, sub_id=sid))
+            victim = replicas[0]
+            out["victim_sids"] = [sid for sid, s in enumerate(sessions) if router._sessions.get(s) is victim] \
+                if kill else []
+            futs, ex, lat, got = [], None, [], {}
+            lock = threading.Lock()
+            if planes:
+                loop = asyncio.get_running_loop()
+                ex = concurrent.futures.ThreadPoolExecutor(FLEET_LIGHT_WORKERS, thread_name_prefix="smoke-light")
+                schedule = serve["schedule"]
+
+                def light_one(i):
+                    time.sleep((i % 100) * 0.003)  # spread across the ingest window
+                    t = time.monotonic()
+                    lb = router.serve_light(schedule[i], router.issue_token())
+                    with lock:
+                        lat.append((time.monotonic() - t) * 1e3)
+                        got[i] = lb
+
+                futs = [loop.run_in_executor(ex, light_one, i) for i in range(FLEET_LIGHT)]
+            t0 = time.monotonic()
+            for h, blk in enumerate(blocks, 1):
+                source.advance(blk)
+                await asyncio.sleep(0)
+                if kill and h == FLEET_KILL_AT:
+                    # the victim must be mid-stream: it serves through
+                    # this height, then dies with heights still coming
+                    while victim.served_height() < h:
+                        await asyncio.sleep(0.002)
+                    out["t_kill"] = time.monotonic()
+                    await victim.kill()
+            await delivered(sinks, "fleet", lambda: router.fleet_status()["sheds"])
+            out["wall"] = time.monotonic() - t0
+            if futs:
+                await asyncio.gather(*futs)
+                ex.shutdown(wait=True)
+            out["encodes"] = sum(r.fanout.encodes for r in replicas)
+            out["status"] = router.fleet_status()
+            out["light_lat"], out["light_blocks"] = sorted(lat), got
+            await router.close()
+            for r in replicas:
+                await r.stop()
+
+        asyncio.run(run())
+        st = out["status"]
+        check(st["sheds"] == {"admit": 0, "lag": 0, "failover": 0}, f"fleet: sessions shed {st['sheds']}")
+        check_content(sinks, "storm" if kill else "fleet")
+        return sinks, out
+
+    hub = hub_pass()
+    _, f = fleet_pass()
+    fleet = {"wall_s": f["wall"], "frames_per_s": total_expected / f["wall"], "encodes": f["encodes"]}
+
+    # the storm pass: the light planes are built (their clients' trust
+    # roots checked) before the launches are counted; from there on
+    # every ticket is a plane's
+    provider, trust = serve["provider"], serve["trust"]
+    shared = VerifiedHeaderCache(provider.chain_id)
+    planes = [LightServingPlane([Client(provider.chain_id, trust, provider, device=dev)
+                                 for _ in range(FLEET_LIGHT_CLIENTS)],
+                                max_sessions=FLEET_LIGHT + 64, max_inflight=FLEET_LIGHT_WORKERS, cache=shared,
+                                device=dev) for _ in range(FLEET_REPLICAS)]
+    minted = provider.minted
+    before = sched.stats()
+    kernels.reset_counts()
+    with Recorder(sched) as rec:
+        s_sinks, s = fleet_pass(planes, kill=True)
+    launches = dict(kernels.LAUNCHES)
+    after = sched.stats()
+    tickets = rec.rows()
+    st, victims = s["status"], s["victim_sids"]
+    check(victims and s.get("t_kill") is not None, "fleet storm: no replica was killed")
+    check(st["failovers"] >= 1 and st["sessions_resumed"] == len(victims),
+          f"fleet storm: {st['sessions_resumed']}/{len(victims)} stranded sessions resumed")
+    lost = sum(1 for sid in range(total) if s_sinks[sid].heights != exp_heights[shape_of[sid]])
+    check(lost == 0, f"fleet storm: {lost} sessions lost or reordered commits across the kill")
+    stranded_gap_free = all(s_sinks[sid].heights == exp_heights[shape_of[sid]] for sid in victims)
+    readmit = sorted((next(ts for ts in s_sinks[sid].stamps if ts > s["t_kill"]) - s["t_kill"]) * 1e3
+                     for sid in victims if any(ts > s["t_kill"] for ts in s_sinks[sid].stamps))
+    check(readmit, "fleet storm: no stranded session saw a frame after the kill")
+    check(_rank(readmit, 0.99) <= FLEET_READMIT_P99_MS, f"fleet storm: re-admit p99 {_rank(readmit, 0.99)} ms")
+    served = s["light_blocks"]
+    check(len(served) == FLEET_LIGHT, f"fleet storm: {len(served)}/{FLEET_LIGHT} light sessions served")
+    bad = [i for i, lb in served.items() if lb.hash() != provider.light_block(serve["schedule"][i]).hash()]
+    check(not bad, f"fleet storm: light sessions {bad[:5]} got blocks other than the minted chain's")
+    check(st["tokens_issued"] >= FLEET_LIGHT, f"fleet storm: {st['tokens_issued']} tokens issued")
+    check(tickets and all(p == S.PRIORITY_LIGHT and r == "device" for _, p, _, r, _ in tickets),
+          f"fleet storm: a light ticket left the light class or the card: "
+          f"{sorted({(p, r) for _, p, _, r, _ in tickets})}")
+    moved = {k: after[k] - before[k] for k in ("device_dispatches", "host_chunks", "degraded")}
+    check(moved == {"device_dispatches": len(tickets), "host_chunks": 0, "degraded": 0},
+          f"fleet storm: scheduler {moved} against {len(tickets)} tickets")
+    check(all(launches[k] == len(tickets) == len(rec.dispatches) for k in SOURCES),
+          f"fleet storm: launches {launches} against {len(tickets)} light tickets")
+    check(all(d["device"] == str(dev) and all(d["launches"][k] == 1 for k in SOURCES) for d in rec.dispatches),
+          "fleet storm: a dispatch did not launch each kernel once")
+    sheds = {i: p.stats() for i, p in enumerate(planes)}
+    check(all(x["requests_shed"] == 0 and x["sessions_shed"] == 0 for x in sheds.values()),
+          f"fleet storm: a light plane shed {sheds}")
+    widest = max(rec.labelled.get("jobs", []), key=len)
+    tsum = summarize({"fleet": s["tracer"].snapshot()})
+    spans = {name: {k: v[k] for k in ("count", "total_ms", "p50_ms", "p99_ms", "max_ms")}
+             for name, v in tsum.get("fleet", {}).items() if name.startswith("fleet.")}
+    verdicts = [v for v in evaluate_budgets(tsum, load_budgets(default_budget_file()))
+                if v["span"] in ("fleet.route", "fleet.failover")]
+    light_lat = s["light_lat"]
+    emit("fleet_storm", replicas=FLEET_REPLICAS, sessions=total, shapes=[qs for qs, _ in FLEET_SHAPES],
+         heights=FLEET_HEIGHTS, txs_per_height=FLEET_TXS, expected_frames=total_expected, hub=hub, fleet=fleet,
+         aggregate_ratio=fleet["frames_per_s"] / hub["frames_per_s"],
+         storm={"wall_s": s["wall"], "frames_per_s": total_expected / s["wall"], "kill_at": FLEET_KILL_AT,
+                "killed_sessions": len(victims), "resumed": st["sessions_resumed"], "failovers": st["failovers"],
+                "stranded_gap_free": stranded_gap_free, "lost_commits": lost,
+                "readmit_p50_ms": _rank(readmit, 0.50), "readmit_p99_ms": _rank(readmit, 0.99),
+                "sheds": st["sheds"], "kept_sessions_equal_to_store": len(keep),
+                "kept_with_frames": sum(1 for sid in keep if per_shape[shape_of[sid]])},
+         light={"sessions": FLEET_LIGHT, "served": len(served), "distinct_heights": len(set(serve["schedule"])),
+                "validators": len(served[0].validator_set.validators), "workers": FLEET_LIGHT_WORKERS, **_pcts(light_lat),
+                "tokens_issued": st["tokens_issued"], "minted_in_pass": provider.minted - minted,
+                "cache": shared.stats(), "ticket_lanes": [n for _, _, n, _, _ in tickets],
+                "ticket_walls": ticket_walls([(n, r, w) for _, _, n, r, w in tickets]),
+                "tickets_by_class": {name: sum(t[1] == c for t in tickets) for c, name in enumerate(S.CLASS_NAMES)},
+                "scheduler": moved, "route": "device (pinned)"},
+         spans=spans, budget_verdicts=[{k: v[k] for k in ("span", "metric", "actual_ms", "budget_ms", "count", "ok")}
+                                       for v in verdicts],
+         budget_over=sum(1 for v in verdicts if not v["ok"]), launches=launches,
+         seconds=time.perf_counter() - t0_phase)
+    return launches, widest
+
+
+def fleet_node(dev, sched, root):
+    """19b: four validator Nodes over TCP built from config.toml files
+    written with write_toml and read back with load_toml: [crypto]
+    batch_backend "tpu" (the JAX name, so "cuda") on nodes 0-1 and
+    "cuda" on 2-3, [fuzz] in delay mode on node 3, [instrumentation]
+    sanitizer on everywhere (the process-wide sanitizer reset first).
+    Node 0 serves RPC and fronts a SessionRouter ([fleet] section)
+    over a NodeReplica of itself and two FollowerNodes on StoreSources
+    of its block store, with routed sessions on each; 128 txs into node
+    0's mempool, eight heights. Returns the launches and the first
+    prevote wave's items."""
+    import asyncio
+
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.analysis import runtime
+    from cometbft_tpu_torch.config.config import load_toml, test_config, write_toml
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.fleet import FollowerNode, NodeReplica, SessionRouter, StoreSource
+    from cometbft_tpu_torch.node.inprocess import make_genesis, make_privvals
+    from cometbft_tpu_torch.node.node import Node
+    from cometbft_tpu_torch.p2p.fuzz import FuzzedConnection
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+
+    t0_phase = time.perf_counter()
+    san = runtime.get_sanitizer()
+    earlier = san.snapshot()
+    earlier_kinds = {k: sum(f["kind"] == k for f in earlier) for k in {f["kind"] for f in earlier}}
+    san.reset()
+    loop = asyncio.new_event_loop()
+    nodes, out = [], {}
+
+    async def until(cond, what, timeout=FLEET_DEADLINE_S, poll=0.005):
+        deadline = asyncio.get_running_loop().time() + timeout
+        while not cond():
+            check(asyncio.get_running_loop().time() < deadline, f"timed out: {what}")
+            await asyncio.sleep(poll)
+
+    def config(i):
+        home = os.path.join(root, f"node{i}")
+        cfg = test_config(home)
+        cfg.base.moniker = f"fleet{i}"
+        cfg.blocksync.enable = False
+        cfg.rpc.laddr = "tcp://127.0.0.1:0" if i == 0 else ""
+        cfg.crypto.batch_backend = "tpu" if i < 2 else "cuda"
+        cfg.instrumentation.sanitizer = True
+        if i == 3:
+            cfg.fuzz.enable, cfg.fuzz.mode = True, "delay"
+            cfg.fuzz.prob_sleep, cfg.fuzz.max_delay_ms, cfg.fuzz.seed = 0.05, 50, SEED
+        path = os.path.join(home, "config", "config.toml")
+        write_toml(cfg, path)
+        back = load_toml(path)
+        check(back == cfg, f"fleet node {i}: config.toml did not read back")
+        return back
+
+    async def run():
+        gen, keys = make_genesis(FLEET_NODE_VALS, chain_id="smoke-fleet-node", seed=SEED)
+        os.makedirs(os.path.join(root, "pv"))
+        pvs = make_privvals(keys, root=os.path.join(root, "pv"))
+        cfgs = [config(i) for i in range(FLEET_NODE_VALS)]
+        for cfg, pv in zip(cfgs, pvs):
+            nodes.append(Node(cfg, gen, privval=pv, device=dev))
+        check(batch.default_backend() == "cuda", f"fleet node: backend {batch.default_backend()}, not cuda")
+        check(all(isinstance(n.parts.block_store._lock, runtime.SanitizedLock) for n in nodes),
+              "fleet node: a block store's lock is not sanitized")
+        for n in nodes:
+            await n.start()
+        for i, a in enumerate(nodes):
+            for b in nodes[i + 1:]:
+                await a.dial(b.listen_addr)
+        await until(lambda: all(n.switch.num_peers() == FLEET_NODE_VALS - 1 for n in nodes), "the full mesh")
+        n0 = nodes[0]
+        fc = n0.config.fleet
+        source = StoreSource(n0.parts.block_store)
+        followers = [FollowerNode(f"follower{i}", source, poll_s=0.01) for i in range(2)]
+        router = SessionRouter([NodeReplica(n0, name="node0"), *followers], store_source=source,
+                               max_sessions=fc.max_sessions, admit_timeout_s=fc.admit_timeout_s,
+                               max_lag_heights=fc.max_lag_heights, lag_poll_s=fc.lag_poll_s,
+                               token_wait_s=fc.token_wait_s, resume_replay_max=fc.resume_replay_max)
+        for f in followers:
+            await f.start()
+        await router.start()
+        n0.rpc_env.fleet_router = router
+        sinks = [_FleetSink(keep=True) for _ in range(FLEET_NODE_SESSIONS)]
+        sessions = [await router.subscribe(s, "tm.event='NewBlock'", sub_id=i) for i, s in enumerate(sinks)]
+        start_h = n0.height
+        txs = [b"fleet%03d=v%03d" % (i, i) for i in range(FLEET_NODE_TXS)]
+        check(all(n0.parts.mempool.check_tx(tx).is_ok() for tx in txs), "fleet node: a tx was refused")
+        t0 = time.perf_counter()
+        top = start_h + FLEET_NODE_HEIGHTS
+        await until(lambda: all(n.height >= top for n in nodes), f"height {top}")
+        wall = time.perf_counter() - t0
+        await until(lambda: all(f.served_height() >= top for f in followers), "the followers at the top")
+        cli = HTTPClient(n0.rpc_server.listen_addr)
+        try:
+            fs = await cli.call("fleet_status")
+            health = await cli.call("health")
+        finally:
+            await cli.close()
+        committed = [tx for h in range(1, n0.height + 1) for tx in n0.parts.block_store.load_block(h).data.txs]
+        for h in range(1, top + 1):
+            check(len({n.block_id_hash_at(h) for n in nodes}) == 1, f"fleet node: nodes differ at height {h}")
+        placed = {router._sessions[s].name for s in sessions}
+        heights = [[int(json.loads(f)["result"]["data"]["value"]["block"]["header"]["height"]) for f in s.frames]
+                   for s in sinks]
+        fuzzed = [p.mconn.sconn for p in nodes[3].switch.peers.values()]
+        n0.rpc_env.fleet_router = None
+        await router.close()
+        for f in followers:
+            await f.stop()
+        ran = list(nodes)
+        for n in ran:
+            await n.stop()
+            nodes.remove(n)
+        waves = sum(n.consensus_reactor.vote_verifier.dispatches for n in ran)
+        return {"wall_s": wall, "start_height": start_h, "top": top, "committed": committed, "txs": txs,
+                "fleet_status": fs, "health": health, "placed": sorted(placed), "session_heights": heights,
+                "fuzzed": fuzzed, "waves": waves}
+
+    try:
+        kernels.reset_counts()
+        with Recorder(sched) as rec:
+            r = loop.run_until_complete(run())
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        for n in nodes:
+            loop.run_until_complete(n.stop())
+        # a vote that arrived during the stops may have opened a
+        # coalescer window: end what is left before the loop closes
+        async def end(tasks):
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+
+        loop.run_until_complete(end(asyncio.all_tasks(loop)))
+        loop.close()
+    tickets = rec.rows()
+    counts = {tx: r["committed"].count(tx) for tx in r["txs"]}
+    check(all(c == 1 for c in counts.values()), f"fleet node: txs committed {sorted(set(counts.values()))} times")
+    waves = [t for t in tickets if t[0] == "vote-wave"]
+    check(len(waves) == r["waves"] > 0 and all(rt == "device" and p == S.PRIORITY_LIVE for _, p, _, rt, _ in waves),
+          f"fleet node: {len(waves)} vote-wave tickets against {r['waves']} reactor dispatches, or one left the card")
+    check(all(rt == "device" for _, _, _, rt, _ in tickets), "fleet node: a ticket left the device route")
+    check(all(launches[k] == len(rec.dispatches) == len(tickets) for k in SOURCES),
+          f"fleet node: launches {launches} against {len(tickets)} tickets")
+    fs, health = r["fleet_status"], r["health"]
+    check([x["name"] for x in fs["replicas"]] == ["node0", "follower0", "follower1"]
+          and fs["sessions"] == FLEET_NODE_SESSIONS and fs["sheds"] == {"admit": 0, "lag": 0, "failover": 0},
+          f"fleet node: fleet_status {fs}")
+    check([x["name"] for x in health["fleet"]["replicas"]] == ["node0", "follower0", "follower1"]
+          and all(x["alive"] and not x["degraded"] for x in health["fleet"]["replicas"]),
+          f"fleet node: health's fleet part {health.get('fleet')}")
+    for hs in r["session_heights"]:
+        check(hs and hs == list(range(hs[0], hs[0] + len(hs))) and hs[-1] >= r["top"],
+              f"fleet node: a routed session's heights {hs[:3]}..{hs[-3:]} are not gap-free to the top")
+    check(len(r["fuzzed"]) == FLEET_NODE_VALS - 1 and all(isinstance(c, FuzzedConnection) for c in r["fuzzed"]),
+          f"fleet node: node 3's connections {[type(c).__name__ for c in r['fuzzed']]}")
+    findings = san.snapshot()
+    kinds = {k: sum(f["kind"] == k for f in findings) for k in ("lock-order-cycle", "loop-affinity")}
+    check(kinds == {"lock-order-cycle": 0, "loop-affinity": 0},
+          f"fleet node: sanitizer findings {[f['message'] for f in findings][:4]}")
+    stats = san.stats()
+    emit("fleet_node", validators=FLEET_NODE_VALS, heights=[r["start_height"] + 1, r["top"]], txs=FLEET_NODE_TXS,
+         txs_committed_once=True, wall_s=r["wall_s"], backends={"nodes 0-1": "tpu", "nodes 2-3": "cuda",
+                                                               "applied": batch.default_backend()},
+         fleet_status=fs, health={k: health[k] for k in ("status", "serving_role", "replica_lag_heights", "fleet")},
+         routed_sessions={"count": FLEET_NODE_SESSIONS, "placed_on": r["placed"],
+                          "heights": [[hs[0], hs[-1]] for hs in r["session_heights"]]},
+         fuzz_node3={"mode": "delay", "prob_sleep": 0.05, "max_delay_ms": 50, "connections": len(r["fuzzed"]),
+                     "dropped_writes": sum(c.dropped_writes for c in r["fuzzed"]),
+                     "dropped_reads": sum(c.dropped_reads for c in r["fuzzed"])},
+         sanitizer={"findings_by_kind": kinds, "lock_acquires": stats["lock_acquires"], "edges": stats["edges"],
+                    "tagged": stats["tagged"], "before_this_phase": earlier_kinds},
+         vote_waves=len(waves), tickets=len(tickets), launches=launches, seconds=time.perf_counter() - t0_phase)
+    return launches, rec.labelled["vote-wave"][0]
+
+
+def sanitizer_probe():
+    """19c, on the host: the scaling probe's four real sites through
+    the port's VoteSet, commit checks, PeerVoteCursor and FanoutHub at
+    committee sizes 4-128, each exponent against
+    tools/scaling_budgets.toml; the planted quadratic site must be
+    flagged; inject_lock_inversion must show both finding kinds; the
+    enabled sanitized lock's acquire-release against the raw lock's
+    (the JAX bracket: under 25x + 20 us)."""
+    import gc
+    import threading
+
+    from cometbft_tpu_torch.analysis import runtime, scaling
+
+    t0_phase = time.perf_counter()
+    budgets = scaling.load_exponent_budgets()
+    results = scaling.run_probe(sizes=PROBE_SIZES, budgets=budgets, min_wall_s=0.02, repeats=5)
+    over = [r.site for r in results if not r.ok]
+    check(not over, f"sanitizer probe: sites over budget {over}\n{scaling.format_results(results)}")
+    planted = scaling.probe_for_chaos(inject_quadratic=True)
+    scaling.drain_chaos_results()
+    check(planted["injected"] in planted["breaches"], f"sanitizer probe: the planted site was not flagged {planted}")
+    san = runtime.get_sanitizer()
+    was = san.enabled
+    san.enable()
+    san.reset()
+    try:
+        inv = runtime.inject_lock_inversion()
+        found = sorted({f["kind"] for f in san.snapshot() if runtime.injected_finding(f)})
+        check(inv["observed"] == found == ["lock-order-cycle", "loop-affinity"],
+              f"sanitizer probe: the injection showed {inv['observed']}, {found}")
+        raw = threading.Lock()
+        wrapped = runtime.SanitizedLock(san, threading.Lock(), "smoke.overhead")
+        n = 20_000
+
+        def per_cycle(lk):
+            best = None
+            for _ in range(5):
+                t = time.perf_counter_ns()
+                for _ in range(n):
+                    lk.acquire()
+                    lk.release()
+                dt = (time.perf_counter_ns() - t) / n
+                best = dt if best is None else min(best, dt)
+            return best
+
+        gc.disable()
+        try:
+            raw_ns, wrapped_ns = per_cycle(raw), per_cycle(wrapped)
+        finally:
+            gc.enable()
+        check(wrapped_ns < raw_ns * 25 + 20_000, f"sanitizer probe: acquire {wrapped_ns} ns against raw {raw_ns}")
+    finally:
+        san.reset()
+        if not was:
+            san.disable()
+    emit("sanitizer_probe", host=True, sizes=list(PROBE_SIZES), sites=[r.as_dict() for r in results],
+         planted={"site": planted["injected"], "exponent": planted["exponents"][planted["injected"]],
+                  "flagged": True}, lock_inversion=inv,
+         acquire_release_ns={"raw": raw_ns, "sanitized": wrapped_ns, "ratio": wrapped_ns / raw_ns},
+         seconds=time.perf_counter() - t0_phase)
+
+
+def phase_fleet(dev, serve):
+    """Phase 19: (a) the serving fleet's storm at bench_fleet's width,
+    (b) four validators from config.toml files with the new sections,
+    node 0 fronting a fleet, (c) the sanitizer and scaling probe on the
+    host. Returns the launches of (a), (b) and (c) and, for phase 6,
+    the widest light ticket's items and 19b's first prevote wave's."""
+    import shutil
+
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.utils import log
+
+    t_phase = time.perf_counter()
+    card = smi("name,power.limit")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "fleet")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    floor = batch._MIN_DEVICE_BATCH
+    sched = S.VerifyScheduler()
+    S.set_scheduler(sched)
+    log.set_level("consensus:error,p2p:error,blocksync:error,fleet.router:error,*:info")
+    launches, items = {}, {}
+    try:
+        batch.set_min_device_batch(1)
+        launches["19a"], items["19a_light_widest"] = fleet_storm(dev, sched, serve)
+        launches["19b"], items["19b_prevote"] = fleet_node(dev, sched, root)
+        kernels.reset_counts()
+        sanitizer_probe()
+        launches["19c"] = dict(kernels.LAUNCHES)
+        check(all(v == 0 for v in launches["19c"].values()), f"sanitizer probe launched {launches['19c']}")
+    finally:
+        batch.set_min_device_batch(floor)
+        log.set_level("info")
+        S.set_scheduler(None)
+        sched.close()
+        shutil.rmtree(root, ignore_errors=True)
+    emit("fleet_phase", seconds=time.perf_counter() - t_phase, budget_s=90, card=card)
+    return launches, items
+
+
 # --- timing and bounds --------------------------------------------------------
 
 
@@ -5752,7 +6381,7 @@ def main(argv) -> int:
     ingest_launches, live_launches, live_items, handoff_items = phase_consensus(dev, *corpus)
     net_launches, net_items = phase_network(dev, gen, privs, *net_corpus)
     evidence_launches, evidence_items = phase_evidence(dev, gen, privs, *net_corpus[:2])
-    serve_launches_a, serve_widest = phase_serving(dev)
+    serve_launches_a, serve_widest, serve_corpus = phase_serving(dev)
     serve_launches_bc, rpc_light_items = phase_rpc(dev, gen, privs, *net_corpus[:2])
     serve_launches = {"13a": serve_launches_a, **serve_launches_bc}
     ss_launches, ss_items = phase_statesync(dev, gen, privs)
@@ -5760,6 +6389,7 @@ def main(argv) -> int:
     op_launches, op_items = phase_operator(dev, gen, privs, *lp2p_corpus)
     native_launches, native_items = phase_native(dev, gen, *net_corpus)
     ops_launches, ops_items = phase_operations(dev, gen, privs, *net_corpus)
+    fleet_launches, fleet_items = phase_fleet(dev, serve_corpus)
 
     # phase 6: each kernel against its plain version on the main paths'
     # own inputs (the window's lanes and the commit's; the replay's and
@@ -5836,6 +6466,12 @@ def main(argv) -> int:
     ops_calls = {k: stage_calls(xo) for k, xo in x_ops.items()}
     ops_errs = {k: compare(c) for k, c in ops_calls.items()}
     x_opsp, opsp_calls = x_ops["prevote"], ops_calls["prevote"]
+    # phase 19's own inputs: 19a's widest light ticket (the fleet's
+    # shared-cache storm) and 19b's first prevote wave; timed at 19a's
+    x_fl = {k: kernel_inputs(its, dev) for k, its in fleet_items.items()}
+    fl_calls = {k: stage_calls(xf) for k, xf in x_fl.items()}
+    fl_errs = {k: compare(c) for k, c in fl_calls.items()}
+    x_flw, flw_calls = x_fl["19a_light_widest"], fl_calls["19a_light_widest"]
     emit("main_path_vs_plain", lanes=x["n"], commit_lanes=x_commit["n"],
          replay_lanes=list(x_replay), bisect_lanes=list(x_bisect),
          live_lanes={k: xw["n"] for k, xw in x_waves.items()},
@@ -5846,12 +6482,13 @@ def main(argv) -> int:
          lp2p_lanes={k: xl["n"] for k, xl in x_lp.items()},
          operator_lanes={k: xo["n"] for k, xo in x_op.items()},
          native_lanes={k: xn["n"] for k, xn in x_nat.items()},
-         ops_lanes={k: xo["n"] for k, xo in x_ops.items()}, equal=True, max_abs_err=errs,
+         ops_lanes={k: xo["n"] for k, xo in x_ops.items()},
+         fleet_lanes={k: xf["n"] for k, xf in x_fl.items()}, equal=True, max_abs_err=errs,
          commit_max_abs_err=commit_errs, replay_max_abs_err=replay_errs,
          bisect_max_abs_err=bisect_errs, live_max_abs_err=live_errs, net_max_abs_err=net_errs,
          evidence_max_abs_err=ev_errs, serve_max_abs_err=serve_errs, statesync_max_abs_err=ss_errs,
          lp2p_max_abs_err=lp_errs, operator_max_abs_err=op_errs, native_max_abs_err=nat_errs,
-         ops_max_abs_err=ops_errs)
+         ops_max_abs_err=ops_errs, fleet_max_abs_err=fl_errs)
     rows = []
     for name in ("ladder", "decompress", "hash_digits"):
         f, plain = calls[name]
@@ -5868,6 +6505,7 @@ def main(argv) -> int:
         op_err = {w: max(e[k] for k in parts) for w, e in op_errs.items()}
         nat_err = {w: max(e[k] for k in parts) for w, e in nat_errs.items()}
         ops_err = {w: max(e[k] for k in parts) for w, e in ops_errs.items()}
+        fl_err = {w: max(e[k] for k in parts) for w, e in fl_errs.items()}
         err = max(max(errs[k], commit_errs[k]) for k in parts)
         b_ms, b_by = bound(name, x, int_rate)
         bc_ms, bc_by = bound(name, x_commit, int_rate)
@@ -5882,6 +6520,7 @@ def main(argv) -> int:
         bop_ms, bop_by = bound(name, x_opp, int_rate)
         bnat_ms, bnat_by = bound(name, x_natw, int_rate)
         bops_ms, bops_by = bound(name, x_opsp, int_rate)
+        bfl_ms, bfl_by = bound(name, x_flw, int_rate)
         bb_ms, bb_by = bound(name, x_bulk, int_rate)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -5897,9 +6536,11 @@ def main(argv) -> int:
             "operator_launches": {ph: ls[name] for ph, ls in op_launches.items()},
             "native_launches": {ph: ls[name] for ph, ls in native_launches.items()},
             "ops_launches": {ph: ls[name] for ph, ls in ops_launches.items()},
+            "fleet_launches": {ph: ls[name] for ph, ls in fleet_launches.items()},
             "max_abs_err": max(err, replay_err, bisect_err, *live_err.values(), *net_err.values(),
                                *ev_err.values(), *serve_err.values(), *ss_err.values(),
-                               *lp_err.values(), *op_err.values(), *nat_err.values(), *ops_err.values()),
+                               *lp_err.values(), *op_err.values(), *nat_err.values(), *ops_err.values(),
+                               *fl_err.values()),
             "tolerance": 0,
             "ms": graph_ms(f), "call_ms": cuda_ms(f, 20),
             "plain_ms": cuda_ms(plain, 2, warm=0), "bound_ms": b_ms,
@@ -5970,6 +6611,12 @@ def main(argv) -> int:
             "ops_call_ms": cuda_ms(opsp_calls[name][0], 20),
             "ops_plain_ms": cuda_ms(opsp_calls[name][1], 2, warm=0),
             "ops_bound_ms": bops_ms, "ops_bound_by": bops_by,
+            "fleet_lanes": {w: xf["n"] for w, xf in x_fl.items()},
+            "fleet_max_abs_err": fl_err,
+            "fleet_ms": graph_ms(flw_calls[name][0]),
+            "fleet_call_ms": cuda_ms(flw_calls[name][0], 20),
+            "fleet_plain_ms": cuda_ms(flw_calls[name][1], 2, warm=0),
+            "fleet_bound_ms": bfl_ms, "fleet_bound_by": bfl_by,
             "bulk_lanes": N_BULK, "bulk_ms": bulk_ms[name], "bulk_call_ms": bulk_call_ms[name],
             "bulk_bound_ms": bb_ms, "bulk_bound_by": bb_by,
             "bulk_max_abs_err": max(bulk_errs[k] for k in parts),

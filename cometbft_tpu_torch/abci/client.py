@@ -2,7 +2,8 @@
 
 The part of the JAX package's ``abci/client.py`` that a node with a
 local app uses: ``LocalClient`` serializes every call on one lock, as
-the reference's local client does with its mutex, and ``AppConns``
+the reference's local client does with its mutex (the runtime
+sanitizer's ``abci.app``, the raw RLock when it is off), and ``AppConns``
 names the logical connections over it (consensus, mempool, query and
 the snapshot connection statesync uses). The mempool connection
 forwards the fork's batched CheckTx and the app-side mempool's
@@ -15,6 +16,7 @@ from __future__ import annotations
 import threading
 from typing import Optional
 
+from ..analysis.runtime import sanitized_lock
 from . import types as abci
 
 
@@ -22,7 +24,7 @@ class LocalClient:
     def __init__(self, app: abci.Application, lock: Optional[threading.RLock] = None):
         self.app = app
         # one lock across the connections: the reference's global mutex
-        self._lock = lock or threading.RLock()
+        self._lock = lock or sanitized_lock(threading.RLock(), "abci.app")
 
     # consensus connection
     def init_chain(self, req):

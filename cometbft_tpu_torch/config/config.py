@@ -1,46 +1,45 @@
 """Node configuration (reference config/config.go): the parts a node
 reads, with the TOML round trip the command line uses.
 
-A copy of the JAX package's ``config/config.py`` cut to what
-``node.inprocess.build_node``, ``consensus.state.ConsensusState``,
-``node.node.Node`` and ``cmd/`` read, with the JAX defaults:
-``ConsensusConfig`` whole; ``BaseConfig`` whole: the moniker, the
-store backend, the log level, the remote signer's listen address
-(``priv_validator_laddr``), the app's kind (``abci``: ``kvstore``,
-``kvstore-appmem``, ``socket`` or ``grpc``) and its address when it
-runs out of process (``proxy_app``), and the file layout fields
-(``db_dir``, ``genesis_file``, the key and state files) and
-``filter_peers``, which neither package reads (the command line keeps
-the fixed home layout) but both write in ``config.toml``; of
-``P2PConfig``, ``MempoolConfig`` and ``BlockSyncConfig`` the fields
-the port reads, which leaves out the JAX package's external address, inbound peer cap,
-packet payload size, handshake and dial timeouts and mempool byte cap;
-of ``RPCConfig`` the listen addresses (``grpc_laddr`` serves the gRPC
-broadcast API), ``unsafe`` and the broadcast commit timeout, of
-``TxIndexConfig`` ``indexer`` (``"kv"``, ``"null"`` or ``"psql"``,
-whose sink needs ``psycopg2``) and ``psql_conn``, ``StateSyncConfig``
-whole, of ``StorageConfig`` the retention and snapshot fields (not
-``discard_abci_responses``) and of ``InstrumentationConfig`` the
-metrics, profiling, tracing, watchdog and shutdown fields (not the
-JAX package's runtime sanitizer, which the port does not have). Those
-sections take no other attribute (slots), so setting a field the port
-lacks raises ``AttributeError`` instead of doing nothing, and
-``load_toml`` raises ``ValueError`` on a key or section the port lacks
-(the JAX loader skips it). One setting defaults differently from the JAX
+A copy of the JAX package's ``config/config.py`` with the JAX defaults
+and every section: ``ConsensusConfig``, ``BaseConfig``,
+``StateSyncConfig`` and ``InstrumentationConfig`` whole (the moniker,
+the store backend, the log level, the remote signer's listen address
+``priv_validator_laddr``, the app's kind ``abci``: ``kvstore``,
+``kvstore-appmem``, ``socket`` or ``grpc``, and its address
+``proxy_app`` when it runs out of process; the file layout fields and
+``filter_peers``, which neither package reads but both write; the
+metrics, profiling, tracing, watchdog, shutdown and runtime sanitizer
+fields); the ``[fuzz]`` section (``p2p/fuzz.FuzzConnConfig``, which
+``Node``'s TCP transport applies), ``[crypto]`` (``CryptoConfig``:
+``build_node`` applies ``batch_backend``) and ``[fleet]``
+(``FleetConfig``, the serving fleet's router knobs); of
+``P2PConfig``, ``MempoolConfig``, ``RPCConfig`` and ``StorageConfig``
+the fields the port reads, which leaves out the JAX package's external
+address, inbound peer cap, packet payload size, handshake and dial
+timeouts, mempool byte cap, RPC connection caps and
+``discard_abci_responses`` (``JAX_UNREAD``). Every section takes no
+other attribute (slots), so setting a field the port lacks raises
+``AttributeError`` instead of doing nothing. ``load_toml`` reads a
+JAX-written ``config.toml`` whole: a ``JAX_UNREAD`` key at its JAX
+default is skipped, and any other key or section the port lacks, or a
+``JAX_UNREAD`` key set to another value, raises ``ValueError`` (the JAX
+loader skips both). One setting defaults differently from the JAX
 package: ``rpc.laddr`` is empty, so that a node serves RPC only when
 asked (the JAX ``test_config`` gives every test node an ephemeral RPC
 port; here a test sets ``rpc.laddr`` itself; ROADMAP C10).
 ``test_config`` sets the reference's short test timeouts
-(config.TestConfig) and an ephemeral p2p port. The crypto, fuzz and
-fleet sections are not ported.
+(config.TestConfig), an ephemeral p2p port and, as the JAX one does,
+the runtime sanitizer on.
 """
-
 from __future__ import annotations
 
 import os
 import tomllib
 from dataclasses import asdict, dataclass, field, fields
 from typing import List
+
+from ..p2p.fuzz import FuzzConnConfig
 
 
 @dataclass(slots=True)
@@ -194,6 +193,12 @@ class InstrumentationConfig:
     # cancelled and, if it ignores the cancel, abandoned so the
     # remaining stages (store release above all) still run
     shutdown_stage_budget_s: float = 5.0
+    # runtime concurrency sanitizer (analysis/runtime.py): lock-order
+    # graph with cycle detection, loop-affinity guard on hot-plane
+    # objects, stall attribution. PER-PROCESS and construction-time
+    # (build_node enables it before any plane builds its locks); off,
+    # the raw locks come back unwrapped. test_config turns it on
+    sanitizer: bool = False
 
 
 @dataclass(slots=True)
@@ -284,6 +289,44 @@ class ConsensusConfig:
         )
 
 
+@dataclass(slots=True)
+class CryptoConfig:
+    """Signature-verification backend knobs. ``batch_backend`` names an
+    entry of the ``crypto/batch.py`` registry, applied at node build
+    (``node/inprocess.build_node``): "cuda" (the card's lanes),
+    "cpu" (serial host baseline) or "cpu-parallel" (the multi-core host
+    plane); the JAX name "tpu" means the device route, so "cuda". Empty
+    (the default) inherits the process-wide default. "mesh" (lanes over
+    every local device) waits for ROADMAP A5 and raises. The other
+    three fields are kept so that JAX-written files load; neither
+    package reads them."""
+
+    batch_backend: str = ""  # "" (inherit) | cuda | tpu (= cuda) | cpu | cpu-parallel
+    min_batch_for_tpu: int = 2
+    coalesce_window_ms: float = 2.0
+    max_lanes: int = 131072
+
+
+@dataclass(slots=True)
+class FleetConfig:
+    """Serving-fleet knobs (``fleet/``): the SessionRouter in front of N
+    follower replicas admits at most max_sessions concurrent routed
+    sessions, holds consistency-token barrier waits to token_wait_s,
+    degrades a replica stalled past max_lag_heights behind the committee
+    head (checked every lag_poll_s), and on failover replays at most
+    resume_replay_max heights from the store per resumed session
+    (beyond that the session is shed rather than resumed with a
+    gap)."""
+
+    max_sessions: int = 4096
+    admit_timeout_s: float = 0.25
+    max_lag_heights: int = 8
+    lag_poll_s: float = 0.1
+    token_wait_s: float = 2.0
+    resume_replay_max: int = 512
+    drain_timeout_s: float = 5.0
+
+
 @dataclass
 class Config:
     base: BaseConfig = field(default_factory=BaseConfig)
@@ -296,6 +339,9 @@ class Config:
     consensus: ConsensusConfig = field(default_factory=ConsensusConfig)
     tx_index: TxIndexConfig = field(default_factory=TxIndexConfig)
     instrumentation: InstrumentationConfig = field(default_factory=InstrumentationConfig)
+    fuzz: FuzzConnConfig = field(default_factory=FuzzConnConfig)
+    crypto: CryptoConfig = field(default_factory=CryptoConfig)
+    fleet: FleetConfig = field(default_factory=FleetConfig)
     root_dir: str = "."
 
     def path(self, rel: str) -> str:
@@ -321,19 +367,37 @@ def test_config(root_dir: str = ".") -> Config:
     c.consensus.peer_gossip_sleep_s = 0.01
     c.base.db_backend = "memdb"
     c.p2p.laddr = "tcp://127.0.0.1:0"  # ephemeral port per test node
+    # tests run with the runtime concurrency sanitizer on, as the JAX
+    # test_config does
+    c.instrumentation.sanitizer = True
     return c
 
 
 _SECTIONS = (
     "base", "rpc", "p2p", "mempool", "statesync", "blocksync", "consensus",
-    "storage", "tx_index", "instrumentation",
+    "storage", "tx_index", "instrumentation", "fuzz", "crypto", "fleet",
 )
+
+# keys a JAX-written config.toml holds that nothing in the port reads,
+# with their JAX defaults: load_toml skips one at that value
+JAX_UNREAD = {
+    ("rpc", "max_open_connections"): 900,
+    ("rpc", "max_subscription_clients"): 100,
+    ("p2p", "external_address"): "",
+    ("p2p", "max_num_inbound_peers"): 40,
+    ("p2p", "max_packet_msg_payload_size"): 1024,
+    ("p2p", "handshake_timeout_s"): 20.0,
+    ("p2p", "dial_timeout_s"): 3.0,
+    ("mempool", "max_txs_bytes"): 64 * 1024 * 1024,
+    ("storage", "discard_abci_responses"): False,
+}
 
 
 def load_toml(path: str) -> Config:
     """The config a ``config.toml`` holds (``root_dir`` two levels up,
     as in ``<home>/config/config.toml``); absent keys keep their
-    defaults. A section or key the port lacks raises ``ValueError``."""
+    defaults. A section or key the port lacks raises ``ValueError``,
+    unless it is a ``JAX_UNREAD`` key at its JAX default."""
     with open(path, "rb") as f:
         raw = tomllib.load(f)
     c = default_config(os.path.dirname(os.path.dirname(path)) or ".")
@@ -345,6 +409,8 @@ def load_toml(path: str) -> Config:
         names = {f.name for f in fields(obj)}
         for k, v in values.items():
             if k not in names:
+                if (section, k) in JAX_UNREAD and v == JAX_UNREAD[section, k]:
+                    continue
                 raise ValueError(f"{path}: [{section}] {k} is not in cometbft_tpu_torch's config")
             setattr(obj, k, v)
     return c
@@ -357,6 +423,8 @@ def write_toml(cfg: Config, path: str) -> None:
     def emit(name, obj):
         lines = [f"[{name}]"]
         for k, v in asdict(obj).items():
+            if v is None:
+                continue  # TOML has no null; an absent key loads as its default
             if isinstance(v, bool):
                 lines.append(f"{k} = {'true' if v else 'false'}")
             elif isinstance(v, (int, float)):

@@ -12,8 +12,10 @@ without its mutex web. Timeouts are asyncio timers that enqueue; the
 block executor + TPU signature verification run inline (they are the
 actual work); gossip runs in reactor tasks reading RoundState snapshots.
 
-A copy of the JAX package's ``consensus/state.py``, cut only of the
-runtime sanitizer's hooks. Every
+A copy of the JAX package's ``consensus/state.py``, with its runtime
+sanitizer hook: the state is tagged as affine to the loop thread that
+starts it (``consensus.state``) and every handled message touches it
+(``analysis/runtime.py``; one attribute check when it is off). Every
 signature check that goes to the batch path runs on the state
 machine's ``device`` (None is the GPU, and raises without one;
 ``device="cpu"`` the host plane or the plain kernels): the in-round
@@ -46,6 +48,7 @@ import traceback
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
+from ..analysis.runtime import get_sanitizer
 from ..config import ConsensusConfig
 from ..crypto.scheduler import DeviceRouteError
 from ..device import resolve
@@ -113,6 +116,9 @@ class ConsensusState:
     ):
         self.config = config
         self.device = resolve(device)
+        # loop-affinity guard (analysis/runtime.py): consensus state is
+        # mutated only on its event loop
+        self._sanitizer = get_sanitizer()
         self.block_exec = block_exec
         self.block_store = block_store
         self.mempool = mempool
@@ -193,6 +199,7 @@ class ConsensusState:
     # --- lifecycle ----------------------------------------------------
 
     async def start(self) -> None:
+        self._sanitizer.tag("consensus.state")
         self._halting = False
         self.queue = InstrumentedQueue(10000, name="consensus.inbox")
         self.event_bus.set_loop(asyncio.get_running_loop())
@@ -391,6 +398,8 @@ class ConsensusState:
         LoopErrors.drop_frames(e)
 
     def _handle_msg(self, kind: str, payload, peer_id: str) -> None:
+        if self._sanitizer.enabled:
+            self._sanitizer.touch("consensus.state")
         if self.tracer.enabled:
             self._trace_handle(kind, payload, peer_id)
         if kind == "proposal":

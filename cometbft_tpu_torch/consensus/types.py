@@ -1,7 +1,8 @@
 """Round state + height vote set (reference consensus/types/).
 
-A copy of the JAX package's ``consensus/types.py``, with a plain
-``threading.RLock`` where that module takes the runtime sanitizer's.
+A copy of the JAX package's ``consensus/types.py``; the height vote
+set's lock is the runtime sanitizer's ``consensus.votes`` (the raw
+RLock when the sanitizer is off).
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ import enum
 import threading
 from dataclasses import dataclass
 from typing import Dict, Optional
+
+from ..analysis.runtime import sanitized_lock
 
 from ..types.block import Block
 from ..types.part_set import PartSet
@@ -49,7 +52,7 @@ class HeightVoteSet:
         # replaced on height advance (update_to_state)
         self._prevotes: Dict[int, VoteSet] = {}
         self._precommits: Dict[int, VoteSet] = {}
-        self._lock = threading.RLock()
+        self._lock = sanitized_lock(threading.RLock(), "consensus.votes")
         self.set_round(0)
 
     def _ensure(self, round_: int) -> None:

@@ -41,8 +41,9 @@ force the seam with ``fsync_slow_s=0``; ``set_fsync_model`` injects
 a synthetic barrier cost so the bench/chaos can model slow disks on
 fast hardware.
 
-A copy of the JAX package's ``consensus/wal.py``, with a plain
-``threading.RLock`` where that module takes the runtime sanitizer's.
+A copy of the JAX package's ``consensus/wal.py``; the file lock is
+the runtime sanitizer's ``wal.append`` (the raw RLock when the
+sanitizer is off).
 The record format is byte-identical, so each package reads the other's
 WAL.
 """
@@ -58,6 +59,7 @@ import zlib
 from dataclasses import dataclass
 from typing import Callable, Iterator, List, Optional, Tuple
 
+from ..analysis.runtime import sanitized_lock
 from ..trace import NOOP as TRACE_NOOP
 from ..utils import proto
 from ..utils.fail import fail_point
@@ -266,7 +268,7 @@ class WAL:
         # one RLock over every file mutation: the consensus loop
         # appends, the group flusher fsyncs, and a pipelined-finalize
         # worker may write_end_height concurrently
-        self._lock = threading.RLock()
+        self._lock = sanitized_lock(threading.RLock(), "wal.append")
         self._pending: List[SyncTicket] = []
         self._flush_wakeup = threading.Condition(self._lock)
         self._flusher: Optional[threading.Thread] = None

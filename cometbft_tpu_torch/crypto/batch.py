@@ -313,6 +313,19 @@ def set_default_backend(name: str) -> None:
         _default_backend = name
 
 
+def config_backend(name: str) -> str:
+    """The registry name for a ``[crypto] batch_backend`` value. The
+    JAX package's "tpu" is its device route, so it means "cuda" here;
+    "mesh" (lanes over every local device, ROADMAP A5) is refused
+    rather than degraded to one card or the host (C3)."""
+    if name == "mesh":
+        raise ValueError(
+            "[crypto] batch_backend = 'mesh' needs the multi-device lanes, "
+            "which the port has not yet (ROADMAP A5)"
+        )
+    return "cuda" if name == "tpu" else name
+
+
 def create_batch_verifier(device=None, backend=None) -> BatchVerifier:
     """Factory mirroring crypto/batch.CreateBatchVerifier: the
     configured backend ("cuda" by default), or the one named, on

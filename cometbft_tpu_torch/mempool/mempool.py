@@ -18,7 +18,10 @@ disables the mempool; ``AppMempool`` relays InsertTx / ReapTxs to an
 app that owns its pool, behind a ``utils.guard.TTLGuard``.
 ``tx_keys`` hashes a batch of ``_NATIVE_HASH_MIN`` or more in one
 native call (``sha256_many`` of ``utils/wirecodec.py``) when the lane
-is built; the runtime sanitizer's lock wrappers are left out.
+is built. The cache's and the pool's locks are the runtime
+sanitizer's ``mempool.txcache`` and ``mempool.pool``, and ``update``,
+the commit path's entry, adopts the pool's owner thread on first use
+(``analysis/runtime.py``; raw locks and no checks when it is off).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..abci import types as abci
+from ..analysis.runtime import get_sanitizer, sanitized_lock
 from ..trace import NOOP as TRACE_NOOP
 
 
@@ -78,7 +82,7 @@ class TxCache:
     def __init__(self, size: int = 10000):
         self.size = size
         self._od: "OrderedDict[bytes, None]" = OrderedDict()
-        self._lock = threading.Lock()
+        self._lock = sanitized_lock(threading.Lock(), "mempool.txcache")
 
     def push(self, key: bytes) -> bool:
         """False if already present."""
@@ -187,7 +191,7 @@ class CListMempool(Mempool):
         self.max_txs = max_txs
         self.recheck = recheck
         self.async_recheck = async_recheck
-        self._lock = threading.RLock()
+        self._lock = sanitized_lock(threading.RLock(), "mempool.pool")
         self._txs_available = threading.Event()
         self._notify = notify
         # async-recheck state, all guarded by self._lock: keys of the
@@ -446,6 +450,11 @@ class CListMempool(Mempool):
         releasing consensus (reference clist_mempool.go:583). With
         async_recheck the recheck leaves the critical section: wall
         time here no longer scales with the pooled tx count."""
+        # loop-affinity: the commit path's entry; the first caller
+        # adopts ownership
+        san = get_sanitizer()
+        if san.enabled:
+            san.touch_adopt("mempool.pool")
         self.height = height
         committed_keys = tx_keys(txs) if txs else []
         for key, res in zip(committed_keys, results):

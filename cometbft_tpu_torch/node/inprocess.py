@@ -34,7 +34,12 @@ them. The networked node over these parts is ``node/node.py``'s
 ``trace_ring_size``, anchored by ``record_clock_anchor``), hands it to
 the consensus state (and so its WAL), the mempool, the indexer service
 and the retention plane, and enables the process-wide tracer, as the
-JAX ``build_node`` does.
+JAX ``build_node`` does. With ``config.instrumentation.sanitizer``
+(``test_config`` sets it) ``build_node`` enables the runtime
+sanitizer (``analysis/runtime.py``) before any plane builds its locks,
+and a non-empty ``config.crypto.batch_backend`` becomes the
+process-wide verify backend (``crypto/batch.config_backend``: the JAX
+name "tpu" is "cuda"; "mesh" raises, ROADMAP A5).
 
 ``device`` is where the node's signature checks run: None is the GPU
 and raises without one; ``device="cpu"`` runs them on the host plane.
@@ -53,11 +58,14 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 
 from ..abci.client import AppConns
+from ..analysis import runtime as sanitizer
 from ..config import Config
 from ..config.config import test_config
 from ..consensus.reactor import CommitBlockMessage
 from ..consensus.replay import Handshaker
 from ..consensus.state import ConsensusState
+from ..crypto import batch as crypto_batch
+from ..crypto.batch import config_backend
 from ..crypto.keys import Ed25519PrivKey
 from ..device import resolve
 from ..evidence.pool import EvidencePool
@@ -163,15 +171,25 @@ def build_node(
     and a WAL at ``<home>/cs.wal`` (a fresh directory without ``home``)
     when ``wal`` is set. It is built, not started."""
     device = resolve(device)
+    if config is None:
+        config = test_config(home or ".")
+        config.base.db_backend = db_backend
+    db_backend = config.base.db_backend
+    if config.instrumentation.sanitizer:
+        # the runtime concurrency sanitizer: enabled before any plane
+        # below builds its locks (wrapping is decided at construction,
+        # which is what makes disabled mode free); per process, like
+        # the lock-order graph it feeds
+        sanitizer.enable()
+    if config.crypto.batch_backend:
+        # the operator's verify backend ([crypto] batch_backend); empty
+        # inherits the process-wide default
+        crypto_batch.set_default_backend(config_backend(config.crypto.batch_backend))
     # the native lanes' one-time g++ builds run on daemon threads now,
     # so no event loop waits on them; until a build lands, its callers
     # run their portable paths
     wirecodec.prewarm()
     native_finalize.prewarm()
-    if config is None:
-        config = test_config(home or ".")
-        config.base.db_backend = db_backend
-    db_backend = config.base.db_backend
     # tracing plane: one ring per node; the planes shared by every node
     # (the verify scheduler, the host plane) land on the process-wide
     # tracer, enabled the first time any tracing node is built

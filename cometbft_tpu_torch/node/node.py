@@ -55,7 +55,9 @@ and ``kill`` run their stages under an ``obs.ShutdownGuard``
 (``shutdown_guard``, per-stage budget ``shutdown_stage_budget_s``, the
 switch at three times it). A metrics or debug server that cannot bind,
 or a missing ``prometheus_client``, fails ``start`` (the node is
-stopped again first).
+stopped again first). The node's TCP transport wraps each connection
+per the config's ``[fuzz]`` section (``p2p/fuzz.py``; off by default),
+as the JAX node's does.
 """
 
 from __future__ import annotations
@@ -117,7 +119,9 @@ class Node:
             moniker=config.base.moniker,
         )
         if transport is None:
-            transport = TCPTransport(self.node_key, self.node_info)
+            # fault injection by config (reference FuzzConnConfig);
+            # maybe_fuzz treats disabled as passthrough
+            transport = TCPTransport(self.node_key, self.node_info, fuzz_config=config.fuzz)
         self.transport = transport
         # self-healing connectivity plane knobs ([p2p])
         reconnect_config = {

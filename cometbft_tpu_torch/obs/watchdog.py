@@ -46,6 +46,7 @@ import traceback
 from collections import deque
 from typing import Dict, List, Optional
 
+from ..analysis.runtime import attribute_frames, attribute_stall
 from ..trace import NOOP as TRACE_NOOP
 from ..trace.summary import percentile
 
@@ -59,47 +60,32 @@ _MAX_RECORDS = 32
 _ARG_TRUNC = 1800  # chars of stack embedded in a trace instant
 
 
-# the packages a stall is attributed to (the JAX package's
-# analysis/runtime planes, with the port's ``ops`` and ``kernels``)
-_PLANES = (
-    "consensus", "mempool", "p2p", "lp2p", "blocksync", "statesync",
-    "rpc", "light", "evidence", "abci", "crypto", "store", "state",
-    "obs", "trace", "types", "node", "privval", "utils", "ops",
-    "kernels",
-)
-
-
 def attribute_frame(frame) -> str:
-    """Owning subsystem of a stalled frame: "torch" when the innermost
-    frame inside a package lives in the torch library (a synchronous
-    CUDA call on the loop), else the innermost frame's plane package
-    of this port, else "unknown"."""
-    f = frame
-    while f is not None:
-        parts = f.f_code.co_filename.replace("\\", "/").split("/")
-        if "torch" in parts[:-1]:
-            return "torch"
-        if "cometbft_tpu_torch" in parts[:-1]:
-            i = parts.index("cometbft_tpu_torch")
-            sub = parts[i + 1:]
-            name = sub[0] if len(sub) > 1 else sub[0][:-3]
-            if name in _PLANES:
-                return name
-        f = f.f_back
-    return "unknown"
+    """Owning subsystem of a live stalled frame: its formatted stack's
+    bucket (``analysis/runtime.attribute_frames``: "torch" for a frame
+    of the torch library, a synchronous CUDA call on the loop, else
+    the innermost frame's plane, ``ops`` and ``kernels`` included)."""
+    return attribute_frames(_format_frame_stack(frame))
 
 
 def _format_frame_stack(frame, depth: int = _STACK_DEPTH) -> List[str]:
     """Innermost-first "pkg/file.py:lineno func" lines for one frame.
 
-    The parent directory is kept so a reader can bucket the frame by
-    owning subsystem — "wal.py" alone cannot name its plane."""
+    The parent directory is kept so stall attribution
+    (analysis/runtime.attribute_frames) can bucket the frame by owning
+    subsystem — "wal.py" alone cannot name its plane; a frame of the
+    torch library keeps its path from the library's root
+    ("torch/cuda/__init__.py"), so it is bucketed as ``torch``."""
     out: List[str] = []
     f = frame
     while f is not None and len(out) < depth:
         code = f.f_code
         fname = code.co_filename.replace("\\", "/")
-        short = "/".join(fname.rsplit("/", 2)[-2:])
+        parts = fname.split("/")
+        if "torch" in parts[:-1]:
+            short = "/".join(parts[parts.index("torch"):])
+        else:
+            short = "/".join(parts[-2:])
         out.append(f"{short}:{f.f_lineno} {code.co_name}")
         f = f.f_back
     return out
@@ -218,7 +204,6 @@ class LoopWatchdog:
         own = threading.get_ident()
         threads: Dict[str, List[str]] = {}
         loop_stack: List[str] = []
-        loop_frame = None
         for ident, frame in sys._current_frames().items():
             if ident == own:
                 continue
@@ -226,7 +211,7 @@ class LoopWatchdog:
             label = names.get(ident, f"tid-{ident}")
             threads[label] = stack
             if ident == self._loop_thread_ident:
-                loop_stack, loop_frame = stack, frame
+                loop_stack = stack
         tasks: List[dict] = []
         try:
             import asyncio
@@ -250,9 +235,9 @@ class LoopWatchdog:
             "threads": threads,
             "tasks": [t["name"] for t in tasks],
         }
-        # stall attribution: name the guilty subsystem, not just the
-        # raw stack
-        record["subsystem"] = attribute_frame(loop_frame)
+        # stall attribution (analysis/runtime.py): name the guilty
+        # subsystem, not just the raw stack
+        record["subsystem"] = attribute_stall(record)
         self.stalls.append(record)
         self.stall_count += 1
         self._last_stall_t = _monotonic()

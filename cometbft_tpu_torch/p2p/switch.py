@@ -19,8 +19,10 @@ Responsibilities (mirroring the reference):
   misbehaving peer (and everything re-routes through reconnect logic)
 - max peer caps + dedup by node ID.
 
-A copy of the JAX package's ``p2p/switch.py`` without the runtime
-sanitizer's loop-affinity hooks. Trace stamping is the JAX one:
+A copy of the JAX package's ``p2p/switch.py``, with the runtime
+sanitizer's loop-affinity guard on the peer map (``p2p.switch.peers``,
+tagged at ``start``, touched where a peer is registered or removed;
+``analysis/runtime.py``). Trace stamping is the JAX one:
 ``enable_stamping`` (node wiring, when the node's tracer is on) builds
 a ``tracewire.TraceStamper``; ``broadcast(tkind=...)`` and
 ``stamp_msg`` then stamp outbound consensus, mempool and blocksync
@@ -47,6 +49,7 @@ import time
 import traceback
 from typing import Dict, List, Optional
 
+from ..analysis.runtime import get_sanitizer
 from ..crypto.scheduler import DeviceRouteError
 from ..trace import NOOP as TRACE_NOOP
 from ..utils.log import get_logger
@@ -92,6 +95,9 @@ class Switch:
         self.channel_descs: List[ChannelDescriptor] = []
         self._chan_caps: Dict[int, int] = {}
         self.peers: Dict[str, Peer] = {}
+        # loop-affinity guard (analysis/runtime.py): the peer map is
+        # mutated only on the switch's event loop
+        self._sanitizer = get_sanitizer()
         self.persistent_addrs: Dict[str, str] = {}  # id -> addr
         self.banned: set = set()
         self.max_peers = max_peers
@@ -139,6 +145,7 @@ class Switch:
     # --- lifecycle ----------------------------------------------------
 
     async def start(self) -> None:
+        self._sanitizer.tag("p2p.switch.peers")
         for r in self.reactors.values():
             await r.start()
         if self._use_autopool:
@@ -368,6 +375,8 @@ class Switch:
         """Synchronous removal of a duplicate-resolution loser: the
         conn must be DEAD before the replacement registers (never
         awaits — same floor as abort())."""
+        if self._sanitizer.enabled:
+            self._sanitizer.touch("p2p.switch.peers")
         if self.peers.get(peer.peer_id) is peer:
             del self.peers[peer.peer_id]
             self.tracer.counter("p2p.peers", len(self.peers), tid="p2p")
@@ -398,6 +407,8 @@ class Switch:
         """Shared tail of peer construction: register, start, announce
         to reactors, feed the self-healing plane."""
         peer.established_at = time.monotonic()
+        if self._sanitizer.enabled:
+            self._sanitizer.touch("p2p.switch.peers")
         self.peers[peer.peer_id] = peer
         self.tracer.counter("p2p.peers", len(self.peers), tid="p2p")
         _log.info(
@@ -515,6 +526,8 @@ class Switch:
     async def _remove_peer(self, peer, exc, reconnect=False) -> None:
         if self.peers.get(peer.peer_id) is not peer:
             return
+        if self._sanitizer.enabled:
+            self._sanitizer.touch("p2p.switch.peers")
         del self.peers[peer.peer_id]
         self.tracer.counter("p2p.peers", len(self.peers), tid="p2p")
         _log.info(

@@ -7,9 +7,10 @@ in-memory transport runs the EXACT same upgrade path over a
 socketpair, so tests exercise the full encryption/auth stack without
 touching the network (reference analog: p2p/test_util.go).
 
-A copy of the JAX package's ``p2p/transport.py`` without connection
-fuzzing (``p2p/fuzz.py`` and the transport's ``fuzz_config`` are not
-ported).
+A copy of the JAX package's ``p2p/transport.py``. ``TCPTransport``
+wraps each upgraded connection with ``p2p/fuzz.maybe_fuzz`` under its
+``fuzz_config`` (the config's ``[fuzz]`` section; disabled or None is
+a passthrough).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 from ..utils.tasks import spawn
 from .conn.secret_connection import SecretConnection
+from .fuzz import maybe_fuzz
 from .key import NodeKey, node_id_from_pubkey
 from .node_info import NodeInfo
 
@@ -82,11 +84,15 @@ class TCPTransport:
     """listen() + accept stream; dial(). Produces upgraded
     (SecretConnection, NodeInfo, conn_str) triples."""
 
-    def __init__(self, node_key: NodeKey, node_info: NodeInfo):
+    def __init__(self, node_key: NodeKey, node_info: NodeInfo,
+                 fuzz_config=None):
         self.node_key = node_key
         self.node_info = node_info
         self._server: Optional[asyncio.AbstractServer] = None
         self.accept_queue: asyncio.Queue = asyncio.Queue(64)
+        # network fault injection (reference p2p/fuzz.go via config
+        # FuzzConnConfig); None/disabled = passthrough
+        self.fuzz_config = fuzz_config
 
     @property
     def listen_addr(self) -> str:
@@ -117,7 +123,9 @@ class TCPTransport:
             except Exception:
                 pass
             return
-        await self.accept_queue.put((sconn, their_info, f"{peername[0]}:{peername[1]}"))
+        await self.accept_queue.put(
+            (maybe_fuzz(sconn, self.fuzz_config), their_info, f"{peername[0]}:{peername[1]}")
+        )
 
     async def accept(self):
         return await self.accept_queue.get()
@@ -130,7 +138,7 @@ class TCPTransport:
         sconn, their_info = await upgrade(
             reader, writer, self.node_key, self.node_info, expected_id
         )
-        return sconn, their_info, addr
+        return maybe_fuzz(sconn, self.fuzz_config), their_info, addr
 
     async def close(self) -> None:
         if self._server:

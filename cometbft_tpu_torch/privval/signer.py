@@ -12,9 +12,9 @@ loop in its own thread, so consensus, which signs from a worker thread
 (``REMOTE_BLOCKING``), never blocks its loop on the socket.
 ``RetrySignerClient`` retries a transient failure and never a refusal;
 ``SignerServer`` serves a ``FilePV``, whose state guards against a
-double sign, as in the reference. The JAX module's sign lock is its
-runtime sanitizer's wrapped lock (``analysis.runtime.sanitized_lock``,
-ROADMAP A10); here it is a plain ``threading.Lock``.
+double sign, as in the reference. The client's sign lock is the
+runtime sanitizer's ``privval.sign`` (``analysis.runtime.sanitized_lock``:
+the raw lock when the sanitizer is off).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import threading
 import traceback
 from typing import Optional
 
+from ..analysis.runtime import sanitized_lock
 from ..crypto.keys import Ed25519PrivKey, Ed25519PubKey
 from ..p2p.conn.secret_connection import SecretConnection
 from ..types.vote import Proposal, Vote
@@ -97,7 +98,7 @@ class SignerClient:
         self._thread.start()
         self._sconn: Optional[SecretConnection] = None
         self._connected = threading.Event()
-        self._lock = threading.Lock()
+        self._lock = sanitized_lock(threading.Lock(), "privval.sign")
         self.listen_addr = ""
         fut = asyncio.run_coroutine_threadsafe(
             self._listen(laddr), self._loop

@@ -5,10 +5,11 @@ Every handler takes (env, **params) and returns a JSON-able dict.
 Heights arrive as strings or ints (JSON-RPC clients send both).
 
 A copy of the JAX package's ``rpc/core.py``: every route of ``ROUTES``
-and ``UNSAFE_ROUTES``, answering with the JAX node's JSON. The serving
-fleet (ROADMAP A10) is absent from ``Environment``, and ``health``,
-``status`` and ``fleet_status`` answer as the JAX routes do when its
-fields are None; ``health`` gives the loop watchdog's lag and stalls
+and ``UNSAFE_ROUTES``, answering with the JAX node's JSON: ``health``
+and ``status`` carry ``serving_role`` and ``replica_lag_heights``, and
+``health`` the serving fleet's verdict when the node fronts a
+``fleet.SessionRouter`` (``Environment.fleet_router``), whose view
+``fleet_status`` returns; ``health`` gives the loop watchdog's lag and stalls
 and the retention plane's storage verdict, and ``dump_tasks`` every
 task's stack (``obs/watchdog.all_task_stacks``). ``broadcast_evidence`` awaits ``Node.add_evidence``
 (the JAX route calls the pool directly): the commit checks' tickets
@@ -130,9 +131,7 @@ def health(env) -> Dict[str, Any]:
     """Runtime health verdict: loop responsiveness, commit freshness,
     queue backpressure and connectivity, with a degraded/ok verdict +
     reasons. The reference returns {} here; every field is additive so
-    `health == ok` probes keep working. The JAX route's serving-fleet
-    parts read a plane the port lacks (ROADMAP A10): it answers as the
-    JAX route does when that is None."""
+    `health == ok` probes keep working."""
     reasons: List[str] = []
     out: Dict[str, Any] = {}
     wd = env.loop_watchdog
@@ -236,8 +235,43 @@ def health(env) -> Dict[str, Any]:
                     f"(> 3x retain_blocks={cfg.retain_blocks})"
                 )
     out["serving_role"] = _serving_role(env)
-    # a port node is never a follower replica of a serving fleet
-    out["replica_lag_heights"] = 0
+    lag = _replica_lag(env)
+    out["replica_lag_heights"] = lag
+    cfg = getattr(env, "config", None)
+    fleet_cfg = getattr(cfg, "fleet", None) if cfg is not None else None
+    if fleet_cfg is not None and lag > fleet_cfg.max_lag_heights:
+        reasons.append(
+            f"replica lag {lag} heights > "
+            f"max_lag_heights={fleet_cfg.max_lag_heights}"
+        )
+    fr = getattr(env, "fleet_router", None)
+    if fr is not None:
+        # fleet verdict: per-replica lag + degraded flags straight from
+        # the router — a degraded or dead replica degrades THIS health
+        # verdict (the router is the seam an operator probes)
+        fs = fr.fleet_status()
+        out["fleet"] = {
+            "sessions": fs["sessions"],
+            "failovers": fs["failovers"],
+            "sheds": fs["sheds"],
+            "replicas": [
+                {
+                    "name": r["name"],
+                    "alive": r["alive"],
+                    "lag_heights": r["lag_heights"],
+                    "degraded": r["degraded"],
+                }
+                for r in fs["replicas"]
+            ],
+        }
+        for r in fs["replicas"]:
+            if not r["alive"]:
+                reasons.append(f"fleet: replica {r['name']} dead")
+            elif r["degraded"]:
+                reasons.append(
+                    f"fleet: replica {r['name']} degraded "
+                    f"(lag {r['lag_heights']} heights)"
+                )
     bd = getattr(env.consensus_state, "last_commit_breakdown", None)
     if bd is not None:
         # per-phase attribution of the last committed height:
@@ -264,11 +298,27 @@ def _serving_role(env) -> str:
     return "validator" if env.privval_pubkey is not None else "follower"
 
 
+def _replica_lag(env) -> int:
+    fn = getattr(env, "replica_lag_fn", None)
+    if fn is None:
+        return 0
+    try:
+        return max(0, int(fn()))
+    except Exception:
+        return 0
+
+
 def fleet_status(env) -> Dict[str, Any]:
-    """Per-replica serving-fleet view: only meaningful on a node
-    fronting a serving fleet, which the port has not (ROADMAP A10);
-    it answers the JAX route's well-formed JSON-RPC error."""
-    raise RPCError(-32603, "this node does not front a serving fleet")
+    """Per-replica serving-fleet view: head, sessions, admission/shed
+    counters and each replica's height/sessions/lag. Only meaningful on
+    a node fronting a SessionRouter; elsewhere it answers a well-formed
+    JSON-RPC error."""
+    fr = getattr(env, "fleet_router", None)
+    if fr is None:
+        raise RPCError(
+            -32603, "this node does not front a serving fleet"
+        )
+    return fr.fleet_status()
 
 
 def dump_tasks(env) -> Dict[str, Any]:
@@ -318,7 +368,7 @@ def status(env) -> Dict[str, Any]:
             ),
         },
         "serving_role": _serving_role(env),
-        "replica_lag_heights": "0",
+        "replica_lag_heights": str(_replica_lag(env)),
     }
 
 

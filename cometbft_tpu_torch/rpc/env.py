@@ -1,9 +1,12 @@
 """RPC Environment: the node internals the route handlers read
 (reference rpc/core/env.go + node/node.go:754-788 ConfigureRPC).
 
-A copy of the JAX package's ``rpc/env.py`` without the serving
-fleet's fields (ROADMAP A10): the routes that read them answer as the
-JAX routes do when those fields are None. ``loop_watchdog`` is the
+A copy of the JAX package's ``rpc/env.py``. ``fleet_router`` is the
+``fleet.SessionRouter`` a node fronts (the ``fleet_status`` route and
+``health``'s fleet verdict read it; None on a node that fronts no
+fleet), and ``replica_lag_fn`` says how far this node's served height
+trails the committee head when it runs as a follower replica
+(``status`` / ``health`` ``replica_lag_heights``). ``loop_watchdog`` is the
 node's loop watchdog, whose lag the ``health`` route reports, and
 ``tracer`` the node's ring (the fan-out hub's spans). ``retention`` is the node's storage
 lifecycle plane, whose stats the ``health`` route reports. ``add_evidence`` is the node's
@@ -52,6 +55,10 @@ class Environment:
     # async (evidence) -> None: the node's pool behind its evidence
     # reactor's retry list
     add_evidence: object = None
+    # serving-fleet plane (fleet/): the SessionRouter when this node
+    # fronts a fleet; replica_lag_fn () -> int
+    fleet_router: object = None
+    replica_lag_fn: object = None
     # height-keyed commit waiters, shared by every broadcast_tx_commit:
     # lazily built so inspect-mode envs never subscribe
     _commit_waiters: object = None

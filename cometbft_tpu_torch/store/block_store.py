@@ -1,7 +1,8 @@
 """Block store: blocks, parts, metas, commits by height (reference store/store.go).
 
 A copy of the JAX package's ``store/block_store.py``, pruning
-(``prune_blocks``) included, with a plain lock.
+(``prune_blocks``) included; its lock is the runtime sanitizer's
+``store.block`` (the raw RLock when the sanitizer is off).
 
 Key layout (all big-endian heights for ordered iteration):
   H:<height>     -> block meta (block id + header, proto)
@@ -21,6 +22,7 @@ import threading
 from dataclasses import dataclass
 from typing import List, Optional
 
+from ..analysis.runtime import sanitized_lock
 from ..crypto.merkle import Proof
 from ..types.block import Block, BlockID, Commit, Header
 from ..types.part_set import Part, PartSet
@@ -66,7 +68,7 @@ class BlockMeta:
 class BlockStore:
     def __init__(self, db: kv.KV):
         self.db = db
-        self._lock = threading.RLock()
+        self._lock = sanitized_lock(threading.RLock(), "store.block")
         self._base = int.from_bytes(db.get(b"base") or b"\0" * 8, "big")
         self._height = int.from_bytes(db.get(b"height") or b"\0" * 8, "big")
 

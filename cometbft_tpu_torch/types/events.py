@@ -4,9 +4,9 @@ Subscriptions are predicate-filtered asyncio queues; synchronous
 fan-out mirrors the reference's evsw semantics for reactor-internal
 listeners (gossip wakeups must not miss events).
 
-A copy of the JAX package's ``types/events.py`` with a plain
-``threading.Lock`` where that module takes the runtime sanitizer's
-lock.
+A copy of the JAX package's ``types/events.py``; the bus's lock is
+the runtime sanitizer's ``events.bus`` (``analysis/runtime.py``: the
+raw lock when the sanitizer is off).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
+from ..analysis.runtime import sanitized_lock
 from ..obs.queues import InstrumentedQueue
 
 
@@ -82,7 +83,7 @@ class EventBus:
     def __init__(self):
         self._subs: List[Subscription] = []
         self._sync_listeners: List[Callable[[Event], None]] = []
-        self._lock = threading.Lock()
+        self._lock = sanitized_lock(threading.Lock(), "events.bus")
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self.dropped = 0  # events shed across all subscribers
 

@@ -56,6 +56,11 @@
 - The operations plane (the whole ``trace/``, ``obs/``, the tracewire
   stamper, ``utils/metrics.py``, ``utils/debug.py``) is among the
   modules the probe imports.
+- The serving fleet (``fleet/``), the runtime sanitizer and the scaling
+  probe (``analysis/``), connection fuzzing (``p2p/fuzz.py``) and the
+  small host crypto modules are among the modules the probe imports;
+  imported alone they load neither ``jax`` nor ``cometbft_tpu``, and
+  ``analysis/``, ``p2p/fuzz.py`` and the config load no torch.
 """
 
 import os
@@ -124,6 +129,9 @@ NETWORK_MODULES = [
     "trace", "trace.tracer", "trace.export", "trace.summary", "trace.timeline", "trace.bridge",
     "trace.cli", "trace.__main__", "obs.watchdog", "obs.shutdown", "obs.profiler", "obs.budget",
     "utils.metrics", "utils.debug",
+    # the serving fleet, the runtime sanitizer and the last network pieces
+    "fleet", "fleet.follower", "fleet.router", "analysis", "analysis.runtime", "analysis.scaling",
+    "p2p.fuzz", "crypto.encoding", "crypto.armor", "crypto.xsalsa20symmetric", "crypto.xchacha20poly1305",
 ]
 
 
@@ -156,6 +164,34 @@ print(sorted(str(lane.path) for lane in lanes) + [str(native.library("logdb"))])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "cometbft_tpu"))
 print(bad)
 """
+
+
+_SLICE16_PROBE = """
+import sys
+import cometbft_tpu_torch.fleet, cometbft_tpu_torch.analysis, cometbft_tpu_torch.p2p.fuzz
+import cometbft_tpu_torch.crypto.encoding, cometbft_tpu_torch.crypto.armor
+import cometbft_tpu_torch.crypto.xsalsa20symmetric, cometbft_tpu_torch.crypto.xchacha20poly1305
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "cometbft_tpu")))
+print("torch" in sys.modules)
+"""
+
+
+def test_fleet_analysis_and_fuzz_import_no_jax_and_no_reference_package():
+    """``fleet/``, ``analysis/``, ``p2p/fuzz.py`` and the small host
+    crypto modules, imported alone in a fresh interpreter, load neither
+    ``jax`` nor any ``cometbft_tpu.`` module; ``analysis/`` and
+    ``p2p/fuzz.py`` do not load torch either (the sanitizer is
+    stdlib, so the light subcommands stay torch-free)."""
+    proc = subprocess.run([sys.executable, "-c", _SLICE16_PROBE], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.splitlines()[0] == "[]", proc.stdout
+    light = subprocess.run(
+        [sys.executable, "-c", "import sys, cometbft_tpu_torch.analysis, cometbft_tpu_torch.p2p.fuzz, "
+         "cometbft_tpu_torch.config.config; print('torch' in sys.modules)"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert light.returncode == 0, light.stderr
+    assert light.stdout.strip() == "False"
 
 
 def test_native_lanes_load_from_build_native_not_the_jax_cache(tmp_path):

@@ -2,8 +2,8 @@
 
 - The TOML round trip: ``write_toml`` then ``load_toml`` gives the same
   config; the JAX loader reads the port's file to the same values; the
-  port's loader refuses a key or section it lacks (the JAX loader skips
-  it), and ``BaseConfig`` has the JAX defaults of the fields ``cmd/``
+  port's loader refuses a key or section it lacks, or a key it does not
+  read set away from its JAX default (the JAX loader skips both), and ``BaseConfig`` has the JAX defaults of the fields ``cmd/``
   reads.
 - The kernel build across processes: two processes that build the
   kernels into one directory at once, with a stub compiler that writes
@@ -70,7 +70,9 @@ def test_base_config_has_the_jax_defaults():
 
 @pytest.mark.parametrize("text, what", [
     ('[base]\nproxy_app_addr = "tcp://x:1"\n', "proxy_app_addr"),
-    ('[crypto]\nbatch_backend = "cpu"\n', "crypto"),
+    # a key the JAX package writes and the port does not read loads only
+    # at its JAX default: set, it is refused rather than ignored
+    ('[p2p]\nexternal_address = "tcp://1.2.3.4:26656"\n', "external_address"),
 ])
 def test_load_toml_refuses_what_the_port_lacks(tmp_path, text, what):
     path = tmp_path / "config" / "config.toml"

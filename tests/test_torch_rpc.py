@@ -6,7 +6,9 @@ packages' RPC held to each other.
   (``device="cpu"`` for the port's): status, block, commit, validators,
   ``broadcast_tx_commit`` and ``tx``/``tx_search`` with proofs,
   ``abci_query``, a websocket subscription, the serving role and the
-  fleet route's error, the other routes, and the unsafe routes.
+  fleet route's error, a node fronting a serving fleet (``fleet_status``
+  and ``health``'s fleet verdict), the other routes, and the unsafe
+  routes.
   Both nodes run the loop watchdog, so both ``health`` answers carry
   ``loop_lag_ms``.
 - The route table matches ``docs/openapi.yaml`` and every documented
@@ -175,6 +177,57 @@ def test_serving_role(pkg, tmp_path):
         await node.stop()
 
     run(main())
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_serving_fleet_status(pkg, tmp_path):
+    """The fleet half of the reference's serving-role case, on a node
+    that fronts a fleet: a ``SessionRouter`` over a ``NodeReplica`` of
+    the node and a ``FollowerNode`` on a ``StoreSource`` of its block
+    store. ``fleet_status`` answers the router's view and ``health``
+    carries the fleet verdict; a killed follower degrades it, and a
+    ``replica_lag_fn`` shows in ``status`` and ``health``. Both
+    packages answer with the same shape and verdicts."""
+    fleet = __import__("cometbft_tpu.fleet" if pkg == "jax" else "cometbft_tpu_torch.fleet",
+                       fromlist=["SessionRouter"])
+
+    async def main():
+        node, cli, err = await single_node(pkg, tmp_path)
+        source = fleet.StoreSource(node.parts.block_store)
+        follower = fleet.FollowerNode("follower-0", source, poll_s=0.01)
+        router = fleet.SessionRouter([fleet.NodeReplica(node, name="self"), follower],
+                                     store_source=source, lag_poll_s=0.02)
+        await follower.start()
+        await router.start()
+        node.rpc_env.fleet_router = router
+        st = await cli.call("fleet_status")
+        assert [r["name"] for r in st["replicas"]] == ["self", "follower-0"]
+        assert [r["role"] for r in st["replicas"]] == ["validator", "follower"]
+        assert st["sessions"] == 0 and st["failovers"] == 0
+        assert st["sheds"] == {"admit": 0, "lag": 0, "failover": 0}
+        assert int(st["head"]) >= 2
+        h = await cli.call("health")
+        assert [r["name"] for r in h["fleet"]["replicas"]] == ["self", "follower-0"]
+        assert all(r["alive"] and not r["degraded"] for r in h["fleet"]["replicas"])
+        assert not any("fleet" in r for r in h.get("reasons", []))
+        await follower.kill()
+        h2 = await cli.call("health")
+        assert h2["status"] == "degraded"
+        assert "fleet: replica follower-0 dead" in h2["reasons"]
+        node.rpc_env.replica_lag_fn = lambda: 3
+        st2 = await cli.status()
+        h3 = await cli.call("health")
+        out = (sorted(st), sorted(h["fleet"]), [r["alive"] for r in h2["fleet"]["replicas"]],
+               st2["replica_lag_heights"], h3["replica_lag_heights"])
+        node.rpc_env.fleet_router = None
+        await router.close()
+        await cli.close()
+        await node.stop()
+        return out
+
+    got = run(main())
+    assert got == (["admission", "failovers", "head", "replicas", "sessions", "sessions_resumed", "sheds",
+                    "tokens_issued"], ["failovers", "replicas", "sessions", "sheds"], [True, False], "3", 3)
 
 
 @pytest.mark.parametrize("pkg", PKGS)
