@@ -230,9 +230,9 @@ Phases, each printing one JSON line:
    widest.
 
 14. statesync, the device route pinned, on phase 8's genesis (150
-   validators): a chain of 544 heights x 256 txs a block (139,264
+   validators): a chain of 184 heights x 256 txs a block (47,104
    kvstore keys) minted by utils.chaingen with the app writing on-disk
-   snapshots at 510 and 520 (a checksumming kvstore: each chunk's
+   snapshots at 150 and 160 (a checksumming kvstore: each chunk's
    SHA-256 in the snapshot's metadata), then served by three source
    Nodes (no signer, RPC on, storage.snapshot_interval 10) from sqlite
    copies of its home, the third corrupting every chunk it serves:
@@ -240,9 +240,9 @@ Phases, each printing one JSON line:
    primary and witness, the trust root at height 1, its app a
    checksumming kvstore too, so that it reads the chunk hashes) dials
    all three, restores the newest snapshot, bans the corrupting sender
-   and blocksyncs the tail to 544; its block store must start at 521,
-   every block ID from 521 and every state row from 520 equal the
-   source's, the restored pairs (133,120, at least 131,072) hash by the
+   and blocksyncs the tail to 184; its block store must start at 161,
+   every block ID from 161 and every state row from 160 equal the
+   source's, the restored pairs (40,960) hash by the
    kvstore's rule to the app hash the light client certified, and a
    pre-snapshot
    key is among them; every state-provider ticket a PRIORITY_CATCHUP
@@ -252,9 +252,9 @@ Phases, each printing one JSON line:
    before each joiner, read just after); (b) the same with adaptive
    sync, consensus started on the restored state ingesting the tail;
    (c) a fourth source pruning to its last 64 blocks (retain_blocks 64,
-   prune_interval_s 0.2) until its base is 480: RPC block below the
+   prune_interval_s 0.2) until its base is 120: RPC block below the
    base answers the structured pruned error, and a joiner with its
-   trust root at 492 restores from it alone, every chunk served under
+   trust root at 132 restores from it alone, every chunk served under
    the retention plane's serve floor. The kernels line adds
    statesync_launches (14a / 14b / 14c) and each kernel against its
    plain version on 14a's widest state-provider ticket and its first
@@ -362,9 +362,9 @@ Phases, each printing one JSON line:
    finalize_pipeline and finalize_offload_apply on, timeout_commit 0.25
    s, no indexer), each a VecBank of 16,384 accounts, fed 16,000
    distinct transfers at 2,000 a commit timeout until all are committed
-   and the net is at height 8 or above; native and portable twice
-   each, alternated (the bench runs 12 heights and 4 repeats; both cut
-   for the smoke's time). Every
+   and the net is at height 8 or above; native and portable once each
+   (the bench runs 12 heights and 4 repeats; both cut for the smoke's
+   time). Every
    node must store the same block at every height, every transfer be
    committed once, the final balances be equal across the nodes and
    the modes, every block's finalize pass be of the run's mode and
@@ -456,6 +456,48 @@ Phases, each printing one JSON line:
    each kernel against its plain version on 19a's widest light ticket
    and 19b's first prevote wave (fleet_max_abs_err), with its device
    time and bound at the light ticket.
+
+20. chaos and e2e: (a) chaos_schedule, chaos.run_schedule on the
+   4-validator chaos net (MemoryTransport under a seeded LinkTable,
+   sqlite homes, seed 1337) with the device route pinned (floor 1):
+   the default schedule (partition at h2, heal at h4, crash of node 1
+   at h5 and its restart), the same with byzantine_node=2, a
+   verify_storm schedule (the storm's 8-lane live, 16-lane light and
+   64-lane catch-up tickets through the process scheduler beside the
+   live net, then a crash and restart) and a lock_inversion +
+   scaling_probe one (a planted quadratic). Gates: the clean runs
+   report.ok and the byzantine run flagged by the agreement checker;
+   each nemesis trace the schedule's actions; every ticket a card
+   ticket, every vote wave PRIORITY_LIVE, each kernel launched once a
+   ticket (counters zeroed before each run, read after); the storm's
+   parity, a non-starved catch-up lane and its live p95 within 2,500
+   ms, each storm class on the card at its priority; both injected
+   sanitizer findings and the planted site found, nothing else (the
+   real sites' exponents, timed beside the live net, reported). On the
+   line: heights, the nemesis traces, the storm's per-class tickets,
+   p50/p95 and promotions, card tickets by class, the span-budget
+   verdicts against tools/span_budgets.toml (reported, not gating) and
+   each run's seconds. (b) chaos_matrix: chaos matrix --seed 1337
+   --count 5 --budget, one scenario at a time, pinned: every scenario
+   invariant-clean, its tickets on the card, the statesync joiner's
+   light-provider tickets PRIORITY_CATCHUP card tickets; each
+   scenario's seed line, heights, verdicts and budget verdicts
+   (reported, not gating). (c) e2e_net: the e2e Runner on
+   tests/test_e2e.py's manifest (five validators: evidence at h4 with
+   gRPC, a kill at h5, a pause, a disconnect, an upgrade at h5; a full
+   node joining at h6 by blocksync; target 12), every child
+   python -m cometbft_tpu_torch --device cuda, then a load child
+   against val0's RPC at the manifest's 4 tx/s for 5 s. Gates: the run
+   ok, every node at the target (the killed validator and the late
+   full node included), the upgraded node reporting its new version,
+   the evidence committed, every accepted load tx committed once, and
+   every child holding the card (its log naming the card, /dev/nvidia*
+   open, the card's compute apps). The kernels line adds chaos_launches
+   (20a / 20b / 20c, the last the parent's own: the children launch
+   theirs) and each kernel against its plain version on the storm's
+   64-lane catch-up ticket, 20a's first prevote wave and 20b's widest
+   state-provider ticket (chaos_max_abs_err), with its device time and
+   bound at the storm's ticket.
 
 The line before last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
@@ -557,13 +599,15 @@ RPC_COMMIT_TXS = 16
 RPC_QUERY_KEYS = 16
 LIGHT_REQUESTS = 256
 LIGHT_HEIGHTS = 16
-# phase 14: statesync, on phase 8's genesis (150 validators)
-SS_BLOCKS = 544
+# phase 14: statesync, on phase 8's genesis (150 validators). The
+# chain's depth is cut from 544 heights to 184 (width, tail and window
+# uncut) to hold the smoke's time with phase 20 added
+SS_BLOCKS = 184
 SS_TXS = 256
-SS_SNAPSHOTS = (510, 520)  # on disk: the newest leaves a 24-height tail
-SS_MIN_RESTORED_KEYS = 131072
+SS_SNAPSHOTS = (150, 160)  # on disk: the newest leaves a 24-height tail
+SS_MIN_RESTORED_KEYS = 40960
 SS_RETAIN = 64
-SS_TRUST_IN_WINDOW = 492
+SS_TRUST_IN_WINDOW = 132
 SS_DEADLINE_S = 240
 # phase 15: the fork's network plane: 11a's four validators, 11b's join
 # and 11c's live heights again, every Node on lp2p with the autopool and
@@ -574,11 +618,11 @@ LP2P_JOIN_BLOCKS = 512
 # phase 17: the host's native lanes. 17b is bench.py::bench_finalize's
 # localnet leg (four validators, VecBank of 16,384 accounts, 2,000
 # transfers a height, 12 heights, 4 repeats a mode) cut to 8 heights and
-# 2 repeats to hold the smoke's time
+# 1 repeat to hold the smoke's time
 NATIVE_FIN_VALS = 4
 NATIVE_FIN_TXS = 2000
 NATIVE_FIN_HEIGHTS = 8
-NATIVE_FIN_REPEATS = 2
+NATIVE_FIN_REPEATS = 1
 NATIVE_FIN_ACCOUNTS = 1 << 14
 NATIVE_PROFILE_TOP = 10
 NATIVE_DEADLINE_S = 120
@@ -3284,8 +3328,8 @@ def _kv_app_hash(height, state) -> bytes:
 
 
 def phase_statesync(dev, gen, privs):
-    """Phase 14: a 150-validator chain of 544 heights x 256 txs minted
-    with on-disk snapshots at 510 and 520, served by three source Nodes
+    """Phase 14: a 150-validator chain of SS_BLOCKS heights x 256 txs
+    minted with on-disk snapshots at SS_SNAPSHOTS, served by three source Nodes
     from sqlite copies (one of them corrupting every chunk it serves);
     (a) a fresh Node restores the newest snapshot by statesync and
     blocksyncs the tail, (b) the same with adaptive sync, (c) a joiner
@@ -3320,7 +3364,7 @@ def phase_statesync(dev, gen, privs):
     nodes, clients = [], []
     launches, items = {}, {}
 
-    # the corpus: snapshots on disk at 510 and 520 only (the app writes
+    # the corpus: snapshots on disk at SS_SNAPSHOTS only (the app writes
     # through the store while it is attached), so the newest leaves a
     # 24-height tail
     t0 = time.perf_counter()
@@ -6166,6 +6210,321 @@ def phase_fleet(dev, serve):
     return launches, items
 
 
+# --- phase 20: chaos and e2e -------------------------------------------------
+
+CHAOS_SEED = 1337
+CHAOS_MATRIX = 5  # the reference's smoke matrix: any 5-window covers every lifecycle
+CHAOS_DEADLINE_S = 240
+# tests/test_e2e.py's manifest (MANIFEST): five validators, evidence at
+# h4 with gRPC, a kill at h5, a pause, a disconnect, an upgrade at h5,
+# and a full node that joins at h6 by blocksync; target height 12
+E2E_MANIFEST = {
+    "chain_id": "e2e-smoke",
+    "target_height": 12,
+    "load_tx_rate": 4,
+    "node": {
+        "val0": {"mode": "validator", "evidence_at": 4, "grpc": True},
+        "val1": {"mode": "validator", "kill_at": 5},
+        "val2": {"mode": "validator", "pause_at": 4, "pause_s": 2.0},
+        "val3": {"mode": "validator", "disconnect_at": 6, "disconnect_s": 2.0},
+        "val4": {"mode": "validator", "upgrade_at": 5},
+        "full0": {"mode": "full", "start_at": 6, "block_sync": True},
+    },
+}
+E2E_DEADLINE_S = 240
+E2E_LOAD_S = 5
+
+
+def _by_class(tickets) -> dict:
+    """{class: {"tickets": n, "card": n on the device route}} of
+    recorded (label, priority, lanes, route, wall) rows."""
+    from cometbft_tpu_torch.crypto import scheduler as S
+
+    out = {}
+    for _, p, _, r, _ in tickets:
+        c = out.setdefault(S.CLASS_NAMES[p], {"tickets": 0, "card": 0})
+        c["tickets"] += 1
+        c["card"] += r == "device"
+    return out
+
+
+def _budget_lines(verdicts) -> dict:
+    """Span-budget verdicts in short: how many held, and each breach."""
+    return {"ok": sum(bool(v.get("ok")) for v in verdicts),
+            "breaches": [{k: v.get(k) for k in ("node", "span", "stat", "value", "limit")}
+                         for v in verdicts if not v.get("ok")]}
+
+
+def _card_run(name, rec, launch) -> None:
+    """Every ticket of a recorded run on the card, every vote wave a
+    PRIORITY_LIVE one, and each kernel launched once a ticket."""
+    from cometbft_tpu_torch.crypto import scheduler as S
+
+    tickets = rec.rows()
+    off = [(lbl, r) for lbl, _, _, r, _ in tickets if r != "device"]
+    check(tickets and not off, f"{name}: {len(off)} of {len(tickets)} tickets off the card {off[:4]}")
+    waves = [t for t in tickets if t[0] == "vote-wave"]
+    check(waves and all(p == S.PRIORITY_LIVE for _, p, _, _, _ in waves),
+          f"{name}: {len(waves)} vote waves, or one not PRIORITY_LIVE")
+    check(all(launch[k] == len(rec.dispatches) == len(tickets) for k in SOURCES),
+          f"{name}: launches {launch} against {len(rec.dispatches)} dispatches and {len(tickets)} tickets")
+
+
+def chaos_schedules(dev, sched, root):
+    """20a: run_schedule on the 4-validator chaos net, device route
+    pinned: the default schedule (partition at h2, heal at h4, crash of
+    node 1 at h5, restart), the same with byzantine_node=2 (which the
+    agreement checker must flag), a verify_storm schedule and a
+    lock_inversion + scaling_probe one. Returns the launches, the
+    storm's 64-lane catch-up ticket and the first vote wave."""
+    import asyncio
+
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.analysis.runtime import injected_finding
+    from cometbft_tpu_torch.chaos import FaultEvent, FaultSchedule, default_schedule, run_schedule
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.obs.budget import default_budget_file
+
+    tail = [FaultEvent("crash", at_height=3, node=1), FaultEvent("restart", after_s=0.5, node=1)]
+    runs = {
+        "default": default_schedule(),
+        "byzantine": default_schedule(byzantine_node=2),
+        # tests/test_verify_scheduler.py's chaos case, on a live net
+        "verify_storm": FaultSchedule([FaultEvent("verify_storm", at_height=2), *tail]),
+        # tests/test_sanitizer.py:341's and test_complexity.py:422's
+        "lock_scaling": FaultSchedule([FaultEvent("lock_inversion", at_height=2),
+                                       FaultEvent("scaling_probe", at_height=2, inject_quadratic=True), *tail]),
+    }
+    budgets = default_budget_file()
+    lines, launches, items = {}, {}, {}
+    for name, schedule in runs.items():
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        with Recorder(sched) as rec:
+            report = asyncio.run(asyncio.wait_for(run_schedule(
+                schedule, seed=CHAOS_SEED, base_dir=os.path.join(root, name),
+                trace_dir=os.path.join(root, f"{name}_traces"), budget_file=budgets, device=dev),
+                CHAOS_DEADLINE_S))
+        wall = time.perf_counter() - t0
+        launch = dict(kernels.LAUNCHES)
+        launches[name] = launch
+        _card_run(f"chaos {name}", rec, launch)
+        tickets = rec.rows()
+        actions = [t["action"] for t in report.trace]
+        check(actions == [e.action for e in schedule.events], f"chaos {name}: nemesis ran {actions}")
+        # the real sites' exponents, timed on a thread beside the live
+        # net (as in the reference's case), are reported, not gated
+        timed = [v for v in report.violations if name == "lock_scaling" and v.startswith("scaling[")]
+        if name == "byzantine":
+            check(not report.ok and any("agreement" in v for v in report.violations),
+                  f"chaos byzantine: the agreement checker did not flag it: {report.violations}")
+        else:
+            check(report.violations == timed, f"chaos {name}: {report.violations}")
+        line = {"heights": report.final_heights, "trace": report.trace, "violations": report.violations,
+                "wal_checks": report.wal_checks, "tickets_by_class": _by_class(tickets),
+                "budget_verdicts": _budget_lines(report.budget_verdicts), "launches": launch, "seconds": wall}
+        if name == "verify_storm":
+            storm = report.trace[0]
+            check(storm["parity_ok"] and storm["catchup"]["tickets"] > 0
+                  and storm["live"]["p95_ms"] <= storm["live_budget_ms"],
+                  f"chaos storm: {storm}")
+            classes = {"storm-live": S.PRIORITY_LIVE, "storm-light": S.PRIORITY_LIGHT,
+                       "storm-catchup": S.PRIORITY_CATCHUP}
+            per = {lbl: [t for t in tickets if t[0] == lbl] for lbl in classes}
+            check(all(per[lbl] and all(p == classes[lbl] and r == "device" for _, p, _, r, _ in per[lbl])
+                      for lbl in classes), f"chaos storm: tickets {[(lbl, len(ts)) for lbl, ts in per.items()]}")
+            line["storm"] = {k: storm[k] for k in ("live", "light", "catchup", "promoted", "parity_ok",
+                                                   "live_budget_ms", "storm_s")}
+            items["20a_storm_catchup"] = next(x for x in rec.labelled["storm-catchup"] if len(x) == 64)
+        if name == "lock_scaling":
+            kinds = sorted({f["kind"] for f in report.sanitizer_findings if injected_finding(f)})
+            planted = [r for r in report.scaling_results if r["injected"] and not r["ok"]]
+            check(kinds == ["lock-order-cycle", "loop-affinity"] and planted,
+                  f"chaos lock_scaling: injected findings {kinds}, planted {planted}")
+            line["sanitizer_findings"] = [f["kind"] for f in report.sanitizer_findings]
+            line["scaling"] = [{k: r[k] for k in ("site", "exponent", "budget", "ok", "injected")}
+                               for r in report.scaling_results]
+        if name == "default":
+            items["20a_prevote"] = rec.labelled["vote-wave"][0]
+        lines[name] = line
+    emit("chaos_schedule", validators=4, seed=CHAOS_SEED, route="device (pinned, floor 1)", runs=lines)
+    total = {k: sum(ls[k] for ls in launches.values()) for k in SOURCES}
+    return total, items
+
+
+def chaos_matrix(dev, sched):
+    """20b: ``chaos matrix --seed 1337 --count 5 --budget``, one
+    scenario at a time (so each one's tickets are recorded apart),
+    device route pinned. Every scenario invariant-clean; the statesync
+    joiner's light-provider tickets PRIORITY_CATCHUP card tickets;
+    budget verdicts reported."""
+    import asyncio
+
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.chaos import generate_matrix, run_matrix
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.obs.budget import default_budget_file
+
+    budgets = default_budget_file()
+    specs = generate_matrix(CHAOS_SEED, CHAOS_MATRIX)
+    lifecycles = {s.axes["lifecycle"] for s in specs}
+    check(lifecycles == {"crash_wave", "statesync_join", "wal_torn_tail", "adaptive_catchup", "crash_restart"},
+          f"chaos matrix: lifecycles {lifecycles}")
+    total = {k: 0 for k in SOURCES}
+    scenarios, items = [], {}
+    for spec in specs:
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        with Recorder(sched) as rec:
+            matrix = asyncio.run(asyncio.wait_for(run_matrix([spec], budget_file=budgets, device=dev),
+                                                  CHAOS_DEADLINE_S))
+        wall = time.perf_counter() - t0
+        launch = dict(kernels.LAUNCHES)
+        res = matrix.results[0]
+        check(res.ok, f"chaos {spec.scenario_id}: {res.error or res.report.violations}")
+        _card_run(f"chaos {spec.scenario_id}", rec, launch)
+        tickets = rec.rows()
+        line = {"seed_line": spec.seed_line(), "axes": spec.axes, "heights": res.report.final_heights,
+                "invariants": "OK", "trace": [t["action"] for t in res.report.trace],
+                "workload": res.report.workload, "budget_ok": res.report.budget_ok,
+                "budget_verdicts": _budget_lines(res.report.budget_verdicts),
+                "tickets_by_class": _by_class(tickets), "launches": launch, "seconds": wall}
+        if spec.axes["lifecycle"] == "statesync_join":
+            provider = [t for t in tickets if t[0] in ("trusting", "light")]
+            check(provider and all(p == S.PRIORITY_CATCHUP and r == "device" for _, p, _, r, _ in provider),
+                  f"chaos {spec.scenario_id}: provider tickets {[(t[0], t[1], t[3]) for t in provider]}")
+            joiners = [n for n in res.report.final_heights if n.startswith("j")]
+            check(joiners and all(res.report.final_heights[j] > 0 for j in joiners),
+                  f"chaos {spec.scenario_id}: joiners {res.report.final_heights}")
+            line["provider_tickets"] = [{"label": t[0], "priority": S.CLASS_NAMES[t[1]], "lanes": t[2],
+                                         "route": t[3]} for t in provider]
+            items["20b_provider"] = max((x for lbl in ("trusting", "light") for x in rec.labelled.get(lbl, [])),
+                                        key=len)
+        for k in SOURCES:
+            total[k] += launch[k]
+        scenarios.append(line)
+    emit("chaos_matrix", master_seed=CHAOS_SEED, count=CHAOS_MATRIX, route="device (pinned, floor 1)",
+         invariant_clean=True, budget_gating=False, scenarios=scenarios)
+    return total, items
+
+
+def e2e_net(dev, root):
+    """20c: the e2e Runner on tests/test_e2e.py's manifest, every child
+    ``python -m cometbft_tpu_torch --device cuda``, then a ``load``
+    child against val0's RPC at the manifest's rate. Returns the
+    parent's launches (the children launch their own)."""
+    import asyncio
+
+    import torch
+
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.e2e.manifest import Manifest
+    from cometbft_tpu_torch.e2e.runner import CONVERGENCE_BUDGET_S, POST_BUDGET_S, Runner
+
+    m = Manifest.from_dict(E2E_MANIFEST)
+    runner = Runner(m, os.path.join(root, "e2e"), base_port=_free_run(3 * len(m.nodes)), device=dev)
+    runner.setup()
+    apps_before = _card_apps()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        ok = asyncio.run(asyncio.wait_for(runner.run(timeout_s=E2E_DEADLINE_S),
+                                          E2E_DEADLINE_S + CONVERGENCE_BUDGET_S + POST_BUDGET_S))
+        wall = time.perf_counter() - t0
+        heights = {n: runner._height(rn) for n, rn in runner.nodes.items()}
+        versions = {n: runner._rpc(rn, "status")["node_info"]["version"] for n, rn in runner.nodes.items()}
+        apps_on_card = _card_apps()
+        children = {n: rn.proc for n, rn in runner.nodes.items()}
+        card_files = {n: _card_fds(p.pid) for n, p in children.items() if p.poll() is None}
+        t_load = time.perf_counter()
+        val0 = runner.nodes["val0"]
+        load = subprocess.run([sys.executable, "-m", "cometbft_tpu_torch", "load",
+                               "--rpc-laddr", f"127.0.0.1:{val0.rpc_port}", "-r", str(m.load_tx_rate),
+                               "-T", str(E2E_LOAD_S), "-s", "128"],
+                              cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                              timeout=120)
+        load_s = time.perf_counter() - t_load
+    finally:
+        runner.stop()
+    launches = dict(kernels.LAUNCHES)
+    check(ok and not runner.failures, f"e2e: {runner.failures}")
+    check(all(h >= m.target_height for h in heights.values()), f"e2e: heights {heights}")
+    check(getattr(runner, "_upgraded_ok", False) and versions["val4"] == "0.2.0-upgrade",
+          f"e2e: the upgraded node reports {versions['val4']}")
+    check(getattr(runner, "_evidence_injected", False), "e2e: the evidence was never injected")
+    check(load.returncode == 0, f"e2e load: exit {load.returncode}: {load.stderr[-2000:]}")
+    rep = json.loads(load.stdout.strip().splitlines()[-1])
+    check(rep["accepted"] > 0 and rep["count"] == rep["accepted"],
+          f"e2e load: {rep['accepted']} accepted, {rep['count']} committed in the window")
+    logs = {n: open(os.path.join(rn.home, "node.log")).read() for n, rn in runner.nodes.items()}
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    on_card = {n: f"started on device {dev.type}" in logs[n] and name in logs[n] and bool(card_files.get(n))
+               for n in runner.nodes}
+    check(all(on_card[n] for n, rn in runner.nodes.items() if rn.spec.mode == "validator"),
+          f"e2e: validator children off the card {on_card}, card files {card_files}")
+    check(all(on_card.values()), f"e2e: a child off the card {on_card}")
+    pids = [str(p.pid) for p in children.values()]
+    listed = all(p in apps_on_card for p in pids) or (
+        set(apps_on_card) == {"1"} and len(apps_on_card) >= len(apps_before) + len(pids))
+    check(listed, f"e2e: children {pids} against the card's compute apps {apps_on_card} (before: {apps_before})")
+    emit("e2e_net", nodes=len(m.nodes), target_height=m.target_height, heights=heights, wall_s=wall,
+         block_intervals=getattr(runner, "benchmark", None), upgraded_version=versions["val4"],
+         evidence_committed=True, children_device=dev.type, children_on_card=on_card,
+         card_compute_apps=apps_on_card, card_compute_apps_before=apps_before,
+         card_files={n: len(f) for n, f in card_files.items()},
+         load={k: rep[k] for k in ("sent", "accepted", "rejected", "send_rate_tx_s", "count", "p50_s", "p95_s",
+                                   "max_s", "heights")} | {"seconds": load_s, "rate": m.load_tx_rate},
+         parent_launches=launches)
+    return launches
+
+
+def phase_chaos(dev):
+    """Phase 20: (a) chaos schedules, (b) the chaos matrix, (c) the
+    e2e net. Returns the launches of (a), (b) and (c) and, for phase
+    6, the storm's 64-lane catch-up ticket, 20a's first prevote wave
+    and 20b's widest state-provider ticket."""
+    import shutil
+
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.utils import log
+
+    t_phase = time.perf_counter()
+    card = smi("name,power.limit")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chaos")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    floor = batch._MIN_DEVICE_BATCH
+    sched = S.VerifyScheduler()
+    S.set_scheduler(sched)
+    log.set_level("consensus:error,p2p:error,blocksync:error,statesync:error,chaos:error,"
+                  "chaos.nemesis:error,*:info")
+    launches, items = {}, {}
+    seconds = {}
+    try:
+        batch.set_min_device_batch(1)
+        t0 = time.perf_counter()
+        launches["20a"], got = chaos_schedules(dev, sched, root)
+        items.update(got)
+        seconds["20a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        launches["20b"], got = chaos_matrix(dev, sched)
+        items.update(got)
+        seconds["20b"] = time.perf_counter() - t0
+        batch.set_min_device_batch(floor)
+        t0 = time.perf_counter()
+        launches["20c"] = e2e_net(dev, root)
+        seconds["20c"] = time.perf_counter() - t0
+    finally:
+        batch.set_min_device_batch(floor)
+        log.set_level("info")
+        S.set_scheduler(None)
+        sched.close()
+        shutil.rmtree(root, ignore_errors=True)
+    emit("chaos_phase", seconds=time.perf_counter() - t_phase, parts_s=seconds, budget_s=150, card=card)
+    return launches, items
+
+
 # --- timing and bounds --------------------------------------------------------
 
 
@@ -6390,6 +6749,7 @@ def main(argv) -> int:
     native_launches, native_items = phase_native(dev, gen, *net_corpus)
     ops_launches, ops_items = phase_operations(dev, gen, privs, *net_corpus)
     fleet_launches, fleet_items = phase_fleet(dev, serve_corpus)
+    chaos_launches, chaos_items = phase_chaos(dev)
 
     # phase 6: each kernel against its plain version on the main paths'
     # own inputs (the window's lanes and the commit's; the replay's and
@@ -6472,6 +6832,13 @@ def main(argv) -> int:
     fl_calls = {k: stage_calls(xf) for k, xf in x_fl.items()}
     fl_errs = {k: compare(c) for k, c in fl_calls.items()}
     x_flw, flw_calls = x_fl["19a_light_widest"], fl_calls["19a_light_widest"]
+    # phase 20's own inputs: the verify storm's 64-lane catch-up ticket
+    # (two bad lanes), 20a's first prevote wave and 20b's widest
+    # state-provider ticket; timed at the storm's ticket
+    x_ch = {k: kernel_inputs(its, dev) for k, its in chaos_items.items()}
+    ch_calls = {k: stage_calls(xc) for k, xc in x_ch.items()}
+    ch_errs = {k: compare(c) for k, c in ch_calls.items()}
+    x_chs, chs_calls = x_ch["20a_storm_catchup"], ch_calls["20a_storm_catchup"]
     emit("main_path_vs_plain", lanes=x["n"], commit_lanes=x_commit["n"],
          replay_lanes=list(x_replay), bisect_lanes=list(x_bisect),
          live_lanes={k: xw["n"] for k, xw in x_waves.items()},
@@ -6483,12 +6850,13 @@ def main(argv) -> int:
          operator_lanes={k: xo["n"] for k, xo in x_op.items()},
          native_lanes={k: xn["n"] for k, xn in x_nat.items()},
          ops_lanes={k: xo["n"] for k, xo in x_ops.items()},
-         fleet_lanes={k: xf["n"] for k, xf in x_fl.items()}, equal=True, max_abs_err=errs,
+         fleet_lanes={k: xf["n"] for k, xf in x_fl.items()},
+         chaos_lanes={k: xc["n"] for k, xc in x_ch.items()}, equal=True, max_abs_err=errs,
          commit_max_abs_err=commit_errs, replay_max_abs_err=replay_errs,
          bisect_max_abs_err=bisect_errs, live_max_abs_err=live_errs, net_max_abs_err=net_errs,
          evidence_max_abs_err=ev_errs, serve_max_abs_err=serve_errs, statesync_max_abs_err=ss_errs,
          lp2p_max_abs_err=lp_errs, operator_max_abs_err=op_errs, native_max_abs_err=nat_errs,
-         ops_max_abs_err=ops_errs, fleet_max_abs_err=fl_errs)
+         ops_max_abs_err=ops_errs, fleet_max_abs_err=fl_errs, chaos_max_abs_err=ch_errs)
     rows = []
     for name in ("ladder", "decompress", "hash_digits"):
         f, plain = calls[name]
@@ -6506,6 +6874,7 @@ def main(argv) -> int:
         nat_err = {w: max(e[k] for k in parts) for w, e in nat_errs.items()}
         ops_err = {w: max(e[k] for k in parts) for w, e in ops_errs.items()}
         fl_err = {w: max(e[k] for k in parts) for w, e in fl_errs.items()}
+        ch_err = {w: max(e[k] for k in parts) for w, e in ch_errs.items()}
         err = max(max(errs[k], commit_errs[k]) for k in parts)
         b_ms, b_by = bound(name, x, int_rate)
         bc_ms, bc_by = bound(name, x_commit, int_rate)
@@ -6521,6 +6890,7 @@ def main(argv) -> int:
         bnat_ms, bnat_by = bound(name, x_natw, int_rate)
         bops_ms, bops_by = bound(name, x_opsp, int_rate)
         bfl_ms, bfl_by = bound(name, x_flw, int_rate)
+        bch_ms, bch_by = bound(name, x_chs, int_rate)
         bb_ms, bb_by = bound(name, x_bulk, int_rate)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -6537,10 +6907,11 @@ def main(argv) -> int:
             "native_launches": {ph: ls[name] for ph, ls in native_launches.items()},
             "ops_launches": {ph: ls[name] for ph, ls in ops_launches.items()},
             "fleet_launches": {ph: ls[name] for ph, ls in fleet_launches.items()},
+            "chaos_launches": {ph: ls[name] for ph, ls in chaos_launches.items()},
             "max_abs_err": max(err, replay_err, bisect_err, *live_err.values(), *net_err.values(),
                                *ev_err.values(), *serve_err.values(), *ss_err.values(),
                                *lp_err.values(), *op_err.values(), *nat_err.values(), *ops_err.values(),
-                               *fl_err.values()),
+                               *fl_err.values(), *ch_err.values()),
             "tolerance": 0,
             "ms": graph_ms(f), "call_ms": cuda_ms(f, 20),
             "plain_ms": cuda_ms(plain, 2, warm=0), "bound_ms": b_ms,
@@ -6617,6 +6988,12 @@ def main(argv) -> int:
             "fleet_call_ms": cuda_ms(flw_calls[name][0], 20),
             "fleet_plain_ms": cuda_ms(flw_calls[name][1], 2, warm=0),
             "fleet_bound_ms": bfl_ms, "fleet_bound_by": bfl_by,
+            "chaos_lanes": {w: xc["n"] for w, xc in x_ch.items()},
+            "chaos_max_abs_err": ch_err,
+            "chaos_ms": graph_ms(chs_calls[name][0]),
+            "chaos_call_ms": cuda_ms(chs_calls[name][0], 20),
+            "chaos_plain_ms": cuda_ms(chs_calls[name][1], 2, warm=0),
+            "chaos_bound_ms": bch_ms, "chaos_bound_by": bch_by,
             "bulk_lanes": N_BULK, "bulk_ms": bulk_ms[name], "bulk_call_ms": bulk_call_ms[name],
             "bulk_bound_ms": bb_ms, "bulk_bound_by": bb_by,
             "bulk_max_abs_err": max(bulk_errs[k] for k in parts),

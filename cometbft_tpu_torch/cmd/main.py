@@ -7,8 +7,9 @@ unsafe-reset-all, inspect, compact, gen-node-key, gen-validator,
 show-node-id, show-validator, bootstrap-state, signer, abci-server,
 abci-cli, debug (``dump``/``kill``: a live node's status, net info,
 consensus dump and, with ``--pprof-laddr``, stacks and heap, archived
-by ``utils/debug.collect_debug_dump``) and version. ``load`` raises
-``NotImplementedError`` naming ROADMAP A10: it needs ``e2e/``.
+by ``utils/debug.collect_debug_dump``), load (timestamped tx load
+against a node's RPC and the commit-latency report, ``e2e/load.py``;
+no device) and version.
 
 Where the JAX package pins its JAX platform, the port takes
 ``--device`` (default ``cuda``), resolved by ``device.resolve`` for the
@@ -653,11 +654,50 @@ def cmd_debug(args) -> int:
     return 0
 
 
-def cmd_unported(what: str):
-    def refuse(args) -> int:
-        raise NotImplementedError(f"{what} is not ported to cometbft_tpu_torch yet (ROADMAP A10)")
+def cmd_load(args) -> int:
+    """Timestamped tx load + commit-latency report (reference
+    test/loadtime). It talks to a node over RPC and checks no
+    signature, so it resolves no device."""
+    import json as _json
 
-    return refuse
+    from ..e2e.load import LoadGenerator, latency_report
+    from ..rpc.client import HTTPClient
+
+    async def main():
+        base = args.rpc_laddr.replace("tcp://", "http://")
+        if not base.startswith("http"):
+            base = "http://" + base
+        cli = HTTPClient(base)
+        try:
+            st = await cli.status()
+            h0 = int(st["sync_info"]["latest_block_height"])
+            gen = LoadGenerator(
+                cli,
+                rate=args.rate,
+                connections=args.connections,
+                tx_size=args.size,
+            )
+            res = await gen.run(args.time)
+            await asyncio.sleep(2.0)  # let the tail commit
+            st = await cli.status()
+            h1 = int(st["sync_info"]["latest_block_height"])
+            rep = await latency_report(cli, h0 + 1, h1)
+            print(
+                _json.dumps(
+                    {
+                        "sent": res.sent,
+                        "accepted": res.accepted,
+                        "rejected": res.rejected,
+                        "send_rate_tx_s": round(res.send_rate, 1),
+                        **rep.to_dict(),
+                    }
+                )
+            )
+        finally:
+            await cli.close()
+
+    asyncio.run(main())
+    return 0
 
 
 def cmd_version(args) -> int:
@@ -736,13 +776,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output-dir", default=".")
     p.set_defaults(fn=cmd_debug)
 
-    p = sub.add_parser("load", help="generate tx load and report commit latency (not ported)")
+    p = sub.add_parser("load", help="generate tx load and report commit latency")
     p.add_argument("--rpc-laddr", default="127.0.0.1:26657")
     p.add_argument("-r", "--rate", type=float, default=100.0)
     p.add_argument("-c", "--connections", type=int, default=1)
     p.add_argument("-s", "--size", type=int, default=256)
     p.add_argument("-T", "--time", type=float, default=10.0)
-    p.set_defaults(fn=cmd_unported("load (e2e/load.py)"))
+    p.set_defaults(fn=cmd_load)
 
     p = sub.add_parser("abci-server", help="host the kvstore app over socket/grpc ABCI")
     p.add_argument("-a", "--address", default="tcp://127.0.0.1:26658")

@@ -57,7 +57,9 @@ switch at three times it). A metrics or debug server that cannot bind,
 or a missing ``prometheus_client``, fails ``start`` (the node is
 stopped again first). The node's TCP transport wraps each connection
 per the config's ``[fuzz]`` section (``p2p/fuzz.py``; off by default),
-as the JAX node's does.
+as the JAX node's does. ``CMT_NODE_VERSION`` in the environment sets
+the version the node presents in its node info (the e2e runner's
+upgrade perturbation), as in the JAX node.
 """
 
 from __future__ import annotations
@@ -118,6 +120,12 @@ class Node:
             network=genesis.chain_id,
             moniker=config.base.moniker,
         )
+        # e2e upgrade perturbation: a restarted process can present a
+        # bumped software version (the single-binary analog of the
+        # reference's docker-image swap, test/e2e/runner/perturb.go:37)
+        _v = os.environ.get("CMT_NODE_VERSION")
+        if _v:
+            self.node_info.version = _v
         if transport is None:
             # fault injection by config (reference FuzzConnConfig);
             # maybe_fuzz treats disabled as passthrough

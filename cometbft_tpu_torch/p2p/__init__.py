@@ -15,7 +15,10 @@ The port of the JAX package's ``p2p/`` (reference -> here):
 Wire layouts, channel ids and handshakes are the JAX package's, byte
 for byte: a port node and a JAX node peer with each other. The lp2p
 switcher is the package ``lp2p/`` beside this one. Trace stamping is
-``tracewire.py``'s, byte for byte; connection fuzzing is not ported.
+``tracewire.py``'s, byte for byte; connection fuzzing is ``fuzz.py``'s,
+and the chaos harness's link plane (``chaos/links.py``) wraps the
+in-memory transport's connections through ``MemoryTransport``'s
+``link_hook``.
 
 The names below load their modules on first use, so that a process
 that needs only the node key or the secret connection (the command

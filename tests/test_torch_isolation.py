@@ -61,6 +61,14 @@
   small host crypto modules are among the modules the probe imports;
   imported alone they load neither ``jax`` nor ``cometbft_tpu``, and
   ``analysis/``, ``p2p/fuzz.py`` and the config load no torch.
+- The chaos harness (``chaos/``) and the e2e harness (``e2e/``) are
+  among the modules the probe imports and, imported alone, load
+  neither ``jax`` nor ``cometbft_tpu``. ``ChaosNet``, ``run_schedule``,
+  ``run_scenario``, ``run_soak``, ``storm_for_chaos`` and ``Runner``
+  raise without a GPU unless given ``device="cpu"``, and so do the
+  chaos and e2e command lines without ``--device cpu``; the node's
+  ``load`` subcommand runs (it needs no device) and no longer raises
+  ``NotImplementedError``.
 """
 
 import os
@@ -132,6 +140,10 @@ NETWORK_MODULES = [
     # the serving fleet, the runtime sanitizer and the last network pieces
     "fleet", "fleet.follower", "fleet.router", "analysis", "analysis.runtime", "analysis.scaling",
     "p2p.fuzz", "crypto.encoding", "crypto.armor", "crypto.xsalsa20symmetric", "crypto.xchacha20poly1305",
+    # chaos and e2e
+    "chaos", "chaos.schedule", "chaos.workload", "chaos.generator", "chaos.invariants", "chaos.links",
+    "chaos.verify_storm", "chaos.nemesis", "chaos.net", "chaos.matrix", "chaos.soak", "chaos.__main__",
+    "e2e", "e2e.manifest", "e2e.generator", "e2e.load", "e2e.runner",
 ]
 
 
@@ -192,6 +204,23 @@ def test_fleet_analysis_and_fuzz_import_no_jax_and_no_reference_package():
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert light.returncode == 0, light.stderr
     assert light.stdout.strip() == "False"
+
+
+_CHAOS_PROBE = """
+import sys
+import cometbft_tpu_torch.chaos, cometbft_tpu_torch.chaos.soak, cometbft_tpu_torch.chaos.verify_storm
+import cometbft_tpu_torch.chaos.__main__
+import cometbft_tpu_torch.e2e, cometbft_tpu_torch.e2e.generator, cometbft_tpu_torch.e2e.load
+import cometbft_tpu_torch.e2e.runner
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "cometbft_tpu")))
+"""
+
+
+def test_chaos_and_e2e_import_no_jax_and_no_reference_package():
+    proc = subprocess.run([sys.executable, "-c", _CHAOS_PROBE], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.splitlines()[0] == "[]", proc.stdout
 
 
 def test_native_lanes_load_from_build_native_not_the_jax_cache(tmp_path):
@@ -711,3 +740,72 @@ def test_start_without_a_gpu_exits_with_the_device_error(no_gpu, tmp_path):
     assert "no CUDA device available" in proc.stderr and "--device cpu" in proc.stderr, proc.stderr
     assert "started" not in proc.stdout + proc.stderr
     assert not any(name.endswith(".db") for name in os.listdir(os.path.join(home, "data")))
+
+
+def test_chaos_and_e2e_entry_points_raise_without_a_gpu(no_gpu, tmp_path):
+    import asyncio
+
+    from cometbft_tpu_torch.chaos import ChaosNet, default_schedule, generate_scenario, run_scenario, run_schedule
+    from cometbft_tpu_torch.chaos.soak import run_soak
+    from cometbft_tpu_torch.chaos.verify_storm import storm_for_chaos
+    from cometbft_tpu_torch.e2e.manifest import Manifest
+    from cometbft_tpu_torch.e2e.runner import Runner
+
+    m = Manifest.from_dict({"node": {"v0": {"mode": "validator"}}})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ChaosNet(4, 1, str(tmp_path / "a"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        asyncio.run(run_schedule(default_schedule(), seed=1, base_dir=str(tmp_path / "b")))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        asyncio.run(run_scenario(generate_scenario(1337, 0), base_dir=str(tmp_path / "c")))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_soak(heights=1, step=1, home=str(tmp_path / "d"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        storm_for_chaos(storm_s=0.1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Runner(m, str(tmp_path / "e"))
+    # on the CPU device they build
+    net = ChaosNet(2, 1, str(tmp_path / "f"), device="cpu")
+    assert net.device == torch.device("cpu") and len(net.nodes) == 2
+    assert Runner(m, str(tmp_path / "g"), device="cpu").device == "cpu"
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        ["-m", "cometbft_tpu_torch.chaos", "--seed", "1"],
+        ["-m", "cometbft_tpu_torch.chaos", "matrix", "--seed", "1", "--count", "1"],
+        ["-m", "cometbft_tpu_torch.chaos", "soak", "--heights", "1"],
+        ["-m", "cometbft_tpu_torch.e2e.runner", "MANIFEST"],
+    ],
+    ids=["chaos", "matrix", "soak", "e2e"],
+)
+def test_chaos_and_e2e_command_lines_exit_with_the_device_error(no_gpu, tmp_path, argv):
+    manifest = tmp_path / "m.toml"
+    manifest.write_text('[node.v0]\nmode = "validator"\n')
+    argv = [str(manifest) if a == "MANIFEST" else a for a in argv]
+    if "e2e.runner" in argv[1]:
+        argv += ["--dir", str(tmp_path / "net")]
+    proc = subprocess.run([sys.executable] + argv, cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 1, proc.stdout + proc.stderr
+    assert "no CUDA device available" in proc.stderr and "--device cpu" in proc.stderr, proc.stderr
+    assert not (tmp_path / "net").exists()
+
+
+def test_load_subcommand_is_ported():
+    """``load`` runs ``LoadGenerator`` and ``latency_report`` (it needs
+    no device); with no node to talk to it exits 1 with the connection
+    error, not ``NotImplementedError``."""
+    from cometbft_tpu_torch.cmd import main as cmd_main
+
+    assert not hasattr(cmd_main, "cmd_unported")
+    args = cmd_main.build_parser().parse_args(["load", "--rpc-laddr", "127.0.0.1:1", "-T", "0.1"])
+    assert args.fn is cmd_main.cmd_load
+    assert not getattr(args.fn, "_reaches_device", False)
+    proc = subprocess.run(
+        [sys.executable, "-m", "cometbft_tpu_torch", "load", "--rpc-laddr", "127.0.0.1:1", "-T", "0.1"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 1, proc.stdout + proc.stderr
+    assert "NotImplementedError" not in proc.stderr and "not ported" not in proc.stderr, proc.stderr
+    assert proc.stderr.startswith("Error:"), proc.stderr

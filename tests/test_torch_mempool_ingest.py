@@ -1,5 +1,5 @@
 """The port's mempool ingest plane (cometbft_tpu_torch.mempool), on the
-CPU: 25 of the 26 cases of the JAX package's tests/test_mempool_ingest.py.
+CPU: the 26 cases of the JAX package's tests/test_mempool_ingest.py.
 
 - The keyed ``TxCache`` and one hash a tx on the serial path;
 - batched CheckTx with verdicts equal to the serial path's, intra-batch
@@ -16,11 +16,12 @@ CPU: 25 of the 26 cases of the JAX package's tests/test_mempool_ingest.py.
 - the reactor's non-blocking receive, batched gossip under the channel
   cap, echo suppression and its bounded fallback ``sent`` set.
 
-The JAX module's chaos-harness case
-(``test_chaos_run_with_async_recheck_stays_invariant_clean``) waits for
-the port's chaos harness (ROADMAP A10). One case more holds the port's
-batched verdicts and pool order equal to the JAX package's on the same
-workload.
+- a 4-node chaos net of the port's harness (``device="cpu"``) with the
+  asynchronous recheck pinned on, txs flowing through a partition and
+  its heal: every node commits, agreement holds, txs commit.
+
+One case more holds the port's batched verdicts and pool order equal
+to the JAX package's on the same workload.
 """
 
 import asyncio
@@ -638,6 +639,92 @@ def test_fallback_sent_set_is_bounded():
         assert len(got) > 100
 
     asyncio.run(main())
+
+
+# --- node-level: chaos run with async recheck --------------------------
+
+
+def test_chaos_run_with_async_recheck_stays_invariant_clean(tmp_path):
+    """4-node seeded chaos pass (partition + heal) with the async
+    recheck plane explicitly pinned ON and txs flowing the whole
+    time: every node keeps committing, the agreement invariant stays
+    clean, and committed txs were really pumped through the batched
+    ingest + background recheck path."""
+    from cometbft_tpu_torch.chaos.net import ChaosNet
+
+    seen_cfgs = []
+
+    def hook(cfg):
+        cfg.mempool.async_recheck = True
+        seen_cfgs.append(cfg)
+
+    async def wait_height(net, target, timeout=60.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if net.max_height() >= target:
+                return
+            await asyncio.sleep(0.05)
+        raise AssertionError(
+            f"liveness: never reached height {target}: {net.heights()}"
+        )
+
+    async def main():
+        net = ChaosNet(
+            4, seed=77, base_dir=str(tmp_path), config_hook=hook, device="cpu"
+        )
+        await net.start()
+        try:
+            stop_load = asyncio.Event()
+
+            async def load():
+                i = 0
+                while not stop_load.is_set():
+                    for _, node in net.running_nodes()[:2]:
+                        node.parts.mempool.check_tx(b"chaos%06d=v" % i)
+                        i += 1
+                    await asyncio.sleep(0.02)
+
+            loader = asyncio.create_task(load())
+            try:
+                await wait_height(net, 2)
+                # majority partition (canonical smoke shape): the
+                # 3-group keeps quorum and keeps committing txs while
+                # the minority node is blackholed, then heals back
+                ids = [cn.node_id for cn in net.nodes]
+                net.table.partition([ids[:3], ids[3:]])
+                await wait_height(net, net.max_height() + 2)
+                net.table.heal()
+                await wait_height(net, net.max_height() + 3)
+            finally:
+                stop_load.set()
+                await loader
+            net.agreement.final_check(net.running_nodes())
+            # the plane was really on and really exercised
+            for cn in net.nodes:
+                mp = cn.node.parts.mempool
+                assert mp.async_recheck
+            committed = sum(
+                n.parts.block_store.load_block(h).data.txs != []
+                for _, n in net.running_nodes()
+                for h in range(1, n.height + 1)
+            )
+            assert committed > 0, "no txs ever committed"
+        finally:
+            # the stop tail is bounded inside ChaosNet.stop (per-node
+            # ShutdownGuard stages, obs/shutdown.py) — this outer
+            # wait_for is the regression tripwire for the full-suite
+            # wedge this test used to hit (loop alive, store fds
+            # open) so a recurrence fails HERE instead of hanging CI
+            await asyncio.wait_for(net.stop(), 120.0)
+            assert not net.shutdown_stall_records(), (
+                net.shutdown_stall_records()
+            )
+
+    asyncio.run(main())
+    assert len(seen_cfgs) == 4 and all(
+        c.mempool.async_recheck for c in seen_cfgs
+    )
+
 
 
 def test_batch_verdicts_and_pool_match_jax():

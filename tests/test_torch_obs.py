@@ -1,6 +1,6 @@
 """The port's runtime health plane (cometbft_tpu_torch/obs and the
 stuck-task watchdog of utils/debug.py) held to the JAX package's: the
-cases of ``tests/test_obs.py`` that need no chaos harness and both
+cases of ``tests/test_obs.py``, the chaos stall case included, and both
 cases of ``tests/test_watchdog.py``, on the port.
 
 1. Loop watchdog: lag sampling, the flight record of an injected stall
@@ -19,8 +19,9 @@ cases of ``tests/test_watchdog.py``, on the port.
 5. Stuck-task watchdog: a task stuck on one await is reported once; an
    active one never.
 
-The chaos stall case (``test_chaos_stall_is_flight_recorded``) waits for
-the port's chaos harness (ROADMAP A10).
+6. The chaos stall case: a ``stall`` scheduled on the port's chaos net
+   (``device="cpu"``) is flight-recorded with the ``chaos_stall`` frame,
+   in the report and in the dumped rings, and the run stays clean.
 """
 
 import asyncio
@@ -458,6 +459,45 @@ def test_checked_in_budget_file_loads():
     assert {"consensus.step", "wal.fsync", "obs.loop.lag"} <= set(budgets)
     for span, entry in budgets.items():
         assert any(k in entry for k in ("p50_ms", "p95_ms", "p99_ms", "max_ms")), span
+
+
+# --- chaos stall acceptance ----------------------------------------------
+
+
+def test_chaos_stall_is_flight_recorded(tmp_path):
+    """A forced loop stall under chaos produces a flight-recorder dump
+    whose snapshot contains the offending frame, reproducible from one
+    seed line — and the run stays invariant-clean (the stall is a perf
+    fault, not a BFT one)."""
+    from cometbft_tpu_torch.chaos import FaultEvent, FaultSchedule, run_schedule
+    from cometbft_tpu_torch.trace import read_jsonl
+
+    async def main():
+        return await run_schedule(
+            FaultSchedule([FaultEvent("stall", at_height=2, duration_s=1.2)]),
+            seed=606,
+            base_dir=str(tmp_path / "net"),
+            n_nodes=4,
+            settle_heights=2,
+            liveness_bound_s=120.0,
+            trace_dir=str(tmp_path / "traces"),
+            device="cpu",
+        )
+
+    report = run(main())
+    assert report.ok, report.format()
+    assert report.stall_records, "flight recorder missed the stall"
+    assert any(
+        any("chaos_stall" in ln for ln in r.get("loop_stack", [])) for r in report.stall_records
+    ), report.stall_records
+    # the stall instants are in the dumped rings next to the spans
+    jsonls = [p for p in report.trace_files if p.endswith(".jsonl")]
+    all_events = [e for evs in read_jsonl(jsonls).values() for e in evs]
+    stall_instants = [e for e in all_events if e["name"] == "obs.stall"]
+    assert stall_instants
+    assert any("chaos_stall" in e["args"].get("loop_stack", "") for e in stall_instants)
+    # the chaos profiler wrote folded stacks beside the trace files
+    assert report.profile_file and "profile.folded" in report.profile_file
 
 
 # --- 5. stuck-task watchdog ----------------------------------------------

@@ -15,14 +15,15 @@ package's tests/test_p2p_reconnect.py, on cometbft_tpu_torch.p2p.
    inherits the plane.
 6. The RPC ``health`` route's connectivity verdict.
 
-The JAX tests partition links with the chaos harness's ``LinkTable``;
-here a small dial-side partition table takes its place (the port has
-no chaos harness): it refuses dials across the partition, and the
-scenarios kill live connections themselves, as the JAX ones do.
+Links are partitioned with the port's chaos ``LinkTable``
+(``chaos/links.py``), as the JAX tests use the JAX one: it refuses
+dials across the partition and blackholes writes on live links, and
+the scenarios kill live connections themselves, as the JAX ones do.
 """
 
 import asyncio
 
+from cometbft_tpu_torch.chaos.links import LinkTable
 from cometbft_tpu_torch.lp2p import Lp2pSwitch
 from cometbft_tpu_torch.p2p import ChannelDescriptor, MemoryTransport, NodeInfo, NodeKey, Reactor, Switch
 from cometbft_tpu_torch.trace import Tracer
@@ -42,25 +43,6 @@ FAST_RECONNECT = {
     "slow_interval_s": 0.15,
     "starvation_s": 0.2,
 }
-
-
-class Partition:
-    """MemoryTransport link hook: dials between groups are refused."""
-
-    def __init__(self):
-        self.groups = None
-
-    def partition(self, groups):
-        self.groups = [set(g) for g in groups]
-
-    def heal(self):
-        self.groups = None
-
-    def allow_dial(self, src, dst):
-        return self.groups is None or any(src in g and dst in g for g in self.groups)
-
-    def wrap(self, sconn, src, dst):
-        return sconn
 
 
 class SinkReactor(Reactor):
@@ -131,7 +113,7 @@ def _minority_scenario(cls):
     must reconverge the full mesh."""
 
     async def main():
-        table = Partition()
+        table = LinkTable(seed=7)
         sws = [_mem_switch(table, cls=cls) for _ in range(3)]
         try:
             await _mesh(sws)
@@ -182,7 +164,7 @@ def test_boot_dial_failure_routes_to_plane():
     appears."""
 
     async def main():
-        table = Partition()
+        table = LinkTable(seed=11)
         a = _mem_switch(table)
         b = _mem_switch(table)
         await a.transport.listen()

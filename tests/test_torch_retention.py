@@ -12,10 +12,13 @@ batches (in process, and a power cut at the ``retention-prune-batch``
 fail point in a subprocess) resumed idempotently, the indexer's replay
 anchored at a pruned base, the snapshot store's rotation, restart and
 sweep, the RPC routes' structured below-base errors and the ``health``
-route's storage verdict, and a pruned node's restart. The chaos-driven
-cases (a crash mid-prune and a snapshot during a prune on a live net, a
-statesync join from a pruned source, the soak) wait for the chaos
-harness (ROADMAP A10).
+route's storage verdict, and a pruned node's restart. The compressed
+soak runs on both packages too (its checkpoints' heights, bases,
+markers, WAL files and prune counts equal; disk and RSS are each
+process's own). The chaos-driven cases (a crash mid-prune and a
+snapshot during a prune on a live net, a statesync join from a pruned
+source) run on the port's chaos harness (``device="cpu"``), with the
+JAX ``slow`` marks on the join and the 10k-height soak.
 """
 
 import asyncio
@@ -535,3 +538,97 @@ def test_pruned_node_restart_replays_retained_tail_only(tmp_path):
         return app["height"], len(app["state"])
 
     both(scenario, tmp_path)
+
+
+# --- lifecycle chaos nemesis (the port's chaos harness) ----------------------
+
+
+def _run_chaos(schedule_events, seed, tmp_path, **kw):
+    from cometbft_tpu_torch.chaos import FaultSchedule, run_schedule
+    from cometbft_tpu_torch.chaos.schedule import FaultEvent
+
+    schedule = FaultSchedule([FaultEvent(**e) for e in schedule_events])
+    return asyncio.run(
+        asyncio.wait_for(run_schedule(schedule, seed=seed, base_dir=str(tmp_path), device="cpu", **kw), 300)
+    )
+
+
+def test_chaos_crash_mid_prune_and_snapshot_during_prune(tmp_path):
+    """The two lifecycle nemesis actions run invariant-clean on a live
+    4-node net (knobs auto-set by run_schedule) and their trace
+    records carry only seeded parameters (byte-identical replay)."""
+    events = [
+        {"action": "crash_mid_prune", "at_height": 12, "node": 1},
+        {"action": "snapshot_during_prune", "at_height": 14, "node": 0},
+    ]
+    r1 = _run_chaos(events, 1337, tmp_path / "a")
+    assert r1.ok, r1.violations
+    acts = [(t["action"], t.get("node")) for t in r1.trace]
+    assert ("crash_mid_prune", "n1") in acts
+    assert ("snapshot_during_prune", "n0") in acts
+    r2 = _run_chaos(events, 1337, tmp_path / "b")
+    assert r1.trace == r2.trace, "same seed must replay identically"
+
+
+@pytest.mark.slow
+def test_chaos_statesync_join_from_pruned_source(tmp_path):
+    """A fresh joiner statesyncs from a node whose history below the
+    snapshot is PRUNED (trust root anchored at the source's base),
+    then blocksync-follows the tail."""
+    events = [
+        {"action": "crash_mid_prune", "at_height": 12, "node": 1},
+        {"action": "statesync_join", "at_height": 15, "via": [1, 2]},
+    ]
+    report = _run_chaos(events, 7, tmp_path)
+    assert report.ok, report.violations
+    joined = [t for t in report.trace if t["action"] == "statesync_join"]
+    assert joined and joined[0]["joined"] == "j4"
+    assert report.final_heights[joined[0]["joined"]] >= 15
+
+
+# --- compressed-time soak -----------------------------------------------------
+
+
+def _soak_structure(report) -> dict:
+    """What a seed fixes in a soak report: everything but the disk and
+    RSS readings and the prune pass's wall."""
+    return {
+        "ok": report["ok"],
+        "violations": report["violations"],
+        "warmup_checkpoints": report["warmup_checkpoints"],
+        "checkpoints": [
+            {k: v for k, v in ck.items() if k not in ("disk_bytes", "rss_bytes")}
+            for ck in report["checkpoints"]
+        ],
+        "retention": {k: v for k, v in report["retention"].items() if k not in ("disk_bytes", "last_prune_s")},
+    }
+
+
+def test_soak_slice_bounded_disk_and_markers():
+    """Tier-1 slice of the lifecycle soak: a few hundred heights with
+    reconciles interleaved — disk plateaus once the window saturates,
+    markers stay consistent, WAL rotation survives pruning, RPC
+    answers below-base with the structured error; the JAX soak of the
+    same seed reaches the same checkpoints."""
+    from cometbft_tpu.chaos.soak import run_soak as jrun_soak
+    from cometbft_tpu_torch.chaos.soak import run_soak
+
+    kw = dict(seed=11, heights=300, step=50, warmup_frac=0.5, disk_factor=1.6, rss_factor=2.0)
+    report = run_soak(device="cpu", **kw)
+    assert report["ok"], report["violations"]
+    assert report["retention"]["pruned_blocks_total"] > 0
+    assert report["retention"]["pruned_wal_files"] > 0
+    last = report["checkpoints"][-1]
+    assert last["base"] == 300 - 64  # height - retain window
+    assert _soak_structure(report) == _soak_structure(jrun_soak(**kw))
+
+
+@pytest.mark.slow
+def test_soak_10k_heights():
+    """The full compressed-time 10k-height soak: bounded disk AND RSS
+    over ~200 reconciles."""
+    from cometbft_tpu_torch.chaos.soak import run_soak
+
+    report = run_soak(seed=1337, heights=10_000, step=50, device="cpu")
+    assert report["ok"], report["violations"]
+    assert report["checkpoints"][-1]["base"] == 10_000 - 64

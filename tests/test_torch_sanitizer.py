@@ -1,7 +1,10 @@
 """The port's runtime concurrency sanitizer (``analysis/runtime.py``)
-held to the JAX package's: the 16 cases of ``tests/test_sanitizer.py``
-that need no chaos harness (the flight-record case and the two chaos
-schedules wait for ROADMAP A10c).
+held to the JAX package's: the 19 cases of ``tests/test_sanitizer.py``.
+The flight-record case runs on each package with its own watchdog and
+``chaos_stall``; the two chaos schedules (``lock_inversion`` on a live
+4-node net, detected, and missed with the sanitizer off) run on the
+port's chaos harness (``device="cpu"``), their nemesis record held to
+the JAX injection's.
 
 Each case runs once on each package's module and what it returns (the
 findings' kinds, lock sets, objects and threads, the graph's stats,
@@ -20,11 +23,13 @@ the stall buckets) must be equal across the two:
      classified as injected.
 """
 
+import asyncio
 import threading
 import time
 
 from cometbft_tpu.analysis import runtime as jrt
 from cometbft_tpu_torch.analysis import runtime as prt
+from torch_hard_limit import hard_limit  # noqa: F401
 
 MODS = {"jax": jrt, "port": prt}
 
@@ -389,3 +394,101 @@ def test_inject_lock_inversion_deterministic():
                 g.disable()
 
     both(case)
+
+
+def test_flight_record_carries_subsystem():
+    """The watchdog's flight record names the guilty subsystem (the
+    chaos_stall frame lives in chaos/nemesis.py), in both packages."""
+    import cometbft_tpu.chaos.nemesis as jnemesis
+    import cometbft_tpu.obs as jobs
+    import cometbft_tpu_torch.chaos.nemesis as pnemesis
+    import cometbft_tpu_torch.obs as pobs
+
+    def case(obs, nemesis):
+        wd = obs.LoopWatchdog(interval_s=0.02, stall_s=0.1, name="attr")
+
+        async def main():
+            wd.start()
+            await asyncio.sleep(0.1)
+            nemesis.chaos_stall(0.4)  # block the loop; monitor fires mid-stall
+            await asyncio.sleep(0.2)
+            wd.stop()
+            return list(wd.stalls)
+
+        stalls = asyncio.run(asyncio.wait_for(main(), 60))
+        assert stalls, "stall not captured"
+        assert stalls[0]["subsystem"] == "chaos", stalls[0]
+        return stalls[0]["subsystem"]
+
+    assert case(pobs, pnemesis) == case(jobs, jnemesis)
+
+
+# --- 6. chaos pipeline ---------------------------------------------------
+
+
+def test_chaos_lock_inversion_schedule_detects(tmp_path):
+    """The acceptance shape: a seeded schedule carrying lock_inversion
+    runs a real 4-node net, the sanitizer reports BOTH injected
+    findings, they are expected (run stays OK), and they ride the
+    report; the nemesis record is the JAX injection's."""
+    from cometbft_tpu_torch.chaos import FaultEvent, FaultSchedule, run_schedule
+
+    sched = FaultSchedule([FaultEvent(action="lock_inversion", at_height=2)])
+    report = asyncio.run(
+        asyncio.wait_for(
+            run_schedule(sched, seed=1337, base_dir=str(tmp_path), n_nodes=4, liveness_bound_s=60.0, device="cpu"),
+            240,
+        )
+    )
+    assert report.ok, report.violations
+    kinds = {f["kind"] for f in report.sanitizer_findings}
+    assert {"lock-order-cycle", "loop-affinity"} <= kinds
+    # the nemesis trace records what the injection observed — part of
+    # the seed-line replay contract
+    ev = report.trace[0]
+    assert ev["action"] == "lock_inversion"
+    assert ev["observed"] == ["lock-order-cycle", "loop-affinity"]
+    g = jrt.get_sanitizer()
+    was = g.enabled
+    g.enable()
+    try:
+        g.reset()
+        want = jrt.inject_lock_inversion()
+    finally:
+        g.reset()
+        if not was:
+            g.disable()
+    assert {k: ev[k] for k in want} == want
+
+
+def test_chaos_missed_detection_is_violation(tmp_path):
+    """A sanitizer that cannot flag its own injection proves nothing:
+    with the sanitizer force-disabled, a scheduled lock_inversion
+    must FAIL the run."""
+    from cometbft_tpu_torch.chaos import FaultEvent, FaultSchedule, run_schedule
+
+    g = prt.get_sanitizer()
+    sched = FaultSchedule([FaultEvent(action="lock_inversion", at_height=2)])
+
+    def no_sanitizer(cfg):
+        # keep build_node from re-enabling the process-wide sanitizer
+        cfg.instrumentation.sanitizer = False
+
+    async def main():
+        g.disable()
+        return await run_schedule(
+            sched,
+            seed=1338,
+            base_dir=str(tmp_path),
+            n_nodes=4,
+            liveness_bound_s=60.0,
+            config_hook=no_sanitizer,
+            device="cpu",
+        )
+
+    try:
+        report = asyncio.run(asyncio.wait_for(main(), 240))
+    finally:
+        g.enable()
+    assert not report.ok
+    assert any("lock_inversion injected" in v for v in report.violations)

@@ -1,6 +1,9 @@
 """The port's committee-scaling probe (``analysis/scaling.py``) held to
 the JAX package's: the seven probe cases of ``tests/test_complexity.py``
-(the chaos e2e case waits for ROADMAP A10c), with the JAX brackets.
+with the JAX brackets, and its chaos e2e case (a scheduled
+``scaling_probe`` with a planted quadratic under a live 4-node net of
+the port's chaos harness, ``device="cpu"``; ``slow`` as in the JAX
+suite).
 
 The real sites drive the port's own ``VoteSet``, commit checks,
 ``PeerVoteCursor`` and ``FanoutHub``; the fitted exponents stay in the
@@ -9,12 +12,14 @@ linear class the JAX package's do, and both probes read the same
 JAX ones (generous: only a wrong complexity class should fail).
 """
 
+import asyncio
 from pathlib import Path
 
 import pytest
 
 from cometbft_tpu.analysis import scaling as jscaling
 from cometbft_tpu_torch.analysis import scaling
+from torch_hard_limit import hard_limit  # noqa: F401
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
 
@@ -91,3 +96,27 @@ def test_synthetic_exponents_stable_across_repeats():
     package runs this case in its slow lane."""
     for _ in range(3):
         test_synthetic_sites_bracket_their_exponents()
+
+
+@pytest.mark.slow
+def test_chaos_scaling_probe_e2e_flags_injected_quadratic(tmp_path):
+    """Chaos e2e: a scheduled scaling_probe with inject_quadratic runs
+    mid-schedule under a live 4-node net; the report must carry the
+    planted site OVER budget without turning it into a violation."""
+    from cometbft_tpu_torch.chaos.net import run_schedule
+    from cometbft_tpu_torch.chaos.schedule import FaultEvent, FaultSchedule
+
+    async def main():
+        schedule = FaultSchedule(
+            [
+                FaultEvent("scaling_probe", at_height=2, inject_quadratic=True),
+                FaultEvent("crash", at_height=3, node=1),
+                FaultEvent("restart", after_s=0.5, node=1),
+            ]
+        )
+        report = await run_schedule(schedule, seed=1337, base_dir=str(tmp_path), device="cpu")
+        planted = [r for r in report.scaling_results if r["injected"] and not r["ok"]]
+        assert planted, report.scaling_results
+        assert not any("scaling_probe injected" in v for v in report.violations), report.violations
+
+    asyncio.run(asyncio.wait_for(main(), 300))

@@ -1,13 +1,16 @@
 """The port's verify scheduler against the JAX package's.
 
-Ports the cases of ``tests/test_verify_scheduler.py`` that need neither
-a mesh nor chaos: serial-equivalent verdicts, empty tickets, every
-class, priority clamping, a custom backend, live preemption at a chunk
-boundary, aging promotion, catch-up under a live flood, the queue
-stats, the dispatch span and the stats hook. Beside them: the same
-items through the JAX scheduler give the same verdicts, the forced
-device route runs the kernels' plain versions, and a device route that
-fails raises from ``result()`` with no host verdict filled in.
+Ports the cases of ``tests/test_verify_scheduler.py`` that need no
+mesh: serial-equivalent verdicts, empty tickets, every class, priority
+clamping, a custom backend, live preemption at a chunk boundary, aging
+promotion, catch-up under a live flood, the queue stats, the dispatch
+span, the stats hook, and the chaos ``verify_storm`` action (the
+port's ``chaos/verify_storm.py`` on the CPU device) and its schedule
+round trip. Beside them: the same items through the JAX scheduler give
+the same verdicts, the forced device route runs the kernels' plain
+versions, and a device route that fails raises from ``result()`` with
+no host verdict filled in, and out of the storm as that error, never
+as a parity miss.
 
 Everything runs on the CPU: the host route, or the forced device route
 at <= 16 lanes. Each test gets its own scheduler and host engine, both
@@ -476,6 +479,48 @@ def test_dispatch_span_emitted(sched, cpu_backend):
     assert args.get("cls") == "light"
     assert args.get("backend") == "cpu"
     assert args.get("lanes") == 5
+
+
+def test_verify_storm_action(cpu_backend):
+    """The chaos verify_storm leg, net-free: three concurrent classes
+    through the shared scheduler, verdict parity + live budget + a
+    non-starved catch-up lane."""
+    from cometbft_tpu_torch.chaos.verify_storm import storm_for_chaos
+
+    rec = storm_for_chaos(storm_s=0.4, live_budget_ms=2500.0, device="cpu")
+    assert rec["parity_ok"]
+    for name in ("live", "light", "catchup"):
+        assert rec[name]["tickets"] > 0, name
+    assert rec["live"]["p95_ms"] <= 2500.0
+
+
+def test_verify_storm_schedulable():
+    from cometbft_tpu_torch.chaos import FaultEvent, FaultSchedule
+
+    ev = FaultEvent("verify_storm", at_height=2, storm_s=0.5)
+    sched = FaultSchedule([ev])
+    again = FaultSchedule.from_json(sched.to_json())
+    assert again.events[0].action == "verify_storm"
+    assert again.events[0].storm_s == 0.5
+    assert again.events[0].live_budget_ms == 2500.0
+
+
+def test_verify_storm_failed_device_route_raises(restore_routing, monkeypatch):
+    """A storm whose device route fails ends with the route's
+    ``DeviceRouteError`` (chained to the card's error): never a
+    verdict, never counted as a parity miss."""
+    from cometbft_tpu_torch.chaos.verify_storm import storm_for_chaos
+
+    crypto_batch.set_default_backend("cuda")
+    crypto_batch.set_min_device_batch(1)
+
+    def fake_async(ed_items, device=None):
+        raise RuntimeError("CUDA error: launch failed")
+
+    monkeypatch.setattr(ops_ed, "verify_batch_async", fake_async)
+    with pytest.raises(sched_mod.DeviceRouteError) as e:
+        storm_for_chaos(storm_s=0.3, device="cpu")
+    assert str(e.value.__cause__).startswith("CUDA error")
 
 
 def test_sched_stats_if_running_registry_contract(cpu_backend):

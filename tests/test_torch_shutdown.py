@@ -1,6 +1,6 @@
 """The port's bounded shutdown (obs/shutdown.py and ``Node._shutdown``)
-held to the JAX package's: the cases of ``tests/test_shutdown.py`` that
-build no ``ChaosNet``, on the port.
+held to the JAX package's: the cases of ``tests/test_shutdown.py``, on
+the port.
 
 1. ``ShutdownGuard``: completed stages pass, overrunning stages are
    flight-recorded and cancelled, cancel-ignoring stages are abandoned
@@ -11,9 +11,11 @@ build no ``ChaosNet``, on the port.
    on the same home reopens them).
 3. The WAL's torn-tail repair that consensus start runs.
 
-The ``ChaosNet`` cases (``test_chaosnet_stop_is_bounded_with_hanging_reactor``
-and ``test_abandoned_switch_stage_still_kills_conns_so_restart_rejoins``)
-wait for the port's chaos harness (ROADMAP A10).
+4. The ``ChaosNet`` cases on the port's chaos harness (``device="cpu"``):
+   ``ChaosNet.stop()`` with a node's reactor stop wedged stays bounded
+   and surfaces the stall records, and a node whose switch stop stage
+   was abandoned still closes its connections, so its next incarnation
+   rejoins and the net keeps committing.
 """
 
 import asyncio
@@ -198,6 +200,100 @@ def test_node_stop_survives_hanging_reactor_stop(tmp_path):
         assert node2.height >= 1  # recovered the committed chain
         await asyncio.wait_for(node2.stop(), 30.0)
         assert node2.shutdown_guard.clean
+
+    run(main())
+
+
+def test_chaosnet_stop_is_bounded_with_hanging_reactor(tmp_path):
+    """The full-suite wedge regression: ChaosNet.stop() with one
+    node's reactor stop() wedged completes within budget and the
+    report surfaces the shutdown stall records."""
+    from cometbft_tpu_torch.chaos.net import ChaosNet
+
+    async def main():
+        def hook(cfg):
+            cfg.instrumentation.shutdown_stage_budget_s = 0.3
+
+        net = ChaosNet(
+            2, seed=5150, base_dir=str(tmp_path), config_hook=hook, device="cpu"
+        )
+        await net.start()
+        release = asyncio.Event()
+        try:
+            for _ in range(600):
+                if net.max_height() >= 1:
+                    break
+                await asyncio.sleep(0.05)
+            _hang_reactor_stop(net.nodes[0].node, release)
+        finally:
+            t0 = asyncio.get_running_loop().time()
+            await asyncio.wait_for(net.stop(), 60.0)
+            elapsed = asyncio.get_running_loop().time() - t0
+        assert elapsed < 30.0, f"net.stop took {elapsed:.1f}s"
+        stalls = net.shutdown_stall_records()
+        assert stalls, "breach was not flight-recorded"
+        assert any(r.get("stage") == "switch" for r in stalls), stalls
+        release.set()
+
+    run(main())
+
+
+def test_abandoned_switch_stage_still_kills_conns_so_restart_rejoins(
+    tmp_path,
+):
+    """The rejoin wedge the scenario matrix surfaced: if a node's
+    switch stop stage is abandoned with its conns left OPEN, peers
+    keep a live zombie peer entry and dup-discard every dial from the
+    node's next incarnation — it can never rejoin. The escalation
+    floor (Switch.abort on an abandoned stage) must close the fds so
+    peers drop the zombie and the restarted node reconnects and the
+    net keeps committing."""
+    from cometbft_tpu_torch.chaos.net import ChaosNet
+
+    async def main():
+        def hook(cfg):
+            cfg.instrumentation.shutdown_stage_budget_s = 0.2
+
+        net = ChaosNet(
+            3, seed=616, base_dir=str(tmp_path), config_hook=hook, device="cpu"
+        )
+        await net.start()
+        try:
+            for _ in range(600):
+                if net.max_height() >= 1:
+                    break
+                await asyncio.sleep(0.05)
+            # wedge n0's whole switch stop: the stage must abandon it
+            node0 = net.nodes[0].node
+
+            async def hang():
+                await asyncio.sleep(600)
+
+            node0.switch.stop = hang
+            await net.crash(0)
+            stalls = net.nodes[0].shutdown_stalls
+            assert any(r["stage"] == "switch" for r in stalls), stalls
+            await asyncio.sleep(0.3)
+            # peers must have dropped the zombie (abort closed the fds)
+            for cn in net.nodes[1:]:
+                assert net.nodes[0].node_id not in cn.node.switch.peers
+            await net.restart(0)
+            # the restarted incarnation must REJOIN: its peers accept
+            # its dials and it keeps committing with the net
+            n0 = net.nodes[0].node
+            target = net.max_height() + 2
+            for _ in range(1200):
+                if n0.height >= target and n0.switch.num_peers() >= 2:
+                    break
+                await asyncio.sleep(0.05)
+            assert n0.switch.num_peers() >= 2, "never reconnected"
+            assert n0.height >= target, (
+                f"wedged at {n0.height} < {target}: the zombie-conn "
+                "rejoin failure"
+            )
+            net.agreement.final_check(net.running_nodes())
+        finally:
+            await asyncio.wait_for(net.stop(), 60.0)
 
     run(main())
 

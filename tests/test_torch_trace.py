@@ -1,6 +1,6 @@
 """The port's tracing plane (cometbft_tpu_torch/trace) held to the JAX
-package's: the cases of ``tests/test_trace.py`` that need no chaos
-harness, on the port, and parity cases.
+package's: the cases of ``tests/test_trace.py``, on the port, and
+parity cases.
 
 1. Tracer core: preallocated ring reuse, the disabled fast path's
    overhead bound, span/instant/counter semantics and observers (which
@@ -21,9 +21,10 @@ harness, on the port, and parity cases.
    writes it; the ring stays whole (one event per cursor value, every
    event well-formed).
 
-The chaos-bound cases (``test_chaos_run_traced_perfetto_loadable``,
-``test_chaos_same_seed_attribution_is_deterministic``) wait for the
-port's chaos harness (ROADMAP A10).
+7. The chaos-bound cases on the port's chaos harness (``device="cpu"``):
+   a traced 4-node run exports a Perfetto-loadable dump whose every
+   committed height is a complete attribution chain, and same-seed runs
+   reproduce the attribution's structure.
 """
 
 import asyncio
@@ -737,3 +738,159 @@ def test_scheduler_watcher_writes_process_ring_while_loop_writes(monkeypatch):
     assert all(e["name"] in ("loop.work", "crypto.sched.dispatch") and e["ph"] == "X" and e["dur_ns"] >= 0
                for e in ev)
     assert {e["name"] for e in ev} == {"loop.work", "crypto.sched.dispatch"}
+
+
+# --- 7. chaos-bound cases -------------------------------------------------
+
+
+def test_chaos_run_traced_perfetto_loadable(tmp_path):
+    """A 4-node in-process chaos net with tracing enabled exports a
+    Perfetto-loadable trace whose consensus step spans nest correctly
+    per height/round on every node, with WAL fsync spans alongside."""
+    from cometbft_tpu_torch.chaos import FaultSchedule, run_schedule
+
+    async def main():
+        return await run_schedule(
+            FaultSchedule([]),  # no faults: the fast acceptance run
+            seed=77,
+            base_dir=str(tmp_path / "net"),
+            n_nodes=4,
+            settle_heights=3,
+            liveness_bound_s=120.0,
+            trace_dir=str(tmp_path / "traces"),
+            device="cpu",
+        )
+
+    report = run(main())
+    assert report.ok, report.format()
+    assert report.trace_files
+    jsonls = [p for p in report.trace_files if p.endswith(".jsonl")]
+    chrome = [p for p in report.trace_files if p.endswith("trace.json")]
+    # one ring per node (no restarts in this schedule)
+    node_dumps = [p for p in jsonls if "/n" in p]
+    assert len(node_dumps) == 4, report.trace_files
+    assert len(chrome) == 1
+
+    # Perfetto-loadable: valid JSON, traceEvents, process metadata for
+    # every node, X events with ts+dur
+    with open(chrome[0]) as f:
+        ct = json.load(f)
+    te = ct["traceEvents"]
+    procs = {
+        e["args"]["name"]
+        for e in te
+        if e["ph"] == "M" and e["name"] == "process_name"
+    }
+    assert {"n0", "n1", "n2", "n3"} <= procs
+    assert all(
+        "ts" in e and "dur" in e for e in te if e["ph"] == "X"
+    )
+
+    by_node = read_jsonl(node_dumps)
+    for node, events in by_node.items():
+        _assert_consensus_nesting(
+            events, min_heights=2,
+            require_steps=("PROPOSE", "PREVOTE", "PRECOMMIT", "COMMIT"),
+        )
+        names = {e["name"] for e in events}
+        # chaos homes persist a WAL: the fsync barrier must be spanned
+        assert "wal.fsync" in names, (node, sorted(names))
+        # cross-node tracing: every ring carries its clock
+        # anchor and the stamped-correlation instants
+        assert "clock.anchor" in names, (node, sorted(names))
+        assert {"p2p.msg.send", "p2p.msg.recv"} <= names, node
+        assert {
+            "consensus.quorum.prevote", "consensus.quorum.precommit",
+            "consensus.finalize",
+        } <= names, (node, sorted(names))
+    # and the summary machinery digests the whole dump
+    s = summarize(by_node)
+    assert all("consensus.step" in kinds for kinds in s.values())
+
+    # every committed height carries a COMPLETE
+    # attribution chain — the proposer's proposal send correlated to
+    # arrival instants on all committing peers, both quorum legs
+    # measured per height
+    rebased, offsets, _base = rebase(by_node)
+    assert all(o is not None for o in offsets.values()), offsets
+    heights = attribute_heights(rebased)
+    assert len(heights) >= 2, sorted(heights)
+    # the net stops node by node once every node passed its target, so
+    # the top height may be finalized by the nodes stopped last only:
+    # its proposer is held to having committed it where every node did
+    every_node = min(report.final_heights.values())
+    for h, rec in heights.items():
+        assert rec["complete"], (h, rec)
+        if h <= every_node:
+            assert rec["proposer"] in rec["committed"], rec
+        assert rec["quorum_prevote_ms"] and rec["quorum_precommit_ms"]
+        for n, f in rec["finalize"].items():
+            assert f["total_ms"] >= 0 and f["wal_ms"] is not None
+    # non-proposer nodes saw the proposal propagate (positive delta
+    # on the shared in-process clock)
+    any_prop = [
+        v for rec in heights.values()
+        for v in rec["propagation_ms"].values()
+    ]
+    assert any_prop and all(v >= 0 for v in any_prop)
+    # the waterfall table renders one row per height
+    table = format_waterfall(heights)
+    assert "complete" in table and "PARTIAL" not in table
+
+    # the timeline CLI digests the same dump: --strict passes, -o
+    # writes a Perfetto-loadable merged view on one rebased axis
+    out = tmp_path / "timeline.json"
+    assert (
+        trace_cli(
+            ["timeline", str(tmp_path / "traces"), "--strict",
+             "-o", str(out)]
+        )
+        == 0
+    )
+    with open(out) as f:
+        tl = json.load(f)
+    assert tl["traceEvents"]
+
+
+def test_chaos_same_seed_attribution_is_deterministic(tmp_path):
+    """Same-seed chaos runs replay the same message decision stream,
+    so the attribution table's STRUCTURE — committed heights, the
+    proposer per height, chain completeness — reproduces exactly
+    (latency columns are wall-clock and jitter run to run; the common
+    committed prefix is compared because wall time decides how many
+    heights land before the schedule ends)."""
+    from cometbft_tpu_torch.chaos import FaultSchedule, run_schedule
+
+    async def one(i):
+        return await run_schedule(
+            FaultSchedule([]),
+            seed=909,
+            base_dir=str(tmp_path / f"net{i}"),
+            n_nodes=4,
+            settle_heights=2,
+            liveness_bound_s=120.0,
+            trace_dir=str(tmp_path / f"traces{i}"),
+            profile_hz=0,
+            device="cpu",
+        )
+
+    keys = []
+    for i in range(2):
+        report = run(one(i))
+        assert report.ok, report.format()
+        by_node = read_jsonl(
+            [p for p in report.trace_files if "/n" in p]
+        )
+        rebased, _, _ = rebase(by_node)
+        heights = attribute_heights(rebased)
+        assert heights
+        keys.append(
+            {
+                h: (rec["proposer"], rec["complete"])
+                for h, rec in heights.items()
+            }
+        )
+    common = sorted(set(keys[0]) & set(keys[1]))
+    assert common, (sorted(keys[0]), sorted(keys[1]))
+    for h in common:
+        assert keys[0][h] == keys[1][h], (h, keys[0][h], keys[1][h])
