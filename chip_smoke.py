@@ -304,8 +304,9 @@ Phases, each printing one JSON line:
    node_from_home as ``start`` builds them; each app a kvstore in an
    ``abci-server`` child (three on the socket, one on gRPC), each key
    with a ``signer`` child dialing the node's priv_validator_laddr;
-   256 txs in at node 0 through GRPCBroadcastClient.broadcast_tx from
-   16 client threads, then twelve more heights; after height 6 one
+   128 txs in at node 0 through GRPCBroadcastClient.broadcast_tx from
+   16 client threads (256 until phase 21 pushed the smoke past 950 s),
+   then twelve more heights; after height 6 one
    signer child is killed and started again two heights later. Every
    node must store the same block at every height, every tx be
    committed exactly once (its BroadcastTx answer naming its block) and
@@ -360,9 +361,9 @@ Phases, each printing one JSON line:
    blocksync.window.apply. (b) bench.py::bench_finalize's localnet leg:
    four validators on sqlite with WAL (wal_group_commit_ms 2,
    finalize_pipeline and finalize_offload_apply on, timeout_commit 0.25
-   s, no indexer), each a VecBank of 16,384 accounts, fed 16,000
+   s, no indexer), each a VecBank of 16,384 accounts, fed 8,000
    distinct transfers at 2,000 a commit timeout until all are committed
-   and the net is at height 8 or above; native and portable once each
+   and the net is at height 4 or above; native and portable once each
    (the bench runs 12 heights and 4 repeats; both cut for the smoke's
    time). Every
    node must store the same block at every height, every transfer be
@@ -499,6 +500,32 @@ Phases, each printing one JSON line:
    state-provider ticket (chaos_max_abs_err), with its device time and
    bound at the storm's ticket.
 
+21. the multi-device lanes, the dryrun and the lint: (a) mesh:
+   parallel/sharded_verify.make_sharded_core over make_mesh() (every
+   card: one on a one-card machine) and over an explicit mesh of four
+   entries of the card ("4 slices on one card": the split, the gather
+   and the tally, nothing about overlap across cards), in each mode
+   (plain, precomp, precomp_tuple), at 4,740 lanes with two corrupted
+   signatures; make_quorum_reducer on the card over both meshes; one
+   "mesh"-backend ticket of 512 lanes through the scheduler, the floor
+   pinned at 1. Gates: every run's verdicts equal to the host oracle's
+   (OpenSSL; the corrupted lanes also by ref_ed25519.verify_zip215),
+   each slice's kernels launched once a slice (counters zeroed before
+   21a, read after), the int32 tally on the card equal to the host's
+   int64 sum and the quorum to its compare, the 2^31 guard refusing,
+   the ticket's verdicts right, its backend "mesh" and its one device
+   dispatch launching each kernel once a card (unsharded on one card,
+   split over every card on two or more). (b) dryrun: parallel/dryrun.
+   dryrun_multichip(4), four gloo ranks on this machine's CPU (host
+   time, not the card's), rank 0's oracle and quorum checks passed.
+   (c) bftlint: python -m cometbft_tpu_torch.analysis over
+   cometbft_tpu_torch/ exits 0 with the package's empty baseline and
+   reports nothing without it; the findings by rule, its wall and CPU
+   seconds (host time). The kernels line adds mesh_launches (21a) and
+   each kernel against its plain version on one of the four slices and
+   on the whole width (mesh_max_abs_err), with its device time and
+   bound at the slice.
+
 The line before last is the card's name and power limit; the last is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no
 result line; a run that outlives RUN_LIMIT_S (1,140 s) ends non-zero
@@ -617,15 +644,24 @@ SS_DEADLINE_S = 240
 LP2P_JOIN_BLOCKS = 512
 # phase 17: the host's native lanes. 17b is bench.py::bench_finalize's
 # localnet leg (four validators, VecBank of 16,384 accounts, 2,000
-# transfers a height, 12 heights, 4 repeats a mode) cut to 8 heights and
-# 1 repeat to hold the smoke's time
+# transfers a height, 12 heights, 4 repeats a mode) cut to 4 heights and
+# 1 repeat to hold the smoke's time (8 heights until phase 21 pushed it
+# past 950 s)
 NATIVE_FIN_VALS = 4
 NATIVE_FIN_TXS = 2000
-NATIVE_FIN_HEIGHTS = 8
+NATIVE_FIN_HEIGHTS = 4
 NATIVE_FIN_REPEATS = 1
 NATIVE_FIN_ACCOUNTS = 1 << 14
 NATIVE_PROFILE_TOP = 10
 NATIVE_DEADLINE_S = 120
+# phase 21: the multi-device lanes at the window's width (4,740 lanes,
+# two of them corrupted), over every card and over four slices of one
+# card; the mesh ticket takes the first MESH_TICKET of them
+MESH_LANES = 4740
+MESH_BAD = (17, 3001)
+MESH_SLICES = 4
+MESH_TICKET = 512
+DRYRUN_RANKS = 4
 
 # card peaks: HBM bytes/s from the H100 SXM data sheet; 32-bit integer
 # results per clock per SM on sm_90 (IMAD, IADD, LOP, shifts: 64, the
@@ -949,7 +985,7 @@ def phase_main(dev, rng):
 
     chain_id, vals, privs, jobs, expected = build_window(rng)
     # warm the libraries outside the counted run
-    kernels.load("ladder", ld._init), kernels.load("decompress"), kernels.load("hash_digits")
+    ld._on_card(dev), kernels.load("decompress"), kernels.load("hash_digits")
     # through the scheduler with the device route pinned (floor 1), so
     # the launch and lane checks below keep their meaning
     floor = batch._MIN_DEVICE_BATCH
@@ -3992,11 +4028,12 @@ def phase_lp2p(dev, gen, privs, snapshot, top, src_rows):
 
 # 16a: four validators from the port's own testnet homes, each app a
 # kvstore in an abci-server child (one on gRPC), each key with a signer
-# child; 256 txs through the gRPC broadcast API from 16 client threads,
-# then twelve more heights; after height 6 one signer child is killed
+# child; 128 txs through the gRPC broadcast API from 16 client threads
+# (cut from 256 to hold the smoke's time), then twelve more heights;
+# after height 6 one signer child is killed
 # and started again two heights later
 OP_VALS = 4
-OP_TXS = 256
+OP_TXS = 128
 OP_CLIENTS = 16
 OP_HEIGHTS = 12
 OP_KILL_AT = 6
@@ -4115,7 +4152,7 @@ def _timed(obj, name, into):
 def phase_operator(dev, gen, privs, snapshot, top, src_rows):
     """Phase 16, the main path through the operator's node: (a) four
     validators built from the command line's testnet homes as ``start``
-    builds them, their apps and keys in child processes, 256 txs through
+    builds them, their apps and keys in child processes, 128 txs through
     the gRPC broadcast API and a signer killed and restarted; (b) a full
     node started through the command line that blocksyncs and follows
     (a)'s net; (c) phase 8's corpus joined over TCP by an adaptive-sync
@@ -6525,6 +6562,142 @@ def phase_chaos(dev):
     return launches, items
 
 
+# --- phase 21: the multi-device lanes, the dryrun and the lint -------------------
+
+
+def phase_mesh(dev, rng):
+    """Phase 21: (a) the sharded core over every card and over
+    MESH_SLICES slices of one card, in each mode, the quorum reducer on
+    the card, one "mesh" ticket through the scheduler; (b) the gloo
+    dryrun on the host; (c) bftlint over the port. Returns 21a's
+    launches and, for phase 6, one slice of the four and the whole
+    width."""
+    import resource
+
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch import kernels
+    from cometbft_tpu_torch.crypto import batch, mesh_backend
+    from cometbft_tpu_torch.crypto import ref_ed25519 as ref
+    from cometbft_tpu_torch.crypto import scheduler as S
+    from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
+    from cometbft_tpu_torch.ops import ed25519 as ed
+    from cometbft_tpu_torch.parallel.dryrun import dryrun_multichip
+    from cometbft_tpu_torch.parallel.mesh import make_mesh
+    from cometbft_tpu_torch.parallel.sharded_verify import MODES, make_quorum_reducer, make_sharded_core
+
+    t_phase = time.perf_counter()
+    card = smi("name,power.limit")
+    items = signed_items(rng, MESH_LANES)
+    for i in MESH_BAD:
+        m, pk, sig = items[i]
+        items[i] = (m, pk, sig[:40] + bytes([sig[40] ^ 4]) + sig[41:])
+    want = [Ed25519PubKey(pk).verify(m, sig) for m, pk, sig in items]
+    check(want == [i not in MESH_BAD for i in range(MESH_LANES)], "21a: host oracle")
+    check(not any(ref.verify_zip215(items[i][1], items[i][0], items[i][2]) for i in MESH_BAD),
+          "21a: ZIP-215 oracle")
+    meshes = {"cards": make_mesh(), f"{MESH_SLICES}_slices_one_card": make_mesh(devices=[dev] * MESH_SLICES)}
+    packed = {pc: ed.pack(items, pc) for pc in (False, True)}
+    runs = {}
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    for name, mesh in meshes.items():
+        for mode in MODES:
+            msgs, lens, pr, ss, a_arr, bad = packed[mode != "plain"]
+            t1 = time.perf_counter()
+            verdicts, events = make_sharded_core(mesh, mode)(msgs, lens, pr, ss, a_arr)
+            for e in events:
+                e.synchronize()
+            wall = time.perf_counter() - t1
+            got = np.concatenate([v.cpu().numpy() for v in verdicts])[:MESH_LANES].copy()
+            got[bad] = False
+            check(list(map(bool, got)) == want, f"21a {name} {mode}: verdicts")
+            runs[f"{name}/{mode}"] = {"slices": [int(v.shape[0]) for v in verdicts],
+                                      "devices": sorted({str(v.device) for v in verdicts}),
+                                      "wall_ms": wall * 1e3}
+    core_s = time.perf_counter() - t0
+    # the tally: int32 partials on the card, summed, against the host's
+    # int64 sum
+    powers = rng.integers(1, 10_000, MESH_LANES).astype(np.int32)
+    ok = np.asarray(want)
+    host_tally = int(powers.astype(np.int64)[ok].sum())
+    threshold = int(powers.astype(np.int64).sum()) * 2 // 3
+    tallies = {}
+    for name, mesh in meshes.items():
+        quorum, tally, ok_lanes = make_quorum_reducer(mesh)(torch.from_numpy(ok).to(dev),
+                                                            torch.from_numpy(powers).to(dev), threshold)
+        check(tally.device.type == "cuda" and tally.dtype == torch.int32, f"21a {name}: tally {tally}")
+        check(int(tally) == host_tally, f"21a {name}: tally {int(tally)} != {host_tally}")
+        check(bool(quorum) == (host_tally > threshold), f"21a {name}: quorum")
+        check(ok_lanes.cpu().tolist() == want, f"21a {name}: ok lanes")
+        tallies[name] = int(tally)
+    try:
+        make_quorum_reducer(meshes["cards"])(torch.ones(8, dtype=torch.bool, device=dev),
+                                             torch.full((8,), 2**28, dtype=torch.int64, device=dev), 0)
+        raise AssertionError("21a: the 2^31 guard let an overflowing total through")
+    except ValueError as e:
+        check("voting power" in str(e), str(e))
+    # one "mesh" ticket through the scheduler, the floor pinned at 1
+    floor = batch._MIN_DEVICE_BATCH
+    sched = S.VerifyScheduler()
+    try:
+        batch.set_min_device_batch(1)
+        lanes = [(Ed25519PubKey(pk), m, sig) for m, pk, sig in items[:MESH_TICKET]]
+        # "cuda" names no card, so the ticket splits over every card
+        ticket = sched.submit(lanes, priority=S.PRIORITY_LIVE, label="mesh", device="cuda", backend="mesh")
+        _, oks = ticket.result(timeout=120)
+        mesh_stats = {"backend": ticket.backend, "device_dispatches": sched.device_dispatches,
+                      "host_chunks": sched.host_chunks, "degraded": sched.degraded,
+                      "dispatch": dict(ed.LAST_DISPATCH)}
+    finally:
+        batch.set_min_device_batch(floor)
+        sched.close()
+    launches = dict(kernels.LAUNCHES)
+    check(oks == want[:MESH_TICKET], "21a: mesh ticket verdicts")
+    n_cards = mesh_backend.mesh_devices()
+    check(ticket.backend == "mesh" and mesh_stats["device_dispatches"] == 1 and not mesh_stats["degraded"],
+          f"21a: ticket {mesh_stats}")
+    check(mesh_stats["dispatch"]["n_devices"] == n_cards
+          and mesh_stats["dispatch"]["sharded"] == (n_cards > 1), f"21a: ticket dispatch {mesh_stats}")
+    per_kernel = len(MODES) * sum(len(m) for m in meshes.values()) + n_cards
+    check(all(v == per_kernel for v in launches.values()), f"21a: launches {launches} != {per_kernel}")
+    emit("mesh", lanes=MESH_LANES, bad_lanes=list(MESH_BAD), cards=n_cards,
+         note=f"{MESH_SLICES} slices on one card: the split, the gather and the tally, no overlap across cards",
+         runs=runs, core_s=core_s, tally=tallies, host_tally=host_tally, threshold=threshold,
+         guard_refused=True, ticket=mesh_stats, launches=launches, card=card)
+
+    # (b) the dryrun: gloo ranks on this machine's CPU, not the card
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(DRYRUN_RANKS)
+    dry_wall = time.perf_counter() - t0
+    check(dry["mesh"] == DRYRUN_RANKS and dry["quorum"], f"21b: {dry}")
+    emit("dryrun", host_time=True, ranks=DRYRUN_RANKS, wall_s=dry_wall, result=dry)
+
+    # (c) bftlint over the port, as an operator runs it; the baseline is
+    # the package's own (empty)
+    root = os.path.dirname(os.path.abspath(__file__))
+    lint = [sys.executable, "-m", "cometbft_tpu_torch.analysis", "cometbft_tpu_torch"]
+    before = resource.getrusage(resource.RUSAGE_CHILDREN)
+    t0 = time.perf_counter()
+    proc = subprocess.run(lint + ["--timings"], cwd=root, capture_output=True, text=True, timeout=300)
+    lint_wall = time.perf_counter() - t0
+    after = resource.getrusage(resource.RUSAGE_CHILDREN)
+    check(proc.returncode == 0, f"21c: bftlint rc {proc.returncode}: {proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+    raw = subprocess.run(lint + ["--no-baseline", "--json"], cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    by_rule: dict = {}
+    for f in json.loads(raw.stdout)["findings"]:
+        by_rule[f["rule_id"]] = by_rule.get(f["rule_id"], 0) + 1
+    check(raw.returncode == 0 and not by_rule, f"21c: findings without the baseline {by_rule}")
+    emit("bftlint", host_time=True, rc=proc.returncode, findings_by_rule=by_rule,
+         wall_s=lint_wall, cpu_s=(after.ru_utime + after.ru_stime) - (before.ru_utime + before.ru_stime),
+         summary=proc.stdout.strip().splitlines()[-1])
+    emit("mesh_phase", seconds=time.perf_counter() - t_phase, budget_s=30, card=card)
+    per = -(-MESH_LANES // MESH_SLICES)
+    return {"21a": launches}, {"21a_slice": items[:per], "21a_cards": items}
+
+
 # --- timing and bounds --------------------------------------------------------
 
 
@@ -6593,12 +6766,14 @@ def occupancy(name) -> dict:
     of K1 (fused entry), K2 or K3, as the CUDA runtime reports them."""
     import ctypes
 
+    import torch
+
     from cometbft_tpu_torch import kernels
     from cometbft_tpu_torch.ops import ladder as ld
 
     info = (ctypes.c_int * 6)()
     if name == "ladder":
-        rc = kernels.load("ladder", ld._init).ladder_info(1, ctypes.addressof(info))
+        rc = ld._on_card(torch.device("cuda")).ladder_info(1, ctypes.addressof(info))
     else:
         rc = getattr(kernels.load(name), f"{name}_info")(ctypes.addressof(info))
     kernels.check(rc, f"{name} info")
@@ -6750,6 +6925,7 @@ def main(argv) -> int:
     ops_launches, ops_items = phase_operations(dev, gen, privs, *net_corpus)
     fleet_launches, fleet_items = phase_fleet(dev, serve_corpus)
     chaos_launches, chaos_items = phase_chaos(dev)
+    mesh_launches, mesh_items = phase_mesh(dev, rng)
 
     # phase 6: each kernel against its plain version on the main paths'
     # own inputs (the window's lanes and the commit's; the replay's and
@@ -6839,6 +7015,12 @@ def main(argv) -> int:
     ch_calls = {k: stage_calls(xc) for k, xc in x_ch.items()}
     ch_errs = {k: compare(c) for k, c in ch_calls.items()}
     x_chs, chs_calls = x_ch["20a_storm_catchup"], ch_calls["20a_storm_catchup"]
+    # phase 21's own inputs: one of the four slices on one card and the
+    # whole width the cards' mesh took; timed at the slice
+    x_me = {k: kernel_inputs(its, dev) for k, its in mesh_items.items()}
+    me_calls = {k: stage_calls(xm) for k, xm in x_me.items()}
+    me_errs = {k: compare(c) for k, c in me_calls.items()}
+    x_mes, mes_calls = x_me["21a_slice"], me_calls["21a_slice"]
     emit("main_path_vs_plain", lanes=x["n"], commit_lanes=x_commit["n"],
          replay_lanes=list(x_replay), bisect_lanes=list(x_bisect),
          live_lanes={k: xw["n"] for k, xw in x_waves.items()},
@@ -6851,12 +7033,14 @@ def main(argv) -> int:
          native_lanes={k: xn["n"] for k, xn in x_nat.items()},
          ops_lanes={k: xo["n"] for k, xo in x_ops.items()},
          fleet_lanes={k: xf["n"] for k, xf in x_fl.items()},
-         chaos_lanes={k: xc["n"] for k, xc in x_ch.items()}, equal=True, max_abs_err=errs,
+         chaos_lanes={k: xc["n"] for k, xc in x_ch.items()},
+         mesh_lanes={k: xm["n"] for k, xm in x_me.items()}, equal=True, max_abs_err=errs,
          commit_max_abs_err=commit_errs, replay_max_abs_err=replay_errs,
          bisect_max_abs_err=bisect_errs, live_max_abs_err=live_errs, net_max_abs_err=net_errs,
          evidence_max_abs_err=ev_errs, serve_max_abs_err=serve_errs, statesync_max_abs_err=ss_errs,
          lp2p_max_abs_err=lp_errs, operator_max_abs_err=op_errs, native_max_abs_err=nat_errs,
-         ops_max_abs_err=ops_errs, fleet_max_abs_err=fl_errs, chaos_max_abs_err=ch_errs)
+         ops_max_abs_err=ops_errs, fleet_max_abs_err=fl_errs, chaos_max_abs_err=ch_errs,
+         mesh_max_abs_err=me_errs)
     rows = []
     for name in ("ladder", "decompress", "hash_digits"):
         f, plain = calls[name]
@@ -6875,6 +7059,7 @@ def main(argv) -> int:
         ops_err = {w: max(e[k] for k in parts) for w, e in ops_errs.items()}
         fl_err = {w: max(e[k] for k in parts) for w, e in fl_errs.items()}
         ch_err = {w: max(e[k] for k in parts) for w, e in ch_errs.items()}
+        me_err = {w: max(e[k] for k in parts) for w, e in me_errs.items()}
         err = max(max(errs[k], commit_errs[k]) for k in parts)
         b_ms, b_by = bound(name, x, int_rate)
         bc_ms, bc_by = bound(name, x_commit, int_rate)
@@ -6891,6 +7076,7 @@ def main(argv) -> int:
         bops_ms, bops_by = bound(name, x_opsp, int_rate)
         bfl_ms, bfl_by = bound(name, x_flw, int_rate)
         bch_ms, bch_by = bound(name, x_chs, int_rate)
+        bme_ms, bme_by = bound(name, x_mes, int_rate)
         bb_ms, bb_by = bound(name, x_bulk, int_rate)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -6908,10 +7094,11 @@ def main(argv) -> int:
             "ops_launches": {ph: ls[name] for ph, ls in ops_launches.items()},
             "fleet_launches": {ph: ls[name] for ph, ls in fleet_launches.items()},
             "chaos_launches": {ph: ls[name] for ph, ls in chaos_launches.items()},
+            "mesh_launches": {ph: ls[name] for ph, ls in mesh_launches.items()},
             "max_abs_err": max(err, replay_err, bisect_err, *live_err.values(), *net_err.values(),
                                *ev_err.values(), *serve_err.values(), *ss_err.values(),
                                *lp_err.values(), *op_err.values(), *nat_err.values(), *ops_err.values(),
-                               *fl_err.values(), *ch_err.values()),
+                               *fl_err.values(), *ch_err.values(), *me_err.values()),
             "tolerance": 0,
             "ms": graph_ms(f), "call_ms": cuda_ms(f, 20),
             "plain_ms": cuda_ms(plain, 2, warm=0), "bound_ms": b_ms,
@@ -6994,6 +7181,12 @@ def main(argv) -> int:
             "chaos_call_ms": cuda_ms(chs_calls[name][0], 20),
             "chaos_plain_ms": cuda_ms(chs_calls[name][1], 2, warm=0),
             "chaos_bound_ms": bch_ms, "chaos_bound_by": bch_by,
+            "mesh_lanes": {w: xm["n"] for w, xm in x_me.items()},
+            "mesh_max_abs_err": me_err,
+            "mesh_ms": graph_ms(mes_calls[name][0]),
+            "mesh_call_ms": cuda_ms(mes_calls[name][0], 20),
+            "mesh_plain_ms": cuda_ms(mes_calls[name][1], 2, warm=0),
+            "mesh_bound_ms": bme_ms, "mesh_bound_by": bme_by,
             "bulk_lanes": N_BULK, "bulk_ms": bulk_ms[name], "bulk_call_ms": bulk_call_ms[name],
             "bulk_bound_ms": bb_ms, "bulk_bound_by": bb_by,
             "bulk_max_abs_err": max(bulk_errs[k] for k in parts),

@@ -294,14 +294,15 @@ class CryptoConfig:
     """Signature-verification backend knobs. ``batch_backend`` names an
     entry of the ``crypto/batch.py`` registry, applied at node build
     (``node/inprocess.build_node``): "cuda" (the card's lanes),
-    "cpu" (serial host baseline) or "cpu-parallel" (the multi-core host
-    plane); the JAX name "tpu" means the device route, so "cuda". Empty
-    (the default) inherits the process-wide default. "mesh" (lanes over
-    every local device) waits for ROADMAP A5 and raises. The other
-    three fields are kept so that JAX-written files load; neither
-    package reads them."""
+    "cpu" (serial host baseline), "cpu-parallel" (the multi-core host
+    plane) or "mesh" (the lanes on the cards with no calibration gate,
+    split over every CUDA device when there are more than one, the
+    host plane with none: ``crypto/mesh_backend.py``); the JAX
+    name "tpu" means the device route, so "cuda". Empty (the default)
+    inherits the process-wide default. The other three fields are kept
+    so that JAX-written files load; neither package reads them."""
 
-    batch_backend: str = ""  # "" (inherit) | cuda | tpu (= cuda) | cpu | cpu-parallel
+    batch_backend: str = ""  # "" (inherit) | cuda | tpu (= cuda) | cpu | cpu-parallel | mesh
     min_batch_for_tpu: int = 2
     coalesce_window_ms: float = 2.0
     max_lanes: int = 131072

@@ -50,8 +50,8 @@ class HeightVoteSet:
         self.round = 0
         # keyed by round within ONE height; the whole HeightVoteSet is
         # replaced on height advance (update_to_state)
-        self._prevotes: Dict[int, VoteSet] = {}
-        self._precommits: Dict[int, VoteSet] = {}
+        self._prevotes: Dict[int, VoteSet] = {}  # bftlint: disable=ASY119 — keyed by round within ONE height; the whole HeightVoteSet is replaced on height advance (update_to_state)
+        self._precommits: Dict[int, VoteSet] = {}  # bftlint: disable=ASY119 — keyed by round within ONE height; replaced on height advance together with _prevotes
         self._lock = sanitized_lock(threading.RLock(), "consensus.votes")
         self.set_round(0)
 

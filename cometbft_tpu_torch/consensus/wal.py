@@ -410,10 +410,10 @@ class WAL:
                 # flusher, and rotation's in-lock barrier is required
                 # by the rename-atomicity + ticket-prefix-durability
                 # contract
-                os.fsync(fd)
+                os.fsync(fd)  # bftlint: disable=ASY114 — the one sanctioned WAL blocking seam (strict-inline calibrated, group path off-loop)
                 if _FSYNC_MODEL_S > 0:
                     # synthetic slow-disk model for bench/chaos legs
-                    time.sleep(_FSYNC_MODEL_S)
+                    time.sleep(_FSYNC_MODEL_S)  # bftlint: disable=ASY114 — synthetic slow-disk model, bench/chaos legs only
         except OSError:
             with self._lock:
                 self._pending = tickets + self._pending

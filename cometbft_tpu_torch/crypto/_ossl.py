@@ -39,7 +39,7 @@ def _load() -> Optional[ctypes.CDLL]:
         if not cand:
             continue
         try:
-            lib = ctypes.CDLL(cand)
+            lib = ctypes.CDLL(cand)  # bftlint: disable=TCH204 — one-time probe of the libcrypto names at first use; the handle is cached in _lib and never loaded again
         except OSError:
             continue
         try:

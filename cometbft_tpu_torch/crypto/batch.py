@@ -18,6 +18,10 @@ returns:
   the measured host-vs-device crossover (``route_to_device``,
   ``_Calibration``); lanes of any other key type verify on the host
   and the verdicts are re-interleaved (the mixed-curve split).
+- ``MeshBatchVerifier`` (``"mesh"``, ``crypto/mesh_backend.py``) — the
+  ed25519 lanes on the cards with no calibration gate, split over
+  every CUDA device when more than one is visible, or the host plane
+  when none is.
 
 Every factory takes the ``device`` keyword, resolved first:
 ``None`` is the GPU and raises without one; ``"cpu"`` is allowed.
@@ -273,6 +277,12 @@ class CudaBatchVerifier(BatchVerifier):
         return scheduler().submit(self.items, device=self.device, backend="cuda")
 
 
+def _mesh_factory(device):
+    from .mesh_backend import MeshBatchVerifier
+
+    return MeshBatchVerifier(device=device)
+
+
 _default_backend = "cuda"
 _lock = threading.Lock()
 
@@ -283,6 +293,7 @@ _BACKENDS = {
     "cuda": CudaBatchVerifier,
     "cpu": lambda device: CpuBatchVerifier(),
     "cpu-parallel": lambda device: CpuParallelBatchVerifier(),
+    "mesh": _mesh_factory,
 }
 
 
@@ -305,7 +316,7 @@ def default_backend() -> str:
 
 def set_default_backend(name: str) -> None:
     """Process-wide backend: any registered name ("cuda", "cpu",
-    "cpu-parallel", ...)."""
+    "cpu-parallel", "mesh", ...)."""
     global _default_backend
     with _lock:
         if name not in _BACKENDS:
@@ -316,13 +327,8 @@ def set_default_backend(name: str) -> None:
 def config_backend(name: str) -> str:
     """The registry name for a ``[crypto] batch_backend`` value. The
     JAX package's "tpu" is its device route, so it means "cuda" here;
-    "mesh" (lanes over every local device, ROADMAP A5) is refused
-    rather than degraded to one card or the host (C3)."""
-    if name == "mesh":
-        raise ValueError(
-            "[crypto] batch_backend = 'mesh' needs the multi-device lanes, "
-            "which the port has not yet (ROADMAP A5)"
-        )
+    "mesh" splits the lanes over every CUDA device
+    (``crypto/mesh_backend.py``)."""
     return "cuda" if name == "tpu" else name
 
 

@@ -4,16 +4,16 @@ PubKeyFromTypeAndBytes, with the typed length/unsupported errors).
 
 A copy of the JAX package's ``crypto/encoding.py``. The wire form is
 the tmproto.PublicKey oneof — field 1 = ed25519 bytes, field 2 =
-secp256k1 bytes — exactly what utils/codec.encode_pubkey emits; this
-module is the *typed* API layer over it with the reference's error
-taxonomy. The port has no BLS12-381 keys (``crypto/keys.py``), so a
-``bls12381`` type is an ``ErrUnsupportedKey`` here.
+secp256k1 bytes, field 3 = bls12381 bytes — exactly what
+utils/codec.encode_pubkey emits; this module is the *typed* API layer
+over it with the reference's error taxonomy.
 """
 
 from __future__ import annotations
 
 from ..utils import codec as _codec
 from .keys import (
+    BLS12381_KEY_TYPE,
     ED25519_KEY_TYPE,
     SECP256K1_KEY_TYPE,
     PubKey,
@@ -23,6 +23,7 @@ from .keys import (
 _KEY_LENS = {
     ED25519_KEY_TYPE: 32,
     SECP256K1_KEY_TYPE: 33,
+    BLS12381_KEY_TYPE: 48,
 }
 
 

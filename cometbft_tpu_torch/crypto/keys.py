@@ -13,7 +13,10 @@ system libcrypto through ctypes, then pure Python. The port uses no
 wheel: ed25519 runs on libcrypto through ctypes (``_ossl``) with the
 pure-Python liberal check behind it (``ref_ed25519``), and secp256k1
 runs in pure Python (correct and slow; it only serves mixed-curve
-lanes). BLS12-381 keys are not ported yet.
+lanes). BLS12-381 keys (``crypto/bls12381.py``, pure Python) stand
+behind the JAX package's gate: constructing one raises
+``NotImplementedError`` unless ``COMETBFT_TPU_BLS12381`` is set, the
+same variable for both packages.
 """
 
 from __future__ import annotations
@@ -235,9 +238,69 @@ class Secp256k1PrivKey:
             return r.to_bytes(32, "big") + s.to_bytes(32, "big")
 
 
+BLS12381_KEY_TYPE = "bls12381"
+
+
+@dataclass(frozen=True)
+class Bls12381PubKey(PubKey):
+    """Feature-gated (reference crypto/bls12381 behind the `bls12381`
+    build tag; stub otherwise). Construction fails unless
+    COMETBFT_TPU_BLS12381 is set, mirroring the stub build's panic."""
+
+    def __post_init__(self):
+        from . import bls12381
+
+        if not bls12381.enabled():
+            raise NotImplementedError(
+                "bls12381 support disabled; set COMETBFT_TPU_BLS12381=1"
+            )
+
+    @property
+    def type_(self) -> str:
+        return BLS12381_KEY_TYPE
+
+    def verify(self, msg: bytes, sig: bytes) -> bool:
+        from . import bls12381
+
+        return bls12381.verify(self.key_bytes, msg, sig)
+
+
+@dataclass(frozen=True)
+class Bls12381PrivKey:
+    sk: int
+
+    @classmethod
+    def generate(cls) -> "Bls12381PrivKey":
+        from . import bls12381
+
+        sk, _ = bls12381.keygen()
+        return cls(sk)
+
+    @classmethod
+    def from_seed(cls, seed: bytes) -> "Bls12381PrivKey":
+        from . import bls12381
+
+        sk, _ = bls12381.keygen(seed)
+        return cls(sk)
+
+    def pub_key(self) -> Bls12381PubKey:
+        from . import bls12381
+
+        return Bls12381PubKey(
+            bls12381.g1_compress(bls12381.g1_mul(bls12381.G1, self.sk))
+        )
+
+    def sign(self, msg: bytes) -> bytes:
+        from . import bls12381
+
+        return bls12381.sign(self.sk, msg)
+
+
 def pubkey_from_type_bytes(type_: str, raw: bytes) -> PubKey:
     if type_ == ED25519_KEY_TYPE:
         return Ed25519PubKey(raw)
     if type_ == SECP256K1_KEY_TYPE:
         return Secp256k1PubKey(raw)
+    if type_ == BLS12381_KEY_TYPE:
+        return Bls12381PubKey(raw)
     raise ValueError(f"unknown key type {type_}")

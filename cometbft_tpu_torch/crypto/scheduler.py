@@ -19,7 +19,8 @@ Commit validation (``types/validation.py``) and the vote coalescer
   routes its ed25519 lanes by ``batch.route_to_device``: the floor and
   the measured host-vs-device crossover. Device dispatches are
   asynchronous: a watcher thread blocks on the dispatch's CUDA event,
-  feeds the calibration (unforced dispatches on a CUDA device only)
+  feeds the calibration (unforced "cuda" dispatches on a CUDA device
+  only)
   and resolves the ticket.
 - **Device**: a ticket carries the device it was submitted for
   (``device=None`` is the GPU and raises without one).
@@ -44,8 +45,15 @@ resolves keeps its process from exiting), and ``close`` resolves every
 ticket it leaves unrouted with a ``DeviceRouteError``, so no waiter is
 left blocked by a closed scheduler.
 
-The JAX package's ``"mesh"`` backend (lanes sharded over several
-devices) is not ported yet.
+- **Mesh**: a ticket of the "mesh" backend (``crypto/mesh_backend``)
+  sends its ed25519 lanes to its device with no calibration gate once
+  they reach the floor; ``ops/ed25519`` splits them over every card
+  when more than one is visible. With no card at all the ticket's
+  backend reads "mesh-degraded", ``degraded`` counts it and its lanes
+  go to the host plane, as the JAX package does without a mesh: a
+  routing choice, not a failure. (The JAX package also degrades with
+  one device; here one card takes the lanes.) A failed mesh dispatch
+  raises like any other device route (C3).
 """
 
 from __future__ import annotations
@@ -78,7 +86,7 @@ DEFAULT_PROMOTE_EVERY = 4
 
 # backends whose lanes the scheduler routes itself; any other
 # registered backend verifies a whole ticket through its own verifier
-_ROUTED_BACKENDS = ("cuda", "cpu", "cpu-parallel")
+_ROUTED_BACKENDS = ("cuda", "cpu", "cpu-parallel", "mesh")
 
 
 class DeviceRouteError(RuntimeError):
@@ -335,9 +343,22 @@ class VerifyScheduler:
             self._finish(ticket)
             return
         ed_idx, ed_items, other_idx = crypto_batch.split_curves(items)
-        use_device = backend == "cuda" and crypto_batch.route_to_device(
-            len(ed_items), ticket.device
-        )
+        if backend == "mesh":
+            # the operator's choice: the cards whenever one is visible,
+            # no calibration gate; the floor keeps tiny batches on the
+            # host, and with no card the ticket degrades to it
+            from .mesh_backend import mesh_devices, use_mesh
+
+            devices = mesh_devices()
+            use_device = use_mesh(len(ed_items), devices)
+            if not devices:
+                ticket.backend = "mesh-degraded"
+                with self._cv:
+                    self.degraded += 1
+        else:
+            use_device = backend == "cuda" and crypto_batch.route_to_device(
+                len(ed_items), ticket.device
+            )
         # lanes of other curves: verified inline at route time
         for i in other_idx:
             pk, msg, sig = items[i]
@@ -353,10 +374,10 @@ class VerifyScheduler:
         watcher blocks on the dispatch's CUDA event, feeds the
         calibration with the wall from just before the dispatch
         (host packing included) when the route was not forced and the
-        device is a CUDA one, and resolves the ticket; any failure
-        there resolves the ticket with a DeviceRouteError. A failure of the
-        dispatch itself propagates to the dispatcher loop, which does
-        the same."""
+        ticket is a "cuda" one on a CUDA device, and resolves the
+        ticket; any failure there resolves the ticket with a
+        DeviceRouteError. A failure of the dispatch itself propagates
+        to the dispatcher loop, which does the same."""
         from ..ops import ed25519 as _ed
 
         t0 = time.perf_counter()
@@ -366,7 +387,11 @@ class VerifyScheduler:
             ticket._units_left += 1
         n_ed = len(ed_items)
         cal = crypto_batch.calibration
-        observe = crypto_batch._MIN_DEVICE_BATCH > 1 and ticket.device.type == "cuda"
+        observe = (
+            crypto_batch._MIN_DEVICE_BATCH > 1
+            and ticket.device.type == "cuda"
+            and ticket.backend == "cuda"
+        )
 
         def _watch():
             try:

@@ -129,7 +129,7 @@ class EvidenceReactor(Reactor):
         except DeviceRouteError as e:
             # kept for a retry; counted, the peer kept
             self._count_route_error(e)
-        except Exception:
+        except Exception:  # bftlint: disable=ASY104 — any refusal drops the evidence, as the reference's Receive does; route errors are caught above and cancellation is no Exception
             # refused: dropped, as the reference does (evidence/reactor.go
             # Receive)
             pass
@@ -185,6 +185,6 @@ class EvidenceReactor(Reactor):
                     # round
                     self._count_route_error(e)
                     break
-                except Exception:
-                    pass  # refused now: dropped like a peer's refusal
+                except Exception:  # bftlint: disable=ASY104 — a refusal now drops the evidence like a peer's refusal; route errors are caught above and cancellation is no Exception
+                    pass
                 self._forget(key)

@@ -267,9 +267,8 @@ def _build(force: bool, nvcc: str) -> dict:
     return BUILD_INFO
 
 
-def load(name: str, on_load=None) -> ctypes.CDLL:
-    """The built library of kernel ``name`` with its argtypes set.
-    ``on_load(lib)`` runs once, right after the first load."""
+def load(name: str) -> ctypes.CDLL:
+    """The built library of kernel ``name`` with its argtypes set."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
@@ -282,8 +281,6 @@ def load(name: str, on_load=None) -> ctypes.CDLL:
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
-            if on_load is not None:
-                check(on_load(lib), f"{name} init")
             _libs[name] = lib
     return lib
 
@@ -293,10 +290,10 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"CUDA error {rc} in {what}")
 
 
-def launch(name: str, fn: str, *args, on_load=None) -> None:
+def launch(name: str, fn: str, *args) -> None:
     """Call C entry ``fn`` of kernel ``name``, raise on a CUDA error,
     and count the launch."""
-    lib = load(name, on_load)
+    lib = load(name)
     check(getattr(lib, fn)(*args), f"{name}.{fn}")
     LAUNCHES[name] += 1
 

@@ -39,7 +39,7 @@ JAX ``build_node`` does. With ``config.instrumentation.sanitizer``
 sanitizer (``analysis/runtime.py``) before any plane builds its locks,
 and a non-empty ``config.crypto.batch_backend`` becomes the
 process-wide verify backend (``crypto/batch.config_backend``: the JAX
-name "tpu" is "cuda"; "mesh" raises, ROADMAP A5).
+name "tpu" is "cuda"; "mesh" splits the lanes over every CUDA device).
 
 ``device`` is where the node's signature checks run: None is the GPU
 and raises without one; ``device="cpu"`` runs them on the host plane.

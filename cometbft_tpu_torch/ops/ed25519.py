@@ -7,7 +7,8 @@ Counterpart of the JAX package's ``ops/ed25519.py``
                ok = [8]([S]B - [h]A - R) == identity   (ZIP-215, cofactored)
 
 A dispatch packs the items on the host, copies them to the device and
-launches, on PyTorch's current stream:
+launches, on PyTorch's current stream (on each card's, with the lanes
+split over every card when more than one is visible):
 
 - K2 ``decompress`` (``curve25519.decompress``) — over [pks | rs] in
   one launch (plain mode), or over rs only when the public keys come
@@ -36,7 +37,6 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..device import resolve
 from . import curve25519 as curve
 from . import fe25519 as fe
 from . import ladder
@@ -91,8 +91,10 @@ def _expand_pubkey(pk: bytes):
     return val
 
 
-# How the newest dispatch ran: lanes, bucket, mode, device, host
-# packing time and the launches of each kernel it made.
+# How the newest dispatch ran: lanes (padded to a multiple of the
+# mesh), bucket, mode, first device, whether it was sharded and over
+# which devices, host packing time and the launches of each kernel it
+# made.
 LAST_DISPATCH: dict = {}
 # held from the first launch of a dispatch to its event, so the launch
 # counts a dispatch records are its own when threads dispatch at once
@@ -100,27 +102,30 @@ _LAUNCH_LOCK = threading.Lock()
 
 
 class AsyncVerdicts:
-    """Handle for an in-flight dispatch. The kernels are enqueued on
-    the stream; ``wait()`` blocks on a CUDA event recorded after the
-    last one, ``result()`` copies the verdicts to the host.
-    ``dispatch`` is how this dispatch ran (see ``LAST_DISPATCH``)."""
+    """Handle for an in-flight dispatch: one verdict tensor and one
+    event (None on the CPU) a device of its mesh, in lane order. The
+    kernels are enqueued on each device's stream; ``wait()`` blocks on
+    the events recorded after the last launches, ``result()`` copies
+    the verdicts to the host. ``dispatch`` is how this dispatch ran
+    (see ``LAST_DISPATCH``)."""
 
-    def __init__(self, verdict, bad, n, event=None, dispatch=None):
-        self._verdict = verdict
+    def __init__(self, verdicts, bad, n, events=(), dispatch=None):
+        self._verdicts = verdicts
+        self._events = events
         self._bad = bad
         self._n = n
-        self._event = event
         self.dispatch = dispatch or {}
 
     def wait(self) -> "AsyncVerdicts":
-        if self._event is not None:
-            self._event.synchronize()
+        for event in self._events:
+            if event is not None:
+                event.synchronize()
         return self
 
     def result(self) -> np.ndarray:
         if self._n == 0:
             return np.zeros(0, bool)
-        out = self._verdict.cpu().numpy()[: self._n].copy()
+        out = np.concatenate([v.cpu().numpy() for v in self._verdicts])[: self._n].copy()
         out[self._bad] = False
         return out
 
@@ -183,44 +188,45 @@ def verify_lanes(msgs, lens, pr, ss, a_arr=None):
 def verify_batch_async(items, device=None, precomp=None) -> AsyncVerdicts:
     """Enqueue one verify dispatch without waiting for the verdicts.
 
-    items: list of (msg, pubkey 32 B, sig 64 B). ``precomp`` forces the
-    mode; by default batches up to PRECOMP_MAX_LANES lanes use the
-    host-expanded keys."""
-    dev = resolve(device)
+    items: list of (msg, pubkey 32 B, sig 64 B). The lanes run through
+    ``parallel/sharded_verify.make_sharded_core`` on the devices
+    ``parallel/mesh.mesh_for(device)`` names: split over every card
+    when ``device`` names none by index and more than one is visible,
+    or over an explicit list of devices; one device is the unsharded
+    case. ``precomp`` forces the mode; by default batches of up to
+    PRECOMP_MAX_LANES lanes a device use the host-expanded keys."""
+    from ..parallel.mesh import mesh_for
+    from ..parallel.sharded_verify import make_sharded_core
+
+    mesh = mesh_for(device)
     n = len(items)
     if n == 0:
-        return AsyncVerdicts(None, np.zeros(0, bool), 0)
+        return AsyncVerdicts([], np.zeros(0, bool), 0)
+    n_dev = len(mesh)
     if precomp is None:
-        precomp = n <= PRECOMP_MAX_LANES
+        precomp = -(-n // n_dev) <= PRECOMP_MAX_LANES
     t0 = time.perf_counter()
     msgs, lens, pr, ss, a_arr, bad = pack(items, precomp)
     pack_s = time.perf_counter() - t0
+    core = make_sharded_core(mesh, "precomp" if precomp else "plain")
     with _LAUNCH_LOCK:
         before = dict(kernels.LAUNCHES)
-        verdict = verify_lanes(
-            _to_device(msgs, dev),
-            _to_device(lens, dev, transpose=False),
-            _to_device(pr, dev),
-            _to_device(ss, dev),
-            None if a_arr is None
-            else _to_device(a_arr.reshape(n, -1), dev).view(4, fe.NLIMBS, n),
-        )
-        event = None
-        if dev.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
+        verdicts, events = core(msgs, lens, pr, ss, a_arr)
         launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}
     dispatch = dict(
-        lanes=n,
+        lanes=sum(v.shape[0] for v in verdicts),
         cap=msgs.shape[1],
         precomp=precomp,
-        device=str(dev),
+        device=str(mesh[0]),
+        sharded=n_dev > 1,
+        n_devices=n_dev,
+        devices=[str(d) for d in mesh],
         pack_ms=pack_s * 1e3,
         launches=launches,
     )
     global LAST_DISPATCH
     LAST_DISPATCH = dispatch
-    return AsyncVerdicts(verdict, bad, n, event, dispatch)
+    return AsyncVerdicts(verdicts, bad, n, events, dispatch)
 
 
 def verify_batch(items, device=None, precomp=None) -> np.ndarray:

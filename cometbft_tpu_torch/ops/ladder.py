@@ -23,6 +23,8 @@ and output.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -43,9 +45,30 @@ def _btab(device) -> torch.Tensor:
     return t
 
 
+_INIT_CARDS: set = set()  # indices of the cards K1 has been set up on
+_INIT_LOCK = threading.Lock()
+
+
 def _init(lib) -> int:
-    """Copy the [d]B table to the card and allow K1 its shared memory."""
+    """Copy the [d]B table to the current card and allow K1 its shared
+    memory there. Both are per card: a sharded dispatch sets up each
+    card it launches on (``_on_card``)."""
     return lib.ladder_init(_BTAB_I32.ctypes.data)
+
+
+def _on_card(dev):
+    """K1's library, set up on card ``dev`` unless that was done: its
+    only setup path. The launch that follows runs with ``dev``
+    current."""
+    lib = kernels.load("ladder")
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx in _INIT_CARDS:
+        return lib
+    with _INIT_LOCK, torch.cuda.device(idx):
+        if idx not in _INIT_CARDS:
+            kernels.check(_init(lib), "ladder init")
+            _INIT_CARDS.add(idx)
+    return lib
 
 
 def _a_table(A):
@@ -124,10 +147,11 @@ def straus(ds, dh, A):
     dev = ds.device
     out = torch.empty((3, fe.NLIMBS, n), dtype=torch.int32, device=dev)
     if n:
+        _on_card(dev)
         kernels.launch(
             "ladder", "straus_launch",
             ds.data_ptr(), dh.data_ptr(), n, A.data_ptr(), ld_a,
-            out.data_ptr(), kernels.stream_ptr(dev), on_load=_init,
+            out.data_ptr(), kernels.stream_ptr(dev),
         )
     return out
 
@@ -152,11 +176,11 @@ def verify(ds, dh, A, R, ok_a, ok_r, ok_s):
     dev = ds.device
     verdict = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
+        _on_card(dev)
         kernels.launch(
             "ladder", "verify_launch",
             ds.data_ptr(), dh.data_ptr(), n, A.data_ptr(), ld_a,
             R.data_ptr(), ld_r, ok_a.data_ptr(), ok_r.data_ptr(),
             ok_s.data_ptr(), verdict.data_ptr(), kernels.stream_ptr(dev),
-            on_load=_init,
         )
     return verdict

@@ -605,7 +605,7 @@ class Switch:
             msg = st.wrap(msg, tkind, height=height, round_=round_, cap=cap, npeers=len(self.peers))
         else:
             msg = tracewire.encode_plain(msg, cap)
-        for p in list(self.peers.values()):
+        for p in list(self.peers.values()):  # bftlint: disable=ASY117 — flood fanout IS the protocol floor: one encode per broadcast, O(peers) enqueues of one shared bytes object; vote-aggregation relay is the committee-scale answer
             p.try_send(chan_id, msg)
 
     def num_peers(self) -> int:

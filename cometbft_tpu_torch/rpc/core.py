@@ -34,6 +34,7 @@ from ..state.execution import decode_finalize_response
 from ..types.block import BlockID, tx_hash
 from ..utils import codec
 from ..utils.pubsub_query import parse as parse_query
+from ..utils.tasks import spawn
 from . import encoding as enc
 
 
@@ -969,7 +970,9 @@ def unsafe_disconnect_peers(env) -> Dict[str, Any]:
         raise RPCError(-32603, "p2p switch not available")
     peers = list(sw.peers.values())
     for p in peers:
-        asyncio.ensure_future(sw._remove_peer(p, None))
+        # retained until done: the loop keeps only a weak reference to
+        # a task, and a collected one would leave its peer connected
+        spawn(sw._remove_peer(p, None), name="rpc.disconnect_peer")
     return {"log": f"disconnected {len(peers)} peers"}
 
 

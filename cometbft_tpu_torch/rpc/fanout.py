@@ -246,7 +246,7 @@ class FanoutHub:
             # concurrent reaps: each _reap_task is wait_for-bounded at
             # DETACH_WAIT_S internally, so the gather bounds the WHOLE
             # close at DETACH_WAIT_S (not per wedged writer)
-            await asyncio.gather(*(_reap_task(task) for task in tasks))
+            await asyncio.gather(*(_reap_task(task) for task in tasks))  # bftlint: disable=ASY110 — each reap is wait_for-bounded, so the gather bounds the whole close
 
     async def _stop_drain(self) -> None:
         t, self._drain_task = self._drain_task, None

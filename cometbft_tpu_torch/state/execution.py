@@ -54,6 +54,7 @@ DEFAULT_BLOCK_TIME_TOLERANCE_NS = 0
 
 
 def results_hash(tx_results: List[abci.ExecTxResult]) -> bytes:
+    # bftlint: disable-next=ASY123 — portable twin of the native lane; the finalize path reads artifacts.results_hash, this serves compat callers (light proxy, replay) on short lists
     return merkle.hash_from_byte_slices([r.encode() for r in tx_results])
 
 
@@ -436,7 +437,7 @@ class BlockExecutor:
                 data["events_enc"] = artifacts.tx_events_enc[i]
                 h = artifacts.tx_hashes[i].hex()
             else:
-                h = hashlib.sha256(tx).hexdigest()
+                h = hashlib.sha256(tx).hexdigest()  # bftlint: disable=ASY123 — no-artifacts fallback (replay/tests); the finalize path reuses artifacts.tx_hashes
             self.event_bus.publish_type(ev.EVENT_TX, data, hash=h)
         if resp.validator_updates:
             self.event_bus.publish_type(ev.EVENT_VALIDATOR_SET_UPDATES, resp.validator_updates)

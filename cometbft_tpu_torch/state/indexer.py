@@ -574,7 +574,7 @@ class IndexerService:
         inline flush in _seal (no loop exists to stall in that mode);
         with a loop, sealing hands the bundle to the bounded async
         drain."""
-        self.bus.add_sync_listener(self._on_event)
+        self.bus.add_sync_listener(self._on_event)  # bftlint: disable=ASY116 — listener only degrades inline when NO loop is running (CLI embedders)
 
     async def start_async(self, block_store=None, state_store=None) -> None:
         """Upgrade to the async drain (Node.start): replay any

@@ -213,7 +213,7 @@ def verify_commit(
     _basic_checks(vals, commit, height, block_id)
     items = []
     tally_idx = []
-    for i, cs in enumerate(commit.signatures):
+    for i, cs in enumerate(commit.signatures):  # bftlint: disable=ASY117 — verifying an O(V) commit payload is O(V) by construction; once per commit received, curve math batch-verified via the lane cache
         if cs.is_absent():
             continue
         val = vals.get_by_index(i)
@@ -619,7 +619,7 @@ def verify_extended_commit(
         cache=cache, priority=priority, device=device,
     )
     items = []
-    for i, s in enumerate(ec.extended_signatures):
+    for i, s in enumerate(ec.extended_signatures):  # bftlint: disable=ASY117 — verifying an O(V) commit payload is O(V) by construction; runs once per commit-block received and the curve math is batch-verified
         if not s.for_block():
             if s.extension or s.extension_signature:
                 raise CommitVerifyError(f"sig {i}: extension data on non-commit lane")

@@ -74,7 +74,7 @@ class ValidatorSet:
     def total_voting_power(self) -> int:
         """Memoized; only ``update_with_change_set`` changes powers."""
         if self._total_power is None:
-            tp = sum(v.voting_power for v in self.validators)
+            tp = sum(v.voting_power for v in self.validators)  # bftlint: disable=ASY117 — memoized: this sum reruns once per membership/power change, not per message
             if tp > MAX_TOTAL_VOTING_POWER:
                 raise ValueError("total voting power overflow")
             self._total_power = tp

@@ -156,7 +156,7 @@ def encode_commit(c: Commit) -> bytes:
             pass
     out = proto.field_varint(1, c.height) + proto.field_varint(2, c.round)
     out += proto.field_message(3, c.block_id.encode())
-    for cs in c.signatures:
+    for cs in c.signatures:  # bftlint: disable=ASY117 — serializing an O(V) commit payload is O(V) by construction: work is proportional to bytes written, once per commit shipped
         out += proto.field_message(4, encode_commit_sig(cs))
     return out
 
@@ -306,7 +306,7 @@ def encode_extended_commit(ec) -> bytes:
     storage shape): commit fields + per-sig extension data."""
     out = proto.field_varint(1, ec.height) + proto.field_varint(2, ec.round)
     out += proto.field_message(3, ec.block_id.encode())
-    for s in ec.extended_signatures:
+    for s in ec.extended_signatures:  # bftlint: disable=ASY117 — serializing an O(V) extended-commit payload is O(V) by construction, once per finalized height
         body = (
             encode_commit_sig(s)
             + proto.field_bytes(5, s.extension)

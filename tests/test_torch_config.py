@@ -8,8 +8,9 @@ sanitizer``) and what ``build_node`` does with them.
   port's writer gives a file the JAX loader reads to the same values.
 - ``[crypto] batch_backend``: "tpu" (the JAX name of the device route)
   becomes the process-wide "cuda" backend, "cpu" and "cpu-parallel"
-  are applied as named, "" inherits, and "mesh" raises a
-  ``ValueError`` naming ROADMAP A5 before anything is built.
+  are applied as named, "" inherits, and "mesh" (ported with ROADMAP
+  A5) is applied too: its verifier takes the host plane with fewer than
+  two CUDA devices.
 - ``[instrumentation] sanitizer``: on, ``build_node`` enables the
   runtime sanitizer before the planes build their locks (the block
   store's lock is then a ``SanitizedLock``); off, and with the
@@ -97,7 +98,8 @@ def test_a_key_the_port_does_not_read_loads_only_at_its_jax_default(tmp_path):
 
 
 @pytest.mark.parametrize("value, backend", [("tpu", "cuda"), ("cuda", "cuda"), ("cpu", "cpu"),
-                                            ("cpu-parallel", "cpu-parallel"), ("", None)])
+                                            ("cpu-parallel", "cpu-parallel"), ("", None),
+                                            ("mesh", "mesh")])
 def test_batch_backend_applies_at_build(default_backend, value, backend):
     gen, _ = make_genesis(1, chain_id="crypto-cfg")
     cfg = pconfig.test_config(".")
@@ -111,15 +113,28 @@ def test_batch_backend_applies_at_build(default_backend, value, backend):
 
 
 def test_batch_backend_mesh_raises_naming_a5(default_backend):
+    """Since ROADMAP A5 was ported, "mesh" no longer raises: it builds.
+    ``build_node`` makes it the process-wide backend, whose verifier
+    sends the lanes to the cards and, with no card (none here),
+    verifies on the host plane with the serial verdicts, as the JAX
+    backend does without a mesh. (The name is kept from when the value
+    raised, naming A5.)"""
+    from cometbft_tpu_torch.crypto import mesh_backend
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+
     gen, _ = make_genesis(1, chain_id="crypto-mesh")
     cfg = pconfig.test_config(".")
     cfg.crypto.batch_backend = "mesh"
-    before = batch.default_backend()
-    with pytest.raises(ValueError, match="A5"):
-        build_node(gen, config=cfg, device="cpu")
-    with pytest.raises(ValueError, match="A5"):
-        batch.config_backend("mesh")
-    assert batch.default_backend() == before
+    parts = build_node(gen, config=cfg, device="cpu")
+    parts.close_stores()
+    assert batch.config_backend("mesh") == "mesh"
+    assert batch.default_backend() == "mesh"
+    v = batch.create_batch_verifier(device="cpu")
+    assert isinstance(v, mesh_backend.MeshBatchVerifier)
+    sk = Ed25519PrivKey.from_seed(b"\x07" * 32)
+    v.add(sk.pub_key(), b"m", sk.sign(b"m"))
+    v.add(sk.pub_key(), b"n", sk.sign(b"m"))
+    assert v.verify() == (False, [True, False])
 
 
 def test_sanitizer_setting_enables_before_the_planes_build(sanitizer_state):

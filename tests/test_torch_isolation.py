@@ -69,6 +69,12 @@
   chaos and e2e command lines without ``--device cpu``; the node's
   ``load`` subcommand runs (it needs no device) and no longer raises
   ``NotImplementedError``.
+- bftlint (the rest of ``analysis/``), the multi-device lanes
+  (``parallel/``) and the two crypto modules of the last slice
+  (``crypto/mesh_backend.py``, ``crypto/bls12381.py``) are among the
+  modules the probe imports and, imported alone, load neither ``jax``
+  nor ``cometbft_tpu``; the linter loads no torch either. With no
+  GPU, ``parallel.mesh.make_mesh()`` raises the device error.
 """
 
 import os
@@ -144,6 +150,14 @@ NETWORK_MODULES = [
     "chaos", "chaos.schedule", "chaos.workload", "chaos.generator", "chaos.invariants", "chaos.links",
     "chaos.verify_storm", "chaos.nemesis", "chaos.net", "chaos.matrix", "chaos.soak", "chaos.__main__",
     "e2e", "e2e.manifest", "e2e.generator", "e2e.load", "e2e.runner",
+    # bftlint and the multi-device lanes
+    "analysis.findings", "analysis.astutil", "analysis.registry", "analysis.suppress",
+    "analysis.baseline", "analysis.engine", "analysis.callgraph", "analysis.complexity",
+    "analysis.rules", "analysis.rules.async_rules", "analysis.rules.interproc_rules",
+    "analysis.rules.complexity_rules", "analysis.rules.finalize_rules", "analysis.rules.trace_rules",
+    "analysis.rules.torch_rules", "analysis.cli", "analysis.__main__",
+    "parallel", "parallel.mesh", "parallel.sharded_verify", "parallel.dryrun",
+    "crypto.mesh_backend", "crypto.bls12381",
 ]
 
 
@@ -204,6 +218,27 @@ def test_fleet_analysis_and_fuzz_import_no_jax_and_no_reference_package():
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert light.returncode == 0, light.stderr
     assert light.stdout.strip() == "False"
+
+
+_LAST_SLICE_PROBE = """
+import sys
+import cometbft_tpu_torch.analysis.cli, cometbft_tpu_torch.analysis.rules.torch_rules
+print("torch" in sys.modules)
+import cometbft_tpu_torch.parallel.sharded_verify, cometbft_tpu_torch.parallel.dryrun
+import cometbft_tpu_torch.crypto.mesh_backend, cometbft_tpu_torch.crypto.bls12381
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "cometbft_tpu")))
+"""
+
+
+def test_last_slice_imports_no_jax_and_no_reference_package(no_gpu):
+    proc = subprocess.run([sys.executable, "-c", _LAST_SLICE_PROBE], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.splitlines() == ["False", "[]"], proc.stdout
+    from cometbft_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
 
 
 _CHAOS_PROBE = """
