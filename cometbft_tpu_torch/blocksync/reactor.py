@@ -30,6 +30,15 @@ that applies resets the wait. A failing card is not replaced by the
 host plane, and a failed route in the extended-commit check is no
 verdict on the peer (ROADMAP C7): it reaches the pool routine as it
 is, with no refetch and no ban.
+
+Spans on the reactor's ``tracer``, tid ``blocksync`` (docs/TRACE.md):
+a pass is ``prepare``, ``verify_wait``, ``lookahead`` and ``apply``
+under ``blocksync.window.``; ``apply`` holds ``stage``, ``persist``
+and one ``exec`` a block, in which the executor records its own
+``exec.*`` phases on the same tracer. Between passes the routine
+records ``fill_wait`` (too few blocks buffered), ``backoff`` (the
+retry sleeps) and ``yield`` (the pool's fetch tasks running on the
+loop before the next pass).
 """
 
 from __future__ import annotations
@@ -157,7 +166,22 @@ class BlockSyncReactor:
         self.retry_s = RETRY_MIN_S
         self._task: Optional[asyncio.Task] = None
         self._stopped = False
-        self.tracer = TRACE_NOOP
+        # blocks a second of the last window that applied any, from its
+        # prepare to its last apply (the Prometheus window gauge)
+        self.last_window_bps = 0.0
+        self._tracer = TRACE_NOOP
+
+    @property
+    def tracer(self):
+        """The window spans' tracer (``blocksync.window.*``)."""
+        return self._tracer
+
+    @tracer.setter
+    def tracer(self, tracer) -> None:
+        # the executor this reactor drives records its phase spans
+        # (exec.*) on the same ring, nested in blocksync.window.exec
+        self._tracer = tracer
+        self.block_exec.tracer = tracer
 
     # --- lifecycle ----------------------------------------------------
 
@@ -207,8 +231,10 @@ class BlockSyncReactor:
             # pre-dispatches the next window before applying this one
             window = self.pool.peek_window(self.window * 2)
             if len(window) < 2:
-                await self.pool.wait_for_block()
+                with self.tracer.span("blocksync.window.fill_wait", tid="blocksync", blocks=len(window)):
+                    await self.pool.wait_for_block()
                 continue
+            t0 = time.monotonic()
             try:
                 if self.ingestor is None:
                     applied = await self._process_window_overlapped(window)
@@ -228,13 +254,18 @@ class BlockSyncReactor:
                 # back off while the same error repeats
                 self.retry_s = min(2 * self.retry_s, RETRY_MAX_S) if kind == last_kind else RETRY_MIN_S
                 last_kind = kind
-                await asyncio.sleep(self.retry_s)
+                with self.tracer.span("blocksync.window.backoff", tid="blocksync", reason="error"):
+                    await asyncio.sleep(self.retry_s)
                 continue
             if applied:
                 self.retry_s, last_kind = RETRY_MIN_S, None
+                self.last_window_bps = applied / (time.monotonic() - t0)
             else:
-                await asyncio.sleep(RETRY_MIN_S)
-            await asyncio.sleep(0)  # yield
+                with self.tracer.span("blocksync.window.backoff", tid="blocksync", reason="none_applied"):
+                    await asyncio.sleep(RETRY_MIN_S)
+            # the fetch tasks the pass left pending run here
+            with self.tracer.span("blocksync.window.yield", tid="blocksync"):
+                await asyncio.sleep(0)
 
     def _process_window(self, window) -> int:
         """Verify every verifiable height of the window in ONE dispatch,
@@ -359,15 +390,20 @@ class BlockSyncReactor:
         the requesters fetched meanwhile. Built on the pre-apply
         valset: only heights whose headers name the same
         validators_hash enter it, and the reuse key is checked against
-        the post-apply state before any verdict is consumed."""
-        tail = self.pool.peek_window(self.window * 2)[n_skip:]
-        if len(tail) < 2:
-            return None
-        pre_jobs, pre_key = self._build_jobs(tail, self.state.validators.hash(), self.window - 1)
-        if not pre_jobs:
-            return None
-        self.pipeline_stats["predispatched"] += 1
-        return pre_key, self._dispatch(pre_jobs)
+        the post-apply state before any verdict is consumed. Its span
+        (``blocksync.window.lookahead``) lies between the window's
+        verify_wait and its apply: the peek, the jobs, their sign
+        bytes and the dispatch."""
+        with self.tracer.span("blocksync.window.lookahead", tid="blocksync", jobs=0) as sp:
+            tail = self.pool.peek_window(self.window * 2)[n_skip:]
+            if len(tail) < 2:
+                return None
+            pre_jobs, pre_key = self._build_jobs(tail, self.state.validators.hash(), self.window - 1)
+            if not pre_jobs:
+                return None
+            sp.set(jobs=len(pre_jobs))
+            self.pipeline_stats["predispatched"] += 1
+            return pre_key, self._dispatch(pre_jobs)
 
     def _canonical_parts(self, blk, nxt):
         """The block's part set: from the peer's wire bytes when they
@@ -402,31 +438,32 @@ class BlockSyncReactor:
         parts_by_idx = {}
         ec_by_idx = {}
         entries = []
-        for i in range(len(jobs) if self.ingestor is None else 0):
-            if errors[i] is not None:
-                break
-            h, blk, peer_i = window[i]
-            _, nxt, _ = window[i + 1]
-            try:
-                blk.validate_basic()
-            except ValueError:
-                break  # the apply loop refuses it and refetches
-            parts = self._canonical_parts(blk, nxt)
-            parts_by_idx[i] = parts
-            # a block whose extended commit is missing or invalid never
-            # enters the store bare
-            enabled = self.state.consensus_params.vote_extensions_enabled(h)
-            try:
-                ec_bytes = self._check_extended_commit(h, blk, peer_i)
-            except DeviceRouteError:
-                raise  # no verdict on the peer (C7): nothing staged
-            except Exception:
-                # the apply loop below re-runs the check at this height
-                # and owns the tolerance and redo logic
-                break
-            ec_by_idx[i] = (enabled, ec_bytes)
-            if self.block_store.height() < h:
-                entries.append((blk, parts, nxt.last_commit))
+        with self.tracer.span("blocksync.window.stage", tid="blocksync"):
+            for i in range(len(jobs) if self.ingestor is None else 0):
+                if errors[i] is not None:
+                    break
+                h, blk, peer_i = window[i]
+                _, nxt, _ = window[i + 1]
+                try:
+                    blk.validate_basic()
+                except ValueError:
+                    break  # the apply loop refuses it and refetches
+                parts = self._canonical_parts(blk, nxt)
+                parts_by_idx[i] = parts
+                # a block whose extended commit is missing or invalid never
+                # enters the store bare
+                enabled = self.state.consensus_params.vote_extensions_enabled(h)
+                try:
+                    ec_bytes = self._check_extended_commit(h, blk, peer_i)
+                except DeviceRouteError:
+                    raise  # no verdict on the peer (C7): nothing staged
+                except Exception:
+                    # the apply loop below re-runs the check at this height
+                    # and owns the tolerance and redo logic
+                    break
+                ec_by_idx[i] = (enabled, ec_bytes)
+                if self.block_store.height() < h:
+                    entries.append((blk, parts, nxt.last_commit))
         if entries:
             with self.tracer.span("blocksync.window.persist", tid="blocksync", blocks=len(entries)):
                 self.block_store.save_block_batch(entries)
@@ -534,7 +571,8 @@ class BlockSyncReactor:
                 # behind an EC decision made in this loop was not staged
                 if self.block_store.height() < h:
                     self.block_store.save_block(blk, parts, nxt.last_commit)
-                self.state = self.block_exec.apply_verified_block(self.state, bid, blk)
+                with self.tracer.span("blocksync.window.exec", tid="blocksync", height=h):
+                    self.state = self.block_exec.apply_verified_block(self.state, bid, blk)
             if h in self._ec_misses:
                 del self._ec_misses[h]
                 self.pool.clear_exclusions(h)

@@ -32,11 +32,12 @@ them. The networked node over these parts is ``node/node.py``'s
 ``Node``. With ``config.instrumentation.trace_enabled`` (the default)
 ``build_node`` makes the node's ring tracer (``parts.tracer``, sized
 ``trace_ring_size``, anchored by ``record_clock_anchor``), hands it to
-the consensus state (and so its WAL), the mempool, the indexer service
-and the retention plane, and enables the process-wide tracer, as the
-JAX ``build_node`` does. With ``config.instrumentation.sanitizer``
-(``test_config`` sets it) ``build_node`` enables the runtime
-sanitizer (``analysis/runtime.py``) before any plane builds its locks,
+the consensus state (and so its WAL), the mempool, the block
+executor, the indexer service and the retention plane, and enables
+the process-wide tracer, as the JAX ``build_node`` does. With
+``config.instrumentation.sanitizer`` (``test_config`` sets it)
+``build_node`` enables the runtime sanitizer (``analysis/runtime.py``)
+before any plane builds its locks,
 and a non-empty ``config.crypto.batch_backend`` becomes the
 process-wide verify backend (``crypto/batch.config_backend``: the JAX
 name "tpu" is "cuda"; "mesh" splits the lanes over every CUDA device).
@@ -310,6 +311,7 @@ def build_node(
     )
     cs.tracer = tracer
     mempool.tracer = tracer
+    block_exec.tracer = tracer
     # the retention plane owns all pruning once enabled: the executor's
     # inline prune hands the app's retain_height to it
     retention = RetentionPlane(

@@ -22,7 +22,12 @@ indexer and the RPC fan-out read. The app's Commit ``retain_height``
 goes to the retention plane's ``retention_hook`` when the node has one
 (``_prune``, reference :527-545), else prunes blocks and states inline.
 The crash points around FinalizeBlock, the stored response and Commit
-are the JAX package's (``utils/fail.py``, reference :313-363).
+are the JAX package's (``utils/fail.py``, reference :313-363). Four
+phases record a span each on the executor's ``tracer``, tid ``exec``:
+``exec.finalize`` (the FinalizeBlock request and call), ``exec.save``
+(the finalize pass, the stored response and the state save),
+``exec.commit`` (Commit and the mempool update) and ``exec.events``
+(docs/TRACE.md).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from ..crypto import merkle
 from ..crypto.keys import pubkey_from_type_bytes
 from ..device import resolve
 from ..evidence.types import DuplicateVoteEvidence, LightClientAttackEvidence
+from ..trace import NOOP as TRACE_NOOP
 from ..types import events as ev
 from ..types.block import Block, BlockID, Commit, Data, Header
 from ..types.part_set import PartSet
@@ -243,6 +249,9 @@ class BlockExecutor:
         # when set; without a hook the executor prunes inline
         self._retain_height = 0
         self.retention_hook = None
+        # the phase spans (exec.*); node assembly and a blocksync
+        # reactor that drives this executor point it at their ring
+        self.tracer = TRACE_NOOP
 
     # --- proposal creation (reference :114) ---------------------------
 
@@ -379,17 +388,18 @@ class BlockExecutor:
         """Phase 1: validate, then ABCI FinalizeBlock."""
         if not verified:
             self.validate_block(state, block)
-        req = abci.RequestFinalizeBlock(
-            txs=block.data.txs,
-            decided_last_commit=build_last_commit_info(block.last_commit, state.last_validators),
-            misbehavior=evidence_to_misbehavior(block.evidence),
-            hash=block.hash(),
-            height=block.height,
-            time_ns=block.header.time_ns,
-            next_validators_hash=block.header.next_validators_hash,
-            proposer_address=block.header.proposer_address,
-        )
-        resp = self.proxy.finalize_block(req)
+        with self.tracer.span("exec.finalize", tid="exec", height=block.height):
+            req = abci.RequestFinalizeBlock(
+                txs=block.data.txs,
+                decided_last_commit=build_last_commit_info(block.last_commit, state.last_validators),
+                misbehavior=evidence_to_misbehavior(block.evidence),
+                hash=block.hash(),
+                height=block.height,
+                time_ns=block.header.time_ns,
+                next_validators_hash=block.header.next_validators_hash,
+                proposer_address=block.header.proposer_address,
+            )
+            resp = self.proxy.finalize_block(req)
         fail_point("exec-after-finalize")  # reference execution.go:313
         if len(resp.tx_results) != len(block.data.txs):
             raise RuntimeError("app returned wrong number of tx results")
@@ -398,23 +408,26 @@ class BlockExecutor:
     def apply_hash_persist(self, state: State, block_id: BlockID, block: Block, resp):
         """Phase 2: the finalize pass, then the stored response and the
         new state, both from its encodings."""
-        artifacts = native_finalize.finalize_pass(block.data.txs, resp)
-        self.store.save_finalize_block_response(
-            block.height, encode_finalize_response(resp, artifacts)
-        )
-        fail_point("exec-after-save-response")  # :320
-        return self._update_state(state, block_id, block, resp, artifacts), artifacts
+        with self.tracer.span("exec.save", tid="exec", height=block.height):
+            artifacts = native_finalize.finalize_pass(block.data.txs, resp)
+            self.store.save_finalize_block_response(
+                block.height, encode_finalize_response(resp, artifacts)
+            )
+            fail_point("exec-after-save-response")  # :320
+            return self._update_state(state, block_id, block, resp, artifacts), artifacts
 
     def apply_complete(
         self, new_state: State, block_id: BlockID, block: Block, resp, artifacts=None
     ) -> State:
         """Phase 3: the app's Commit, the mempool update, the evidence
         pool's update, pruning and the block's events."""
-        self._commit(block, resp)
+        with self.tracer.span("exec.commit", tid="exec", height=block.height):
+            self._commit(block, resp)
         if self.evpool:
             self.evpool.update(new_state, block.evidence)
         self._prune()
-        self._fire_events(block, block_id, resp, artifacts)
+        with self.tracer.span("exec.events", tid="exec", height=block.height):
+            self._fire_events(block, block_id, resp, artifacts)
         return new_state
 
     def _fire_events(self, block, block_id, resp, artifacts=None) -> None:

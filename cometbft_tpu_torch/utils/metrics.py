@@ -96,7 +96,8 @@ class NodeMetrics:
         self.validators = gauge(
             "consensus", "validators", "validator-set size"
         )
-        # state (reference state/execution.go:292 BlockProcessingTime)
+        # state (reference state/execution.go:292 BlockProcessingTime;
+        # fed by the exec.finalize span through the bridge below)
         self.block_processing = hist(
             "state",
             "block_processing_seconds",
@@ -461,9 +462,6 @@ class NodeMetrics:
             self._g_storage["disk_bytes"].labels(
                 chain_id=self.chain_id
             ).set_function(lambda: ret.disk_bytes() or 0)
-        p.block_exec.block_processing_observer = (
-            self.block_processing.observe
-        )
         # span→metrics bridge: completed spans from the node's tracer
         # feed the step/window/fsync histograms (trace/bridge.py)
         tracer = getattr(p, "tracer", None)
@@ -478,12 +476,22 @@ class NodeMetrics:
                     chain_id=cid, step=str(args.get("step", "?"))
                 ).observe(dur_s),
             )
-            for stage in ("prepare", "verify_wait", "apply", "persist"):
+            for stage in (
+                "prepare", "verify_wait", "lookahead", "fill_wait",
+                "yield", "apply", "stage", "persist",
+            ):
                 bridge.route(
                     f"blocksync.window.{stage}",
                     lambda dur_s, args, s=stage: self._h_bs_window
                     .labels(chain_id=cid, stage=s).observe(dur_s),
                 )
+            # upstream's BlockProcessingTime times FinalizeBlock
+            bridge.route(
+                "exec.finalize",
+                lambda dur_s, args: self.block_processing.observe(
+                    dur_s
+                ),
+            )
             bridge.route(
                 "wal.fsync",
                 lambda dur_s, args: self._h_wal_fsync.labels(

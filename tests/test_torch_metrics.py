@@ -9,7 +9,9 @@ the port, and parity cases.
   histogram, queue gauges, quorum latency and vote skew; over lp2p the
   traffic gauges read the muxed peers and stamped traffic lands
   propagation samples; a light serving plane's spans feed the light
-  families.
+  families; a blocksync joiner's spans feed the block-processing
+  histogram (one ``exec.finalize`` a block), the window histogram and
+  the window gauge.
 - The missing-library tier is a refusal, not a placeholder (a port
   departure): where the JAX module degrades every metric to a no-op
   shim and serves a placeholder page, the port's ``NodeMetrics``
@@ -19,8 +21,9 @@ the port, and parity cases.
 - Parity: a bare ``NodeMetrics`` of each package registers the same
   families (name, type, help text) with the same label names and
   histogram buckets; a one-validator node of each package, driven
-  alike, exposes the same sample names, label names and queue labels,
-  and equal deterministic counters (txs committed, blocks synced,
+  alike, exposes the same sample names (but the port's fill-wait window
+  samples), label names and queue labels, and equal deterministic
+  counters (txs committed, blocks synced,
   validators, peers, mempool size).
 """
 
@@ -279,6 +282,49 @@ def test_light_metrics_real_tier():
         node.close_stores()
 
 
+def test_blocksync_catch_up_feeds_block_processing_and_window_gauge():
+    """A joiner's metrics attached as ``Node`` attaches them, its
+    blocksync reactor on the node's ring as ``Node`` sets it: each
+    applied block lands one ``exec.finalize`` observation in
+    ``cometbft_state_block_processing_seconds``, the window gauge reads
+    the last window's rate, and the lookahead, fill-wait, yield and
+    staging stages reach ``cometbft_blocksync_window_seconds``."""
+    import types
+
+    from cometbft_tpu_torch.blocksync.reactor import BlockSyncReactor
+    from cometbft_tpu_torch.node.inprocess import build_node
+    from cometbft_tpu_torch.utils.chaingen import StorePeerClient, make_chain
+
+    gen, privs = make_genesis(3, chain_id="sync-metrics", seed=21)
+    src = make_chain(gen, privs, 20, device="cpu")
+
+    async def main():
+        fresh = build_node(gen, device="cpu")
+        caught = asyncio.Event()
+        reactor = BlockSyncReactor(fresh.state, fresh.block_exec, fresh.block_store,
+                                   on_caught_up=lambda st: caught.set(), verify_window=8, device="cpu")
+        reactor.tracer = fresh.tracer
+        node = types.SimpleNamespace(
+            parts=fresh, switch=types.SimpleNamespace(num_peers=lambda: 0, peers={}),
+            blocksync_reactor=types.SimpleNamespace(inner=reactor), mempool_reactor=None,
+            consensus_reactor=None)
+        m = metrics_mod.NodeMetrics("sync-metrics")
+        m.attach(node)
+        assert _value(m.render().decode(), "cometbft_blocksync_window_blocks_per_s{") == 0.0
+        await reactor.start()
+        reactor.pool.set_peer_range("src", StorePeerClient(src), 1, src.block_store.height())
+        await asyncio.wait_for(caught.wait(), 90)
+        await reactor.stop()
+        return m.render().decode(), reactor
+
+    text, reactor = run(main())
+    assert reactor.blocks_applied >= 18
+    assert _value(text, "cometbft_state_block_processing_seconds_count{") == reactor.blocks_applied
+    assert _value(text, "cometbft_blocksync_window_blocks_per_s{") == reactor.last_window_bps > 0
+    for stage in ("prepare", "verify_wait", "lookahead", "fill_wait", "yield", "apply", "stage", "persist"):
+        assert _value(text, f'cometbft_blocksync_window_seconds_count{{chain_id="sync-metrics",stage="{stage}"}}') > 0
+
+
 # --- parity with the JAX package -------------------------------------------
 
 
@@ -394,7 +440,16 @@ def test_node_metrics_equal_jax_on_the_same_run(tmp_path):
 
     mine, theirs = run(main(), timeout=120)
     (p_pairs, p_queues), (j_pairs, j_queues) = _samples(mine), _samples(theirs)
-    assert p_pairs == j_pairs, (p_pairs ^ j_pairs)
+    # one departure: the port's replay loop spans its wait on peers
+    # (blocksync.window.fill_wait), the JAX package's does not, so the
+    # node's start in blocksync lands window samples of that stage alone
+    stages = {ln.split('stage="', 1)[1].split('"', 1)[0] for ln in mine.splitlines()
+              if ln.startswith("cometbft_blocksync_window_seconds_count{")}
+    assert stages <= {"fill_wait"}, stages
+    window = {n for n, _ in p_pairs if n.startswith("cometbft_blocksync_window_seconds_")}
+    assert p_pairs - j_pairs == ({(n, k) for n, k in p_pairs if n in window} if stages else set()), (
+        p_pairs ^ j_pairs)
+    assert j_pairs <= p_pairs, (p_pairs ^ j_pairs)
     assert p_queues == j_queues and "mempool.ingest" in p_queues
     for prefix in DETERMINISTIC:
         assert _value(mine, prefix) == _value(theirs, prefix), prefix
